@@ -2,24 +2,34 @@
 """GPU smoke run of moma_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, then drives the MoMA
 student training path (effiB0 student and teacher at 512^2, batch 64,
-K=16384, bf16) through its CLI entry point for one epoch of synthetic data
-and checks that every train-mode BatchNorm and RandAugment layer went
-through the hand-written kernels.
+K=16384, bf16) through its CLI entry point for one epoch of synthetic data,
+once with the MoCo memory (`--mem MoCo --attn self`) and once with MoCoAtt
+(`--mem MoCoAtt --attn all`, attention over 2*64 + 16384 tokens), and checks
+that every train-mode BatchNorm, RandAugment layer and many-token attention
+went through the hand-written kernels.
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
 Phases (each prints its own lines):
   1 device     : torch.cuda.is_available() or fail; card name + power limit
-  2 build      : nvcc-compile moma_tpu_torch/csrc/*.cu into build/
-  3 kernels    : kernel vs plain version at the main path's shapes, with
-                 max error and CUDA-event times (median of 20)
+  2 build      : nvcc-compile moma_tpu_torch/csrc/*.cu into build/, one
+                 nvcc per source, all started together
+  3 kernels    : kernel vs plain version at the main paths' shapes, with
+                 max error and CUDA-event times (median of 20; of 5 for the
+                 flash-attention kernels), the least time the card could
+                 take (bound) and, where one PyTorch call computes the same
+                 function, that call's time (library; used nowhere in the
+                 package)
   4 step parity: one MoMA step at 64^2, batch 4, f32 on the CPU (plain
-                 versions) and on the card (kernels), same weights and draws
-  5 main path  : `python -m moma_tpu_torch.cli.train_student ...` in-process;
-                 finite losses, queue pointer, launch counts, step time,
-                 img/s, peak memory
-The last two lines of stdout are one JSON object with the per-kernel
-results and one with {"ok": true, "device": {...}}.
+                 versions) and on the card (kernels), same weights and
+                 draws; MoCo at K=64, then MoCoAtt 'all' at K=2048 (2056
+                 tokens, the streaming route on both devices)
+  5 main paths : `python -m moma_tpu_torch.cli.train_student ...` in-process,
+                 MoCo then MoCoAtt; finite losses, queue pointer, launch
+                 counts (set to 0 just before each path), step time, img/s,
+                 peak memory
+The last three lines of stdout are one JSON object with the per-kernel
+results, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,6 +52,20 @@ MAIN_ARGS = [
     "self", "--mem", "MoCo", "-c", "1", "-d", "1", "-b", "1", "--epochs",
     "1", "--synthetic", "--device", "cuda", "--print_freq", "1",
 ]
+MOCOATT_ARGS = [
+    {"MoCo": "MoCoAtt", "self": "all"}.get(a, a) for a in MAIN_ARGS]
+# peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, and the
+# float32 rate outside the tensor cores, which is what the kernels'
+# float32 FMAs are entitled to
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+FLASH_SHAPE = (4, 2 * 64 + 16384, 128)   # (heads, 2B+K tokens, head dim)
+FLASH_SMALL = (4, 333, 32)               # ragged tiles, bf16
+FLASH_ITERS = 5
+# of the largest entry of the reference: float32 kernel and plain version
+# differ in the order of their float32 sums (16512 terms); in bf16 both
+# round p and ds to bf16, a few land on the other side of a rounding edge
+FLASH_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BN_SHAPES = [(64, 256, 256, 32), (64, 256, 256, 96), (64, 16, 16, 1280)]
 BN_RTOL = 1e-4      # of sum|x| per channel: the bound of an f32 sum's error
 RA_SHAPE = (64, 3, 512, 512)
@@ -94,14 +118,19 @@ def phase_device():
 
 
 def phase_build():
-    from moma_tpu_torch.ops import _build, fused_bn, randaugment
+    from concurrent.futures import ThreadPoolExecutor
+
+    from moma_tpu_torch.ops import (_build, flash_attention, fused_bn,
+                                    randaugment)
 
     t0 = time.perf_counter()
-    fused_bn._lib()
-    randaugment._lib()
+    with ThreadPoolExecutor(max_workers=3) as pool:   # one nvcc per source
+        for fut in [pool.submit(m._lib) for m in
+                    (flash_attention, fused_bn, randaugment)]:
+            fut.result()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc seconds per library: {_build.build_seconds()})")
-    for name in ("bn_sums", "randaugment"):
+    for name in ("bn_sums", "randaugment", "flash_attention"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -152,18 +181,55 @@ def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
                     f"plain {plain_ms:.3f} ms")
                 if shape == shapes[1] and dtype == torch.bfloat16:
                     times[name] = (ms, plain_ms)
+            if shape == shapes[1] and dtype == torch.bfloat16:
+                # one PyTorch call for the same reduction, on the same
+                # memory seen as a channels_last NCHW tensor
+                xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+                invstd = torch.rsqrt(x.float().var((0, 1, 2)) + 1e-5)
+                weight = torch.ones_like(mean)
+                lib = {
+                    "channel_sums": cuda_time_ms(
+                        lambda: torch.batch_norm_stats(xn, 1e-5)),
+                    "grad_channel_sums": cuda_time_ms(
+                        lambda: torch.batch_norm_backward_reduce(
+                            dyn, xn, mean, invstd, weight, True, True, True)),
+                }
+                got = torch.batch_norm_backward_reduce(
+                    dyn, xn, mean, invstd, weight, True, True, True)
+                want = FB.grad_channel_sums_plain(dy, x, mean)
+                lib_err = max(float(((g - w).abs() / (b + 1e-6)).max())
+                              for g, w, b in zip(got[:2], want,
+                                                 (abs_dy, abs_dyxm)))
+                if not lib_err <= 1e-3:
+                    raise AssertionError(
+                        "batch_norm_backward_reduce is not the same "
+                        f"function: {lib_err:.2e} of sum|.|")
+                nbytes = x.numel() * x.element_size()
+                bounds_ms = {"channel_sums": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "grad_channel_sums":
+                             2 * nbytes / HBM_BYTES_PER_S * 1e3}
+                log(f"[kernels] library calls at {shape} bf16: "
+                    f"batch_norm_stats {lib['channel_sums']:.3f} ms, "
+                    f"batch_norm_backward_reduce "
+                    f"{lib['grad_channel_sums']:.3f} ms; bounds (bytes at "
+                    f"3.35 TB/s) {bounds_ms['channel_sums']:.3f} / "
+                    f"{bounds_ms['grad_channel_sums']:.3f} ms")
             del x, dy
     results["channel_sums"] = {
         "source": "moma_tpu_torch/csrc/bn_sums.cu",
         "replaces": "moma_tpu/ops/fused_bn.py:149",
         "max_abs_err": worst["channel_sums"],
-        "ms": times["channel_sums"][0], "plain_ms": times["channel_sums"][1]}
+        "ms": times["channel_sums"][0], "plain_ms": times["channel_sums"][1],
+        "bound_ms": bounds_ms["channel_sums"], "bound_by": "bytes",
+        "library_ms": lib["channel_sums"]}
     results["grad_channel_sums"] = {
         "source": "moma_tpu_torch/csrc/bn_sums.cu",
         "replaces": "moma_tpu/ops/fused_bn.py:162",
         "max_abs_err": worst["grad_channel_sums"],
         "ms": times["grad_channel_sums"][0],
-        "plain_ms": times["grad_channel_sums"][1]}
+        "plain_ms": times["grad_channel_sums"][1],
+        "bound_ms": bounds_ms["grad_channel_sums"], "bound_by": "bytes",
+        "library_ms": lib["grad_channel_sums"]}
 
 
 def phase_ra_kernel(results, dev="cuda", shape=RA_SHAPE):
@@ -216,10 +282,115 @@ def phase_ra_kernel(results, dev="cuda", shape=RA_SHAPE):
     results["ra_layer"] = {
         "source": "moma_tpu_torch/csrc/randaugment.cu",
         "replaces": "moma_tpu/ops/pallas_randaugment.py:214",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        # the image is read once and written once; no single PyTorch call
+        # applies a per-image choice of 15 ops
+        "bound_ms": 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None}
 
 
-def phase_step_parity():
+def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
+                        small=FLASH_SMALL):
+    """flash_fwd / flash_dq / flash_dkv against their plain versions at the
+    MoCoAtt path's shape in float32 and at one ragged shape in bf16; times,
+    bounds and the library yardstick at the path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from moma_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+
+    def inputs(shp, dtype):
+        H, N, d = shp
+        qs = (torch.randn(shp, generator=gen, device=dev) * d ** -0.5)
+        k, v, do = (torch.randn(shp, generator=gen, device=dev)
+                    for _ in range(3))
+        return [t.to(dtype) for t in (qs, k, v, do)]
+
+    def check(name, shp, dtype, got, want):
+        sync(dev)
+        rtol = FLASH_RTOL[str(dtype)[6:]]
+        for g, w in zip(got, want):
+            err = float((g.float() - w.float()).abs().max())
+            ref = float(w.float().abs().max())
+            worst[name] = max(worst[name], err)
+            if not (math.isfinite(err) and err <= rtol * ref):
+                raise AssertionError(
+                    f"{name} {shp} {dtype}: max abs err {err:.3e} exceeds "
+                    f"{rtol} of max|ref| {ref:.3e}")
+        return err
+
+    for shp, dtype in ((small, torch.bfloat16), (shape, torch.float32)):
+        qs, k, v, do = inputs(shp, dtype)
+        o, m, l = FA._forward_stats(qs, k, v)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        cases = {
+            "flash_fwd": (lambda: FA.flash_fwd(qs, k, v),
+                          lambda: FA._forward_stats(qs, k, v)),
+            "flash_dq": (lambda: (FA.flash_dq(qs, k, v, do, m, l, delta),),
+                         lambda: (FA.flash_dq_plain(qs, k, v, do, m, l,
+                                                    delta),)),
+            "flash_dkv": (lambda: FA.flash_dkv(qs, k, v, do, m, l, delta),
+                          lambda: FA.flash_dkv_plain(qs, k, v, do, m, l,
+                                                     delta)),
+        }
+        for name, (kern, plain) in cases.items():
+            err = check(name, shp, dtype, kern(), plain())
+            log(f"[kernels] {name} {shp} {str(dtype)[6:]}: max abs err "
+                f"{err:.2e}")
+    # times at the path's shape (float32; the last inputs of the loop)
+    H, N, d = shape
+    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+    n_in = {"flash_fwd": 3, "flash_dq": 4, "flash_dkv": 4}
+    n_out = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 2}
+    q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (qs, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        torch.autograd.grad(out, (q4, k4, v4), do[None])
+
+    lib_err = float((sdpa_fwd()[0] - o).abs().max())
+    if not lib_err <= 1e-3:
+        raise AssertionError("scaled_dot_product_attention is not the same "
+                             f"function: max abs diff {lib_err:.2e}")
+    lib_fwd = cuda_time_ms(sdpa_fwd, FLASH_ITERS)
+    lib_bwd = cuda_time_ms(sdpa_fwd_bwd, FLASH_ITERS) - lib_fwd
+    log(f"[kernels] library yardstick scaled_dot_product_attention {shape} "
+        f"f32: forward {lib_fwd:.3f} ms, backward (dq, dk and dv together; "
+        f"forward+backward minus forward) {lib_bwd:.3f} ms")
+    for name, (kern, plain) in cases.items():
+        ms = cuda_time_ms(kern, FLASH_ITERS)
+        plain_ms = cuda_time_ms(plain, FLASH_ITERS)
+        op_ms = flops[name] * H * N * N * d / F32_FLOPS * 1e3
+        byte_ms = ((n_in[name] + n_out[name]) * H * N * d * 4
+                   / HBM_BYTES_PER_S * 1e3)
+        log(f"[kernels] {name} {shape} f32: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.3f} ms "
+            f"(operations at 67 TFLOP/s f32 {op_ms:.3f}, bytes "
+            f"{byte_ms:.4f}; at the 989 TFLOP/s bf16 tensor rate the "
+            f"operations would take {op_ms * 67 / 989:.3f} ms)")
+        results[name] = {
+            "source": "moma_tpu_torch/csrc/flash_attention.cu",
+            "replaces": {"flash_fwd": "moma_tpu/ops/flash_attention.py:112",
+                         "flash_dq": "moma_tpu/ops/flash_attention.py:203",
+                         "flash_dkv": "moma_tpu/ops/flash_attention.py:240"
+                         }[name],
+            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            # dq and dkv: the library's whole backward, which does the work
+            # of both kernels in one call
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd}
+
+
+def phase_step_parity(mem="MoCo", attn="self", nce_k="64"):
     """One MoMA step (augmentation included) at 64^2, batch 4, f32: the
     CPU run uses every kernel's plain version, the CUDA run the kernels;
     same weights, images and draws.  TF32 off, so the gap is f32
@@ -237,8 +408,9 @@ def phase_step_parity():
     cfg = parse_student_args([
         "--distill", "moma", "--dataset", "prostate_hv", "--model_s",
         "effiB0", "--model_t", "effiB0", "--image_size", "64",
-        "--batch_size", "4", "--nce_k", "64", "--feat_dim", "32", "--head",
-        "mlp", "--attn", "self", "-b", "1", "--fp32", "--epochs", "1"])
+        "--batch_size", "4", "--nce_k", nce_k, "--feat_dim", "32", "--head",
+        "mlp", "--mem", mem, "--attn", attn, "-b", "1", "--fp32", "--epochs",
+        "1"])
     rs = np.random.RandomState(0)
     batch = {"image": rs.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
              "label": rs.randint(0, 4, (4,)).astype(np.int32)}
@@ -270,12 +442,16 @@ def phase_step_parity():
     if not (worst <= 1e-3 and qerr <= 1e-3):
         raise AssertionError(f"step parity: student params rel {worst:.2e}, "
                              f"queue {qerr:.2e}")
-    log(f"[parity] 64^2 f32 step cpu vs cuda: loss {float(mc['loss']):.6f} "
-        f"vs {float(mg['loss']):.6f}; student params max rel diff "
-        f"{worst:.2e}; queue max diff {qerr:.2e}")
+    log(f"[parity] {mem}/{attn} K={nce_k} 64^2 f32 step cpu vs cuda: loss "
+        f"{float(mc['loss']):.6f} vs {float(mg['loss']):.6f}; loss_kd "
+        f"{float(mc['loss_kd']):.6f} vs {float(mg['loss_kd']):.6f}; student "
+        f"params max rel diff {worst:.2e}; queue max diff {qerr:.2e}")
 
 
-def phase_main_path():
+def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0):
+    """Drive the CLI with `args`; `flash_per_step` launches of each
+    flash-attention kernel are expected per step (0 on the MoCo path, whose
+    attentions see 64 tokens and stay dense)."""
     import torch
 
     from moma_tpu_torch.cli import train_student
@@ -284,7 +460,7 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    state, result = train_student.main(list(MAIN_ARGS))
+    state, result = train_student.main(list(args))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -308,16 +484,17 @@ def phase_main_path():
     # later batches add the train-BN KL forward
     want = {"channel_sums": 2 * n_bn + 3 * n_bn * (n - 1),
             "grad_channel_sums": n_bn * n,
-            "ra_layer": 2 * n}
-    log(f"[main] launch counts {counts} (expected {want}, {n_bn} BNs)")
+            "ra_layer": 2 * n, "flash_fwd": flash_per_step * n,
+            "flash_dq": flash_per_step * n, "flash_dkv": flash_per_step * n}
+    log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} BNs)")
     for k, v in want.items():
         if counts.get(k, 0) != v:
             raise AssertionError(f"launch count {k}: {counts.get(k, 0)} "
                                  f"!= {v}")
     steady = statistics.median(tr["batch_times"][1:])
-    log(f"[main] {n} steps + eval in {wall:.1f} s; train loss {tr['loss']:.4f}"
+    log(f"[{label}] {n} steps + eval in {wall:.1f} s; train loss {tr['loss']:.4f}"
         f", val acc {result['val']['acc']:.2f}; queue_ptr {state.queue.ptr}")
-    log(f"[main] step times (s) {[round(t, 4) for t in tr['batch_times']]}; "
+    log(f"[{label}] step times (s) {[round(t, 4) for t in tr['batch_times']]}; "
         f"steady step {steady * 1e3:.1f} ms = {64 / steady:.1f} img/s; "
         f"peak memory {peak / 2 ** 30:.2f} GiB")
     return counts
@@ -334,8 +511,13 @@ def main() -> int:
     results = {}
     phase_bn_kernels(results)
     phase_ra_kernel(results)
+    phase_flash_kernels(results)
     phase_step_parity()
+    phase_step_parity("MoCoAtt", "all", "2048")
     counts = phase_main_path()
+    att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
+    # a kernel's launches: those of the first main path that runs it
+    counts.update({k: att_counts[k] for k in att_counts if k not in counts})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                            "moma_tpu"))
@@ -345,7 +527,8 @@ def main() -> int:
                for k, v in results.items()]
     print(json.dumps({"kernels": [
         {k: kk[k] for k in ("name", "route", "source", "replaces",
-                            "launches", "max_abs_err", "ms", "plain_ms")}
+                            "launches", "max_abs_err", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms")}
         for kk in kernels]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -8,17 +8,19 @@ module's counterpart sits at the same relative path there:
     core/    config tree, LR schedule, metrics
     models/  EfficientNet B0-B7 with the feature-list contract
     losses/  CE / KD losses
-    moma/    MoCo queue state machine, CMO heads, batch-token attention
-    data/    device-side augmentation (RandAugment layers, normalize)
+    moma/    MoCo queue state machine (MoCo, MoCoAtt, MoCoST, MoCoSSTT),
+             CMO heads, batch-token attention
+    data/    device-side augmentation (RandAugment layers, normalize),
+             host pipeline, histo manifests and packed cache
     ops/     kernel wrappers: CUDA kernel on a CUDA tensor, plain PyTorch
              version on a CPU tensor (csrc/ holds the CUDA sources)
     train/   train state, MoMA step, epoch loop, evaluation
     cli/     entry points
 
-The package imports torch and never jax.  Its training path on synthetic
-data imports nothing of `moma_tpu`; file-backed histo datasets are read
-through the numpy-only `moma_tpu.data.histo`, and `interop` carries weights
-through the numpy-only `moma_tpu.models.torch_import`.
+The package imports torch, never jax and nothing of `moma_tpu`: where it
+needs one of that package's numpy-only modules (the histo dataset reader,
+the checkpoint converter behind `interop`) it keeps its own copy under the
+same name.
 """
 
 __version__ = "0.1.0"

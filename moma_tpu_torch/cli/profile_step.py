@@ -5,7 +5,10 @@
         --model_t effiB0 --image_size 512 --batch_size 64 --nce_k 16384 \
         --feat_dim 512 --head mlp --attn self -c 1 -d 1 -b 1
 
-Takes train_student's flags (--device defaults to cuda) plus --out.  It
+Takes train_student's flags (--device defaults to cuda) plus --out; with
+`--mem MoCoAtt --attn all` in place of `--attn self` it profiles the
+MoCoAtt step, whose attention over 2B+K tokens runs the flash-attention
+kernels (they show by name among the trace's top kernels).  It
 builds the run's state with random weights, fixes one synthetic batch
 (data loading is set-up, not step time) and runs the steady-state step
 (train-BN teacher KL forward):
@@ -194,6 +197,7 @@ def main(argv=None):
     busy_ms = tr["busy_us"] / 1e3 / PROFILE_STEPS
     summary = {
         "batch": B, "image_size": S, "device": str(device),
+        "mem": cfg.moma.mem, "attn": cfg.moma.attn,
         "step_ms": {"median": step_ms, "min": min(times),
                     "max": max(times), "n": len(times)},
         "img_per_s": B / (step_ms / 1e3),

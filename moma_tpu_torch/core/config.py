@@ -5,8 +5,9 @@ and defaults (without the TPU-only `scoped_vmem_kib` and `donate`; with an
 explicit `RunConfig.device`), and `parse_student_args` for the flags of
 scripts/run_moma.sh plus --fp32, --synthetic and --device.
 
-The port runs one slice of moma_tpu so far: MoMA distillation with the
-MoCo queue, head 'mlp', attn 'self' and global-batch BN on one device.
+The port runs these slices of moma_tpu so far: MoMA distillation with a
+same-arch teacher and global-batch BN on one device, every memory variant
+(MoCo, MoCoAtt, MoCoST, MoCoSSTT), attention mode and projection head.
 `check_slice` rejects every other choice with NotImplementedError rather
 than training something else than asked.
 """
@@ -31,6 +32,14 @@ DATASET_NUM_CLASSES = {
     "kather16": 9,
     "aggc2022": 6,
 }
+
+
+# the choices of --mem / --head / --attn the port trains (moma/cmo.py holds
+# the module sets of the attention modes)
+MEMS = ("MoCo", "MoCoST", "MoCoSSTT", "MoCoAtt")
+HEADS = ("None", "linear", "mlp", "mlp_byol")
+ATTN_MODES = ("all", "self_mix", "qk", "dual", "dual2", "self_qk",
+              "self_nomix", "self_qkv2", "selfv2", "self", "self_viz", "none")
 
 
 @dataclass
@@ -163,12 +172,12 @@ def check_slice(cfg: Config) -> None:
     bad = []
     if cfg.distill.distill != "moma":
         bad.append(f"--distill {cfg.distill.distill} (KD zoo, Queue 1 item 7)")
-    if m.mem != "MoCo":
-        bad.append(f"--mem {m.mem} (Queue 1 item 5)")
-    if m.head != "mlp":
-        bad.append(f"--head {m.head} (Queue 1 item 5)")
-    if m.attn != "self":
-        bad.append(f"--attn {m.attn} (Queue 1 item 5)")
+    if m.mem not in MEMS:
+        bad.append(f"--mem {m.mem} (known: {MEMS})")
+    if m.head not in HEADS:
+        bad.append(f"--head {m.head} (known: {HEADS})")
+    if m.attn not in ATTN_MODES:
+        bad.append(f"--attn {m.attn} (known: {ATTN_MODES})")
     if cfg.model_t is None or cfg.model_t.name != cfg.model_s.name:
         bad.append("cross-arch teacher/student (EmaTec, Queue 1 item 5)")
     if r.bn != "global":
@@ -266,9 +275,9 @@ def student_parser() -> argparse.ArgumentParser:
     p.add_argument("--nce_t", type=float, default=0.07)
     p.add_argument("--alpha", type=float, default=0.999)
     p.add_argument("--mem", type=str, default="MoCo",
-                   choices=["MoCo", "MoCoST", "MoCoSSTT", "MoCoAtt"])
+                   choices=list(MEMS))
     p.add_argument("--head", type=str, default="None",
-                   choices=["None", "linear", "mlp", "mlp_byol"])
+                   choices=list(HEADS))
     p.add_argument("--attn", type=str, default="self")
     p.add_argument("--no_shuffle_bn", action="store_true")
     p.add_argument("--kl_teacher_bn", type=str, default="exact",
@@ -310,7 +319,8 @@ def parse_student_args(argv=None) -> Config:
     cfg.distill = DistillConfig(distill=a.distill, kd_T=a.kd_T, cls=a.cls,
                                 div=a.div, beta=a.beta)
     cfg.moma = MomaConfig(
-        feat_dim=a.feat_dim, nce_k=a.nce_k, nce_t=a.nce_t, alpha=a.alpha, mem=a.mem, head=a.head, attn=a.attn,
+        feat_dim=a.feat_dim, nce_k=a.nce_k, nce_t=a.nce_t, alpha=a.alpha,
+        mem=a.mem, head=a.head, attn=a.attn,
         shuffle_bn=not a.no_shuffle_bn, kl_teacher_bn=a.kl_teacher_bn,
         fast_teacher=a.fast_teacher, fused_teacher=a.fused_teacher,
         teacher_quant=a.teacher_quant)

@@ -12,7 +12,7 @@ torch.channels_last memory format (a free permute of NHWC), so each BN
 input is a contiguous (N*H*W, C) view for the reduction kernel.
 
 Modules are registered in flax call order (conv / bn / linear streams), so
-moma_tpu.models.torch_import aligns the two parameter trees
+moma_tpu_torch.models.torch_import aligns the two parameter trees
 (see moma_tpu_torch.interop).
 
 Dropout and drop-connect need a generator: the MoMA step passes none (the

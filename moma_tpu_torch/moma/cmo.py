@@ -1,34 +1,61 @@
 """CMO — projection heads + batch-token attention.
 
-Counterpart of moma_tpu/moma/cmo.py: `BatchTokenAttention` (:28-58, dense,
-heads over the BATCH ROWS as tokens), `ProjectionHead` for head='mlp'
-(:78-115) and `CMOHeads` (:146-309) for attn='self' (atts_q / atts_k /
-atts_queue).  Modules are registered in the order moma_tpu's
-`CMOHeads.init` creates their parameters (embed_s, embed_t, then the
-attention set), so moma_tpu_torch.interop carries its weights across.
+Counterpart of moma_tpu/moma/cmo.py: `BatchTokenAttention` (:28-58, heads
+over the BATCH ROWS as tokens), `BatchTokenAttention2` (:61-75, residual +
+LayerNorm), `ProjectionHead` (:78-115; heads 'mlp', 'mlp_byol', 'linear',
+'None') and `CMOHeads` (:146-233) with the full `ATTN_SETS` table.  Modules
+are registered in the order moma_tpu's `CMOHeads.init` creates their
+parameters (embed_s, embed_t, then the attention set), so
+moma_tpu_torch.interop carries its weights across.
 
-Not ported yet: heads 'linear' / 'None' / 'mlp_byol', the other attention
-modes, and the streaming (flash) attention for more than 2048 tokens
-(ROADMAP Queue 1 item 5); they raise NotImplementedError.
+A plain `BatchTokenAttention` over more than `DENSE_MAX_TOKENS` tokens
+(MoCoAtt 'all' / 'dual' attend over 2B+K) goes through the streaming
+flash-attention kernels (ops/flash_attention.py), as `CMOHeads.attn_fns`
+routes it in the JAX package (:202-233); the `Attention2` modes stay dense
+at any size, as there.
+
+Waiting for later slices: `include_ema` / `CMOEmaTecHeads` (cross-arch),
+`ring_attn_fns` (sharded bank), `attn_maps` (the self_viz maps; 'self_viz'
+trains exactly as 'self') and `RFFHead`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
+from moma_tpu_torch.core.config import HEADS
 from moma_tpu_torch.losses.functional import l2_normalize
 from moma_tpu_torch.models.common import TorchLinear, default_generator
+from moma_tpu_torch.ops.flash_attention import batch_token_attention_big
+from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
 
-ATTN_SETS = {"self": ("atts_q", "atts_k", "atts_queue")}
+# attention-set layouts per --attn (cmo.py:119-141)
+ATTN_SETS = {
+    "all": ("atts",),
+    "self_mix": ("atts",),
+    "qk": ("atts",),
+    "dual": ("atts_p", "atts_n"),
+    "dual2": ("atts_p", "atts_n"),
+    "self_qk": ("atts_q", "atts_k"),
+    "self_nomix": ("atts_q", "atts_k"),
+    "self_qkv2": ("atts_q", "atts_k"),
+    "selfv2": ("atts_q", "atts_k", "atts_queue"),
+    "self": ("atts_q", "atts_k", "atts_queue"),
+    "self_viz": ("atts_q", "atts_k", "atts_queue"),
+    "none": (),
+}
+# modes built from Attention2 (residual + LayerNorm)
+ATTN2_MODES = {"self_qkv2", "selfv2"}
 DENSE_MAX_TOKENS = 2048
 
 
 class BatchTokenAttention(nn.Module):
     """MHSA over the batch-as-token axis; input/output (N, C); scale
-    head_dim^-0.5, no residual, no norm."""
+    head_dim^-0.5, no residual, no norm.  `forward` picks the streaming
+    path above DENSE_MAX_TOKENS tokens; `dense` never does."""
 
     def __init__(self, dim: int, num_heads: int = 4, qkv_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
@@ -38,13 +65,8 @@ class BatchTokenAttention(nn.Module):
         self.qkv = TorchLinear(dim, 3 * dim, use_bias=qkv_bias, generator=g)
         self.proj = TorchLinear(dim, dim, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
         N, C = x.shape
-        if N > DENSE_MAX_TOKENS:
-            raise NotImplementedError(
-                f"batch-token attention over {N} > {DENSE_MAX_TOKENS} tokens "
-                "needs the streaming flash-attention path, not ported yet "
-                "(ROADMAP Queue 1 item 5 / Queue 2 kernels 4-6)")
         H = self.num_heads
         hd = C // H
         qkv = self.qkv(x).reshape(N, 3, H, hd).permute(1, 2, 0, 3)
@@ -54,42 +76,87 @@ class BatchTokenAttention(nn.Module):
         y = (attn @ v).permute(1, 0, 2).reshape(N, C)
         return self.proj(y)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] <= DENSE_MAX_TOKENS:
+            return self.dense(x)
+        return batch_token_attention_big(
+            x, self.qkv.weight.t(), self.qkv.bias, self.proj.weight.t(),
+            self.proj.bias, self.num_heads)
+
+
+class BatchTokenAttention2(nn.Module):
+    """Attention + residual + LayerNorm (flax default eps 1e-6); always
+    dense, whatever the token count."""
+
+    def __init__(self, dim: int, num_heads: int = 4, qkv_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.attn_layer = BatchTokenAttention(dim, num_heads, qkv_bias,
+                                              generator=generator)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.attn_layer.dense(x) + x
+        # flax LayerNorm normalizes in float32 and returns the input dtype
+        return self.norm(y.float()).to(y.dtype)
+
 
 class ProjectionHead(nn.Module):
-    """head='mlp': Linear(d,d)-ReLU-Linear(d,feat)-L2 (f32 normalize)."""
+    """embed_s / embed_t head, output L2-normalized in float32:
+      'mlp'      Linear(d,d)-ReLU-Linear(d,feat)
+      'mlp_byol' Linear(d,d)-BN1d-ReLU-Linear(d,feat); the BN has flax
+                 numerics (momentum 0.9, eps 1e-5, biased variance in the
+                 running update) and follows module.train() / eval()
+      'linear'   Linear(d,feat)
+      'None'     flatten only"""
 
     def __init__(self, head: str, in_dim: int, feat_dim: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if head != "mlp":
-            raise NotImplementedError(
-                f"projection head {head!r} is not ported yet (only 'mlp'; "
-                "ROADMAP Queue 1 item 5)")
+        if head not in HEADS:
+            raise ValueError(f"unknown head {head!r}; known: {HEADS}")
         g = default_generator(generator)
-        self.fc0 = TorchLinear(in_dim, in_dim, generator=g)
-        self.fc1 = TorchLinear(in_dim, feat_dim, generator=g)
+        self.head = head
+        if head in ("mlp", "mlp_byol"):
+            self.fc0 = TorchLinear(in_dim, in_dim, generator=g)
+            if head == "mlp_byol":
+                self.bn = FusedBatchNorm(in_dim, momentum=0.9, eps=1e-5)
+            self.fc1 = TorchLinear(in_dim, feat_dim, generator=g)
+        elif head == "linear":
+            self.fc0 = TorchLinear(in_dim, feat_dim, generator=g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
-        x = self.fc1(torch.relu(self.fc0(x)))
+        if self.head == "mlp":
+            x = self.fc1(torch.relu(self.fc0(x)))
+        elif self.head == "mlp_byol":
+            x = self.fc1(torch.relu(self.bn(self.fc0(x)).to(x.dtype)))
+        elif self.head == "linear":
+            x = self.fc0(x)
         return l2_normalize(x.float(), dim=1)
 
 
 class CMOHeads(nn.Module):
-    """embed_s (SGD-trained), embed_t (EMA-tracked from embed_s) and the
-    attention set of `attn`."""
+    """embed_s (SGD-trained), embed_t (EMA-tracked from embed_s for the mlp
+    heads, else parameter-free or fixed) and the attention set of `attn`."""
 
     def __init__(self, head: str, attn: str, feat_dim: int, s_dim: int,
                  t_dim: int, generator: Optional[torch.Generator] = None):
         super().__init__()
         if attn not in ATTN_SETS:
-            raise NotImplementedError(
-                f"attn mode {attn!r} is not ported yet (only 'self'; "
-                "ROADMAP Queue 1 item 5)")
+            # no silent fallback: a typo would train another model than asked
+            raise ValueError(
+                f"unknown attn mode {attn!r}; known: {sorted(ATTN_SETS)}")
         g = default_generator(generator)
         self.embed_s = ProjectionHead(head, s_dim, feat_dim, generator=g)
         self.embed_t = ProjectionHead(head, t_dim, feat_dim, generator=g)
+        att_cls = (BatchTokenAttention2 if attn in ATTN2_MODES
+                   else BatchTokenAttention)
         self.attn = nn.ModuleDict({
-            name: BatchTokenAttention(feat_dim, num_heads=4, qkv_bias=True,
-                                      generator=g)
+            name: att_cls(feat_dim, num_heads=4, qkv_bias=True, generator=g)
             for name in ATTN_SETS[attn]})
+
+    def attn_fns(self) -> Dict[str, Callable]:
+        """{name: callable} over the live attention modules, the argument
+        `step_moco_att` takes (cmo.py:202-233)."""
+        return dict(self.attn.items())

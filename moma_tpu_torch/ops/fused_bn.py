@@ -17,8 +17,8 @@ from one to the other.
 statistics, variance max(0, E[x^2] - E[x]^2), the BIASED batch variance in
 the running update ra = m*ra + (1-m)*batch (torch.nn.BatchNorm2d uses the
 unbiased one), and flax's normalize order.  Parameter and buffer names are
-weight / bias / running_mean / running_var, so the JAX<->torch converter in
-moma_tpu.models.torch_import sees it as a 'bn' module.
+weight / bias / running_mean / running_var, so the JAX<->torch converter
+(models/torch_import.py) sees it as a 'bn' module.
 """
 
 from __future__ import annotations

@@ -1,35 +1,49 @@
 """MoMA student training — the paper's method, one step at a time.
 
-Counterpart of moma_tpu/train/moma.py for the main-path configuration:
-same-arch teacher (the momentum encoder), mem 'MoCo', head 'mlp',
-attn 'self', global-batch BN on one device.  The step keeps the JAX step's
-order (train/moma.py:1-28), with the state updated in place:
+Counterpart of moma_tpu/train/moma.py for a same-arch teacher (the
+momentum encoder) with global-batch BN on one device, every memory variant
+(`--mem MoCo | MoCoAtt | MoCoST | MoCoSSTT`), attention mode and head.  The
+step keeps the JAX step's order (train/moma.py:1-28), with the state
+updated in place:
 
   1. teacher KL forward on the PRE-EMA teacher; BN in train mode
      (kl_train_bn, its running statistics updated here first) or on
      running statistics (each epoch's first batch under 'exact');
-  2. EMA: teacher <- alpha*teacher + (1-alpha)*student, embed_t <- EMA of
-     embed_s, both from the pre-step student;
+  2. EMA: teacher <- alpha*teacher + (1-alpha)*student, and for the mlp
+     heads embed_t <- EMA of embed_s, both from the pre-step student;
   3. key forward through the post-EMA teacher with train-mode BN on the
      Shuffle-BN permuted batch (batch['shuffle_perm'] when given), whose
-     BN statistics chain from step 1; embed_t; unshuffle;
-  4. student forward; q = embed_s(pooled); atts_q(q), atts_k(k), and
-     atts_queue on the keys ENTERING the queue (train/moma.py:613-628);
-  5. queue logits from the PRE-update memory, then the enqueue;
-  6. loss = c*CE + d*KL(T) + beta*CE(contrast, 0); SGD on the student,
-     embed_s and the attention set (atts_k / atts_queue get zero gradient
-     and still decay, as in the optax chain).
+     BN statistics chain from step 1; embed_t in eval mode; unshuffle;
+  4. student forward; q = embed_s(pooled); then by memory variant
+     (train/moma.py:536-634):
+       MoCo      attn 'self' only: atts_q(q), atts_k(k), and atts_queue on
+                 the keys ENTERING the queue;
+       MoCoAtt   `step_moco_att` on the raw (q, k, keys): the attention of
+                 the mode acts inside, over up to 2B+K tokens, with
+                 gradients through every token;
+       MoCoST    dual banks memory_s / memory_t (same-arch: both take the
+                 momentum encoder's keys), loss on the first logit set;
+       MoCoSSTT  as MoCoST plus a second augmented view through the
+                 student (its BN running statistics discarded): four
+                 logit sets, loss_kd their mean;
+  5. logits from the PRE-update memory, then the enqueue;
+  6. loss = c*CE + d*KL(T) + beta*loss_kd; SGD on the student, embed_s and
+     the attention set (modules without gradient still decay, as in the
+     optax chain).
 
 Every train-mode BatchNorm goes through the channel-sum kernels, its
-backward through the grad-sum kernel, and the augmentation through the
-RandAugment layer kernel (on a CUDA device).
+backward through the grad-sum kernel, the augmentation through the
+RandAugment layer kernel, and attention over more than 2048 tokens through
+the flash-attention kernels (on a CUDA device).
 
-Not ported yet (ROADMAP.md): checkpoints, resume, preemption, the
-TensorBoard writer and --profile_dir; `run_moma` writes no files.
+Not ported yet (ROADMAP.md): the cross-arch CMO_EmaTec mode, checkpoints,
+resume, preemption, the TensorBoard writer and --profile_dir; `run_moma`
+writes no files.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Callable, Optional
 
@@ -43,7 +57,9 @@ from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
-                                       random_memory, step_moco)
+                                       random_memory, step_moco,
+                                       step_moco_att, step_moco_sstt,
+                                       step_moco_st)
 from moma_tpu_torch.runtime import resolve_device
 from moma_tpu_torch.train.loop import evaluate, train_one_epoch
 from moma_tpu_torch.train.state import MomaState, make_sgd
@@ -62,6 +78,20 @@ def ema_update(ema: nn.Module, src: nn.Module, alpha: float) -> None:
     torch._foreach_add_(pe, scaled)
 
 
+@contextlib.contextmanager
+def _buffers_restored(*modules: nn.Module):
+    """Put the modules' buffers (BN running statistics) back on exit: a
+    forward inside updates them in place, and the second view of MoCoSSTT
+    discards its updates (train/moma.py:573)."""
+    saved = [(b, b.clone()) for m in modules for b in m.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, old in saved:
+                b.copy_(old)
+
+
 def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                          kl_train_bn_override: Optional[bool] = None):
     """step(state, batch, generator) -> (state, metrics).
@@ -74,6 +104,11 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     kd_T = cfg.distill.kd_T
     alpha = cfg.moma.alpha
     nce_t = cfg.moma.nce_t
+    mem = cfg.moma.mem
+    # self_viz trains exactly as 'self' (same module set; cmo.py ATTN_SETS)
+    attn = "self" if cfg.moma.attn == "self_viz" else cfg.moma.attn
+    # embed_t is EMA-tracked for the mlp heads only (train/moma.py:382-389)
+    ema_head = cfg.moma.head in ("mlp", "mlp_byol")
     shuffle_bn = cfg.moma.shuffle_bn
     kl_bn_mode = cfg.moma.kl_teacher_bn
     if kl_bn_mode not in ("train", "eval", "exact"):
@@ -105,7 +140,8 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
 
         # 2. EMA from the pre-step student
         ema_update(teacher, student, alpha)
-        ema_update(heads.embed_t, heads.embed_s, alpha)
+        if ema_head:
+            ema_update(heads.embed_t, heads.embed_s, alpha)
 
         # 3. keys through the post-EMA teacher, BN in train mode
         with torch.no_grad():
@@ -121,21 +157,64 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 key_images = images
             teacher.train(True)
             feat_key, _ = teacher(key_images)
+            heads.embed_t.eval()  # the momentum head runs in eval mode
             k_emb = heads.embed_t(feat_key[-1])
             if shuffle_bn:
                 k_emb = k_emb[inv]
-            all_k = k_emb
-            k_in = heads.attn["atts_k"](k_emb)
-            keys_in = heads.attn["atts_queue"](all_k)
+        # MoCoSSTT's second view, drawn after the permutation as in JAX
+        images2 = None
+        if mem == "MoCoSSTT":
+            images2 = (augment_fn(batch["image"], generator)
+                       if augment_fn is not None else images)
 
         # 4-6. student, contrast against the pre-update queue, SGD
         student.train()
+        heads.embed_s.train()
         feat_s, logit_s = student(images)
         loss_cls = F.cross_entropy(logit_s, labels)
         loss_div = F.kd_kl(logit_s, logit_t, kd_T)
-        q_in = heads.attn["atts_q"](heads.embed_s(feat_s[-1]))
-        logits, new_queue = step_moco(state.queue, q_in, k_in, keys_in, nce_t)
-        loss_kd = contrast_ce(logits)
+        q = heads.embed_s(feat_s[-1])
+        fns = heads.attn_fns()
+        self_attn = attn == "self" and bool(fns)
+        if mem == "MoCoAtt":
+            logits, new_queue = step_moco_att(state.queue, q, k_emb, k_emb,
+                                              nce_t, attn, fns)
+            logits_list = [logits]
+        elif mem in ("MoCoST", "MoCoSSTT"):
+            # same-arch: the momentum encoder's keys fill both banks; the
+            # teacher-side keys stay the raw ones (train/moma.py:560-561)
+            q_in, k_in, kt_in = q, k_emb, k_emb
+            if self_attn:
+                q_in = fns["atts_q"](q_in)
+                with torch.no_grad():
+                    k_in = fns["atts_k"](k_in)
+            if mem == "MoCoSSTT":
+                with _buffers_restored(student, heads.embed_s):
+                    feat_s2, _ = student(images2)
+                    qt_in = heads.embed_s(feat_s2[-1])
+                if self_attn:
+                    qt_in = fns["atts_q"](qt_in)
+                *logits_list, new_queue = step_moco_sstt(
+                    state.queue, q_in, k_in, qt_in, kt_in, k_in, kt_in, nce_t)
+            else:
+                logits_ss, _, new_queue = step_moco_st(
+                    state.queue, q_in, k_in, kt_in, k_in, kt_in, nce_t)
+                # the loss takes the first logit set only
+                logits_list = [logits_ss]
+        else:  # MoCo
+            q_in, k_in, keys_in = q, k_emb, k_emb
+            if self_attn:
+                # atts_queue transforms the keys ENTERING the queue, not
+                # the queue memory
+                q_in = fns["atts_q"](q_in)
+                with torch.no_grad():
+                    k_in = fns["atts_k"](k_emb)
+                    keys_in = fns["atts_queue"](k_emb)
+            logits, new_queue = step_moco(state.queue, q_in, k_in, keys_in,
+                                          nce_t)
+            logits_list = [logits]
+        loss_kd = sum(contrast_ce(lg) for lg in logits_list) / len(
+            logits_list)
         total = c * loss_cls + dv * loss_div + b * loss_kd
 
         opt = state.optimizer
@@ -144,7 +223,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         for group in opt.param_groups:
             group["lr"] = state.schedule(state.step)
             for p in group["params"]:
-                if p.grad is None:  # atts_k / atts_queue: decay still applies
+                if p.grad is None:  # unused modules: decay still applies
                     p.grad = torch.zeros_like(p)
         opt.step()
         state.queue = new_queue
@@ -179,7 +258,9 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
 
     student = create_model(cfg.model_s.name, n_cls, dtype, generator=gen(0))
     teacher = create_model(cfg.model_t.name, n_cls, dtype, generator=gen(1))
-    feat_dim = cfg.moma.feat_dim
+    # the 'None' head passes the pooled features through
+    feat_dim = (cfg.moma.feat_dim if cfg.moma.head != "None"
+                else student.feat_dim)
     heads = CMOHeads(cfg.moma.head, cfg.moma.attn, feat_dim,
                      s_dim=student.feat_dim, t_dim=teacher.feat_dim,
                      generator=gen(2))
@@ -188,8 +269,12 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
     heads = heads.to(device)
     teacher.requires_grad_(False)
     heads.embed_t.requires_grad_(False)
-    queue = QueueState({"memory": random_memory(
-        cfg.moma.nce_k, feat_dim, gen(3), device)})
+    banks = (("memory_s", "memory_t")
+             if cfg.moma.mem in ("MoCoST", "MoCoSSTT") else ("memory",))
+    g_queue = gen(3)
+    queue = QueueState({name: random_memory(cfg.moma.nce_k, feat_dim,
+                                            g_queue, device)
+                        for name in banks})
     state = MomaState(student=student, teacher=teacher, heads=heads,
                       queue=queue, optimizer=None,
                       schedule=lr_schedule(

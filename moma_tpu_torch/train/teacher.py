@@ -23,9 +23,8 @@ def build_datasets(cfg, synthetic: bool = False):
         raise NotImplementedError(
             "CIFAR-100 loading and its augment stack are not ported to "
             "moma_tpu_torch yet; pass --synthetic or a histo dataset")
-    # file-backed histo datasets: the numpy-only manifest/packed-cache
-    # reader shared with moma_tpu
-    from moma_tpu.data.histo import load_histo_dataset
+    # file-backed histo datasets: the manifest / packed-cache reader
+    from moma_tpu_torch.data.histo import load_histo_dataset
 
     return load_histo_dataset(d)
 

@@ -43,8 +43,9 @@ def test_cli_trains_one_epoch_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--distill", "kd"], ["--mem", "MoCoST"], ["--attn", "all"],
-    ["--head", "linear"], ["--bn", "local"], ["--grad_accum", "2"],
+    ["--distill", "kd"], ["--remat"], ["--fast_teacher"],
+    ["--fold_idx", "0"], ["--std_pre", "imagenet"], ["--attn", "selff"],
+    ["--bn", "local"], ["--grad_accum", "2"],
     ["--fused_teacher", "on"], ["--teacher_quant", "int8"],
     ["--model_parallel", "2"], ["--model_t", "effiB1"], ["--resume"],
     ["--image_resize"],
@@ -53,6 +54,38 @@ def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag
     with pytest.raises(NotImplementedError):
         parse_student_args(argv + extra)
+
+
+@pytest.mark.parametrize("extra,want", [
+    (["--mem", "MoCoST"], ("MoCoST", "mlp", "self")),
+    (["--attn", "all"], ("MoCo", "mlp", "all")),
+    (["--head", "linear"], ("MoCo", "linear", "self")),
+    (["--mem", "MoCoAtt", "--attn", "dual", "--head", "mlp_byol"],
+     ("MoCoAtt", "mlp_byol", "dual")),
+    (["--mem", "MoCoSSTT", "--head", "None", "--attn", "self_viz"],
+     ("MoCoSSTT", "None", "self_viz")),
+])
+def test_memory_variants_heads_and_attention_modes_parse(extra, want):
+    argv = [a for a in ARGS if a != "--synthetic"]
+    m = parse_student_args(argv + extra).moma
+    assert (m.mem, m.head, m.attn) == want
+
+
+def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu():
+    """--mem MoCoAtt --attn all over 2*4 + 2048 tokens: above the dense
+    limit, so the attention takes the flash wrappers' plain versions."""
+    reset_launch_counts()
+    argv = [a if a != "64" else "32" for a in ARGS]   # 32^2 images, K below
+    i = argv.index("--nce_k")
+    argv[i + 1] = "2048"
+    state, result = train_student.main(
+        argv + ["--feat_dim", "16", "--mem", "MoCoAtt", "--attn", "all",
+                "-b", "1"])
+    tr = result["train"]
+    assert tr["steps"] == 64 and math.isfinite(tr["loss"])
+    assert state.queue.ptr == (4 * 64) % 2048
+    assert list(state.heads.attn) == ["atts"]
+    assert launch_counts() == {}
 
 
 @pytest.mark.parametrize("extra", [
@@ -81,7 +114,10 @@ def test_device_busy_takes_the_union_of_intervals(intervals, want):
     assert tuple(got[k] for k in keys) == pytest.approx(want)
 
 
-def test_profile_step_runs_on_cpu(tmp_path, monkeypatch):
+@pytest.mark.parametrize("extra", [
+    [], ["--mem", "MoCoAtt", "--attn", "all", "-b", "1"],
+], ids=["moco", "mocoatt"])
+def test_profile_step_runs_on_cpu(tmp_path, monkeypatch, extra):
     from moma_tpu_torch.cli import profile_step
 
     for name in ("WARMUP", "STEPS", "PROFILE_STEPS"):
@@ -90,7 +126,9 @@ def test_profile_step_runs_on_cpu(tmp_path, monkeypatch):
         "--out", str(tmp_path), "--device", "cpu", "--distill", "moma",
         "--dataset", "prostate_hv", "--model_s", "effiB0", "--model_t",
         "effiB0", "--image_size", "32", "--batch_size", "2", "--nce_k", "8",
-        "--feat_dim", "16", "--head", "mlp", "--attn", "self", "--fp32"])
+        "--feat_dim", "16", "--head", "mlp", "--attn", "self", "--fp32"]
+        + extra)
+    assert s["mem"] == (extra[1] if extra else "MoCo")
     assert s["step_ms"]["n"] == 1 and s["step_ms"]["median"] > 0
     assert set(s["phase_ms"]) == {"augment", "teacher_forward",
                                   "student_forward_backward"}

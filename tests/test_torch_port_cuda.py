@@ -112,3 +112,88 @@ def test_ra_layer_refuses_bad_layout(dev):
         RK.ra_layer(x.permute(0, 1, 3, 2), scal)
     with pytest.raises(TypeError):
         RK.ra_layer(x, scal, out_dtype=torch.bfloat16)
+
+
+def _flash_inputs(dev, H, Nq, Nk, d, dtype, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    scale = d ** -0.5
+    qs = (rn(H, Nq, d) * scale).to(dtype)
+    return (qs, rn(H, Nk, d).to(dtype), rn(H, Nk, d).to(dtype),
+            rn(H, Nq, d).to(dtype))
+
+
+# f32: the kernel and the plain version differ only in the order of their
+# float32 sums; bf16: p and ds are rounded to bf16 in both, so one ulp of
+# bf16 in a few of them is the difference
+_FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 64, 16), (2, 100, 100, 8),
+                                   (4, 300, 300, 32), (1, 70, 257, 128),
+                                   (2, 513, 200, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(dev, shape, dtype):
+    from moma_tpu_torch.ops import flash_attention as FA
+
+    H, Nq, Nk, d = shape
+    qs, k, v, do = _flash_inputs(dev, H, Nq, Nk, d, dtype)
+    o, m, l = FA.flash_fwd(qs, k, v)
+    o_p, m_p, l_p = FA._forward_stats(qs, k, v, chunk=96)
+    torch.cuda.synchronize()
+    tol = _FLASH_TOL[dtype]
+
+    def close(got, want, what):
+        err = float((got.float() - want.float()).abs().max())
+        ref = float(want.float().abs().max())
+        assert err <= tol * max(ref, 1e-3), (what, err, ref)
+
+    close(o, o_p, "o")
+    close(m, m_p, "m")
+    close(l, l_p, "l")
+    delta = (do.float() * o_p.float()).sum(-1, keepdim=True)
+    close(FA.flash_dq(qs, k, v, do, m_p, l_p, delta),
+          FA.flash_dq_plain(qs, k, v, do, m_p, l_p, delta, chunk=96), "dq")
+    dk, dv = FA.flash_dkv(qs, k, v, do, m_p, l_p, delta)
+    dk_p, dv_p = FA.flash_dkv_plain(qs, k, v, do, m_p, l_p, delta, chunk=96)
+    torch.cuda.synchronize()
+    close(dk, dk_p, "dk")
+    close(dv, dv_p, "dv")
+
+
+def test_streaming_attention_cuda_matches_cpu(dev):
+    from moma_tpu_torch.ops import flash_attention as FA
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(4)
+    q, k, v, w = (torch.randn(4, 200, 32, generator=g) for _ in range(4))
+    out = {}
+    reset_launch_counts()
+    for d in ("cpu", dev):
+        leaves = [t.clone().to(d).requires_grad_(True) for t in (q, k, v)]
+        o = FA.streaming_attention(*leaves, 32 ** -0.5)
+        (o * w.to(d)).sum().backward()
+        out[str(d)] = [o.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    assert launch_counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from moma_tpu_torch.ops import flash_attention as FA
+
+    x = torch.randn(2, 16, 8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_fwd(x.transpose(0, 1), x, x)
+    with pytest.raises(TypeError):
+        FA.flash_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):
+        FA.flash_fwd(x, x.bfloat16(), x)
+    big = torch.randn(1, 8, 160, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_fwd(big, big, big)
+    with pytest.raises(ValueError):
+        FA.flash_fwd(x, x.cpu(), x)

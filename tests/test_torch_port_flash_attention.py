@@ -1,0 +1,204 @@
+"""Streaming attention: moma_tpu_torch against moma_tpu on the CPU.
+
+The same numpy inputs go through the port's `streaming_attention` (on CPU
+tensors: the plain versions of the three flash kernels) and through the JAX
+package twice: its chunked route (`use_pallas=False`) and its Pallas
+kernels in interpret mode (`_flash_forward` / `_flash_backward`, as
+tests/test_flash_attention.py runs them; a ragged N pads the keys to a
+block multiple and masks them with `n_real`).
+
+Tolerances: float32 values atol 2e-5 (outputs are averages of N(0,1) values,
+the packages differ in the order of their float32 sums only), gradients
+rtol 2e-4 / atol 5e-5.  bf16 inputs: the tolerance of the JAX package's own
+bf16 test (atol 0.15, rtol 0.1) against its chunked route, which keeps p in
+float32 where the kernels round it to bf16, and one bf16 ulp (rtol 2^-7)
+against the interpreted kernels, which round where the port does.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moma_tpu.moma.cmo import BatchTokenAttention as JAttention
+from moma_tpu.ops import flash_attention as JFA
+
+from moma_tpu_torch.interop import load_jax_variables
+from moma_tpu_torch.moma import cmo as tcmo
+from moma_tpu_torch.ops import flash_attention as FA
+
+from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
+from torch_port_helpers import ordered_numpy
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+SHAPES = [(64, 16), (100, 16), (512, 16), (64, 32), (100, 32), (512, 32)]
+
+
+def _inputs(N, d, H=2, seed=0):
+    rs = np.random.RandomState(seed + N + d)
+    return [rs.randn(H, N, d).astype(np.float32) for _ in range(4)]
+
+
+def _torch_run(q, k, v, w, dtype=torch.float32, chunk=48):
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+              for a in (q, k, v)]
+    scale = q.shape[-1] ** -0.5
+    o = FA.streaming_attention(*leaves, scale, chunk)
+    (o.float() * torch.from_numpy(w)).sum().backward()
+    _, m, l = FA.flash_fwd((leaves[0] * scale).detach(), leaves[1].detach(),
+                           leaves[2].detach(), chunk)
+    return ([o.detach().float().numpy(), m.numpy(), l.numpy()]
+            + [t.grad.float().numpy() for t in leaves])
+
+
+def _interpret_run(q, k, v, w, dtype=jnp.float32):
+    H, N, d = q.shape
+    scale = d ** -0.5
+    bq = 16 if N % 16 == 0 else 20
+    bk = 16
+    npad = -(-N // bk) * bk
+    q, k, v, w = (jnp.asarray(a, dtype) for a in (q, k, v, w))
+    kp = jnp.pad(k, ((0, 0), (0, npad - N), (0, 0)))
+    vp = jnp.pad(v, ((0, 0), (0, npad - N), (0, 0)))
+    n_real = N if npad != N else None
+    o, m, l = JFA._flash_forward(q, kp, vp, scale, bq, bk, n_real=n_real,
+                                 interpret=True)
+    dq, dk, dv = JFA._flash_backward(q, kp, vp, o, m, l, w, scale, bq, bk,
+                                     n_real=n_real, interpret=True)
+    return [np.asarray(a, np.float32) for a in
+            (o, m, l, dq, dk[:, :N], dv[:, :N])]
+
+
+def _chunked_run(q, k, v, w, dtype=jnp.float32, chunk=48):
+    scale = q.shape[-1] ** -0.5
+    q, k, v = (jnp.asarray(a, dtype) for a in (q, k, v))
+
+    def loss(q, k, v):
+        o = JFA.streaming_attention(q, k, v, scale, False, chunk)
+        return jnp.sum(o.astype(jnp.float32) * w), o
+
+    grads, o = jax.grad(loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    return [np.asarray(o, np.float32)] + [np.asarray(g, np.float32)
+                                          for g in grads]
+
+
+@pytest.mark.parametrize("N,d", SHAPES)
+def test_streaming_attention_matches_jax_chunked(N, d):
+    q, k, v, w = _inputs(N, d)
+    o, _, _, dq, dk, dv = _torch_run(q, k, v, w)
+    jo, jdq, jdk, jdv = _chunked_run(q, k, v, w)
+    np.testing.assert_allclose(o, jo, atol=2e-5, rtol=0)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("N,d", SHAPES)
+def test_streaming_attention_matches_pallas_interpret(N, d):
+    q, k, v, w = _inputs(N, d, seed=1)
+    o, m, l, dq, dk, dv = _torch_run(q, k, v, w)
+    jo, jm, jl, jdq, jdk, jdv = _interpret_run(q, k, v, w)
+    np.testing.assert_allclose(o, jo, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(m, jm, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(l, jl, rtol=2e-5)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("N,d", [(96, 16), (100, 32)])
+def test_streaming_attention_bf16_inputs(N, d):
+    q, k, v, w = _inputs(N, d, seed=2)
+    got = _torch_run(q, k, v, w, torch.bfloat16, chunk=32)
+    o, dq, dk, dv = got[0], got[3], got[4], got[5]
+    for g, want in zip((o, dq, dk, dv),
+                       _chunked_run(q, k, v, w, jnp.bfloat16, 32)):
+        np.testing.assert_allclose(g, want, atol=0.15, rtol=0.1)
+    jo, _, _, jdq, jdk, jdv = _interpret_run(q, k, v, w, jnp.bfloat16)
+    for g, want in ((o, jo), (dq, jdq), (dk, jdk), (dv, jdv)):
+        # one bf16 ulp of the largest entry: the two round p, ds and the
+        # outputs at the same points, but sum in another order before
+        np.testing.assert_allclose(g, want, rtol=2 ** -7,
+                                   atol=2 ** -7 * np.abs(want).max())
+
+
+def test_forward_only_entry_points_agree():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(100, 16, seed=3))
+    want = torch.softmax(q @ k.transpose(1, 2) * 0.25, -1) @ v
+    torch.testing.assert_close(FA.flash_attention(q, k, v, 0.25), want,
+                               atol=2e-5, rtol=0)
+    torch.testing.assert_close(FA.chunked_attention(q, k, v, 0.25, chunk=7),
+                               want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("N", [40, 300])
+def test_batch_token_attention_big_matches_dense(N, monkeypatch):
+    """The streaming path against the dense module of both packages, with
+    the JAX module's weights carried across: values and parameter
+    gradients."""
+    C, H = 32, 4
+    rs = np.random.RandomState(N)
+    x = rs.randn(N, C).astype(np.float32)
+    w = rs.randn(N, C).astype(np.float32)
+    jmod = JAttention(C, num_heads=H)
+    params = ordered_numpy(jmod.init(jax.random.PRNGKey(0),
+                                     jnp.zeros((2, C)))["params"])
+
+    def jloss(p, big):
+        if big:
+            y = JFA.batch_token_attention_big(
+                x, p["TorchLinear_0"]["kernel"], p["TorchLinear_0"]["bias"],
+                p["TorchLinear_1"]["kernel"], p["TorchLinear_1"]["bias"], H,
+                use_pallas=False)
+        else:
+            y = jmod.apply({"params": p}, x)
+        return jnp.sum(y * w), y
+
+    (jg_dense, jy_dense) = jax.grad(jloss, has_aux=True)(params, False)
+    (jg_big, jy_big) = jax.grad(jloss, has_aux=True)(params, True)
+
+    tmod = tcmo.BatchTokenAttention(C, num_heads=H)
+    load_jax_variables(tmod, {"params": params})
+    out = {}
+    for big in (False, True):
+        # the module takes the streaming path above DENSE_MAX_TOKENS tokens
+        monkeypatch.setattr(tcmo, "DENSE_MAX_TOKENS", 8 if big else 10 ** 6)
+        tmod.zero_grad()
+        y = tmod(torch.from_numpy(x))
+        (y * torch.from_numpy(w)).sum().backward()
+        out[big] = (y.detach().numpy(), {
+            "TorchLinear_0": {"kernel": tmod.qkv.weight.grad.t().numpy(),
+                              "bias": tmod.qkv.bias.grad.numpy()},
+            "TorchLinear_1": {"kernel": tmod.proj.weight.grad.t().numpy(),
+                              "bias": tmod.proj.bias.grad.numpy()}})
+    for big in (False, True):
+        y, grads = out[big]
+        for jy, jg in ((jy_dense, jg_dense), (jy_big, jg_big)):
+            np.testing.assert_allclose(y, np.asarray(jy), atol=1e-4, rtol=0)
+            for mod in grads:
+                for leaf in grads[mod]:
+                    np.testing.assert_allclose(
+                        grads[mod][leaf], np.asarray(jg[mod][leaf]),
+                        atol=1e-4, rtol=1e-4, err_msg=f"{mod}/{leaf}")
+
+
+def test_attention2_stays_dense_above_the_threshold(monkeypatch):
+    monkeypatch.setattr(tcmo, "DENSE_MAX_TOKENS", 8)
+    calls = []
+    monkeypatch.setattr(tcmo, "batch_token_attention_big",
+                        lambda *a, **k: calls.append(1))
+    mod = tcmo.BatchTokenAttention2(16, num_heads=4)
+    y = mod(torch.randn(20, 16, generator=torch.Generator().manual_seed(0)))
+    assert y.shape == (20, 16) and not calls
+
+
+def test_only_the_device_picks_the_route():
+    """No flag chooses between kernel and plain version and nothing falls
+    back from one to the other."""
+    import inspect
+
+    for fn in (FA.flash_fwd, FA.flash_dq, FA.flash_dkv,
+               FA.streaming_attention, FA.batch_token_attention_big):
+        assert "use_pallas" not in inspect.signature(fn).parameters
+    src = inspect.getsource(FA)
+    assert "try:" not in src and "except" not in src

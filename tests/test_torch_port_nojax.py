@@ -1,9 +1,12 @@
-"""moma_tpu_torch runs without JAX, and its kernels have no stand-ins.
+"""moma_tpu_torch runs without JAX and without the JAX package, and its
+kernels have no stand-ins.
 
-1. A subprocess blocks jax / flax / optax / orbax with a sys.meta_path
-   finder, imports every moma_tpu_torch module and runs one CPU train
-   step of the slice.
-2. The package source holds no library kernel stand-in
+1. A subprocess blocks jax / flax / optax / orbax and moma_tpu with a
+   sys.meta_path finder, imports every moma_tpu_torch module and runs one
+   CPU train step of each ported memory variant.
+2. No source file of the port, nor chip_smoke.py, imports moma_tpu
+   (docstrings may name a counterpart file).
+3. The package source holds no library kernel stand-in
    (scaled_dot_product_attention, torch.compile) and no `try:` in the
    kernel wrappers, so a failed build or launch can never fall back.
 """
@@ -19,7 +22,7 @@ PKG = ROOT / "moma_tpu_torch"
 SCRIPT = textwrap.dedent('''
     import importlib, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "moma_tpu")
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -42,19 +45,22 @@ SCRIPT = textwrap.dedent('''
     from moma_tpu_torch.train.moma import build_state, make_moma_train_step
     from moma_tpu_torch.train.teacher import augment_fns
 
-    cfg = parse_student_args([
-        "--device", "cpu", "--dataset", "prostate_hv", "--model_s", "effiB0",
-        "--model_t", "effiB0", "--distill", "moma", "--head", "mlp",
-        "--attn", "self", "--image_size", "32", "--batch_size", "2",
-        "--nce_k", "8", "--feat_dim", "8", "--epochs", "1", "--fp32"])
     ds = synthetic_dataset(2, 32, 4, seed=0)
     batch = to_device({"image": ds.images, "label": ds.labels},
                       torch.device("cpu"))
-    state = build_state(cfg, torch.device("cpu"), 1, seed=0)
-    step = make_moma_train_step(cfg, augment_fns(cfg)[0],
-                                kl_train_bn_override=True)
-    state, m = step(state, batch, torch.Generator().manual_seed(0))
-    assert torch.isfinite(m["loss"]) and m["queue_ptr"] == 2
+    for mem, attn in (("MoCo", "self"), ("MoCoAtt", "all"),
+                      ("MoCoSSTT", "self")):
+        cfg = parse_student_args([
+            "--device", "cpu", "--dataset", "prostate_hv", "--model_s",
+            "effiB0", "--model_t", "effiB0", "--distill", "moma", "--head",
+            "mlp", "--mem", mem, "--attn", attn, "--image_size", "32",
+            "--batch_size", "2", "--nce_k", "8", "--feat_dim", "8",
+            "--epochs", "1", "--fp32", "-b", "1"])
+        state = build_state(cfg, torch.device("cpu"), 1, seed=0)
+        step = make_moma_train_step(cfg, augment_fns(cfg)[0],
+                                    kl_train_bn_override=True)
+        state, m = step(state, batch, torch.Generator().manual_seed(0))
+        assert torch.isfinite(m["loss"]) and m["queue_ptr"] == 2, mem
     leaked = [k for k in sys.modules if k.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(names))
@@ -77,4 +83,17 @@ def test_no_library_kernel_or_fallback_in_the_port():
     for path in (PKG / "ops").glob("*.py"):
         assert "try:" not in path.read_text(), f"try: in {path}"
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "bn_sums.cu", "randaugment.cu"]
+        "bn_sums.cu", "flash_attention.cu", "randaugment.cu"]
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    import re
+
+    pat = re.compile(r"^\s*(?:from|import)\s+"
+                     r"(?:moma_tpu|jax|jaxlib|flax|optax|orbax)(?:[.\s]|$)",
+                     re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    for path in files:
+        hit = pat.search(path.read_text())
+        assert hit is None, f"{path}: {hit.group(0).strip()!r}"

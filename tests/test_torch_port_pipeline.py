@@ -50,3 +50,66 @@ def test_eval_loader_pads_and_masks_alike(n):
         for k in ("image", "label", "mask"):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
     assert int(got[-1]["mask"].sum()) == n - 8 * (len(got) - 1)
+
+
+def _imagefolder(root, n_per_class=3, size=12):
+    """A tiny ImageFolder tree of PNGs (lossless, so both packages decode
+    the same pixels)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    for split in ("train", "val"):
+        for cls in ("a", "b"):
+            d = root / split / cls
+            d.mkdir(parents=True)
+            for i in range(n_per_class):
+                Image.fromarray(rs.randint(0, 256, (size, size, 3),
+                                           dtype=np.uint8)).save(
+                    d / f"{i}.png")
+
+
+def test_histo_datasets_load_like_the_jax_package(tmp_path):
+    """The port's own copy of data/histo.py + data/manifests.py: the same
+    packed images and labels for the same tree, and the manifests agree."""
+    from types import SimpleNamespace
+
+    from moma_tpu.data import histo as JH
+    from moma_tpu.data import manifests as JM
+    from moma_tpu_torch.data import histo as TH
+    from moma_tpu_torch.data import manifests as TM
+
+    assert sorted(TM.PREPARERS) == sorted(JM.PREPARERS)
+    assert sorted(TM.TEST_ONLY_PREPARERS) == sorted(JM.TEST_ONLY_PREPARERS)
+    out = []
+    for mod, sub in ((TH, "t"), (JH, "j")):
+        root = tmp_path / sub
+        _imagefolder(root)
+        cfg = SimpleNamespace(dataset="imagenet", data_dir=str(root),
+                              image_size=8, fold_idx=-1, n_folds=5)
+        out.append(mod.load_histo_dataset(cfg))
+    for got, want in zip(*out):
+        assert len(got) == len(want) == 6
+        np.testing.assert_array_equal(got.labels, want.labels)
+        np.testing.assert_array_equal(np.asarray(got.images),
+                                      np.asarray(want.images))
+    pairs = [(f"p{i}", i % 3) for i in range(30)]
+    assert TM.stratified_kfold(pairs, 1, 5) == JM.stratified_kfold(pairs, 1, 5)
+
+
+def test_histo_errors_are_kept(tmp_path):
+    from types import SimpleNamespace
+
+    from moma_tpu_torch.data import histo as TH
+
+    cfg = SimpleNamespace(dataset="no_such_set", data_dir=str(tmp_path),
+                          image_size=8, fold_idx=-1, n_folds=5)
+    with pytest.raises(KeyError, match="no_such_set"):
+        TH.load_histo_dataset(cfg)
+    with pytest.raises(KeyError, match="no_such_set"):
+        TH.load_histo_testset("no_such_set", str(tmp_path), 8)
+    (tmp_path / "train").mkdir()
+    cfg.dataset = "imagenet"
+    with pytest.raises(FileNotFoundError):
+        TH.load_histo_dataset(cfg)
+    with pytest.raises(ValueError, match="no test split"):
+        TH.load_histo_testset("imagenet", str(tmp_path), 8)
