@@ -3,10 +3,12 @@
 against its plain PyTorch version on the card, then drives the MoMA
 student training path (effiB0 student and teacher at 512^2, batch 64,
 K=16384, bf16) through its CLI entry point for one epoch of synthetic data,
-once with the MoCo memory (`--mem MoCo --attn self`) and once with MoCoAtt
-(`--mem MoCoAtt --attn all`, attention over 2*64 + 16384 tokens), and checks
-that every train-mode BatchNorm, RandAugment layer and many-token attention
-went through the hand-written kernels.
+once with the MoCo memory (`--mem MoCo --attn self`), once with MoCoAtt
+(`--mem MoCoAtt --attn all`, attention over 2*64 + 16384 tokens) and once
+with `--fused_teacher on` (both teacher forwards through the fused
+EfficientNet forward), and checks that every train-mode BatchNorm,
+RandAugment layer, many-token attention and fused MBConv block went through
+the hand-written kernels.
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -19,15 +21,21 @@ Phases (each prints its own lines):
                  flash-attention kernels), the least time the card could
                  take (bound) and, where one PyTorch call computes the same
                  function, that call's time (library; used nowhere in the
-                 package)
-  4 step parity: one MoMA step at 64^2, batch 4, f32 on the CPU (plain
+                 package); the three fused-EfficientNet kernels at each of
+                 the 16 effiB0 block shapes of a 512^2 input
+  4 forward    : the fused EfficientNet forward against the module forward
+                 on the card, same weights: f32 (TF32 off) at 64^2 and
+                 512^2, train and eval mode, then bf16 at batch 64, 512^2
+                 with both forwards' times
+  5 step parity: one MoMA step at 64^2, batch 4, f32 on the CPU (plain
                  versions) and on the card (kernels), same weights and
-                 draws; MoCo at K=64, then MoCoAtt 'all' at K=2048 (2056
-                 tokens, the streaming route on both devices)
-  5 main paths : `python -m moma_tpu_torch.cli.train_student ...` in-process,
-                 MoCo then MoCoAtt; finite losses, queue pointer, launch
-                 counts (set to 0 just before each path), step time, img/s,
-                 peak memory
+                 draws; MoCo at K=64, MoCoAtt 'all' at K=2048 (2056 tokens,
+                 the streaming route on both devices), then MoCo with
+                 --fused_teacher on
+  6 main paths : `python -m moma_tpu_torch.cli.train_student ...` in-process,
+                 MoCo, MoCoAtt, then MoCo with --fused_teacher on; finite
+                 losses, queue pointer, launch counts (set to 0 just before
+                 each path), step time, img/s, peak memory
 The last three lines of stdout are one JSON object with the per-kernel
 results, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -54,11 +62,12 @@ MAIN_ARGS = [
 ]
 MOCOATT_ARGS = [
     {"MoCo": "MoCoAtt", "self": "all"}.get(a, a) for a in MAIN_ARGS]
-# peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, and the
-# float32 rate outside the tensor cores, which is what the kernels'
-# float32 FMAs are entitled to
+# peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, the
+# float32 rate outside the tensor cores (for float32 operands), and the dense
+# bf16 tensor-core rate (for products of bf16 operands accumulated in float32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 FLASH_SHAPE = (4, 2 * 64 + 16384, 128)   # (heads, 2B+K tokens, head dim)
 FLASH_SMALL = (4, 333, 32)               # ragged tiles, bf16
 FLASH_ITERS = 5
@@ -71,6 +80,24 @@ BN_RTOL = 1e-4      # of sum|x| per channel: the bound of an f32 sum's error
 RA_SHAPE = (64, 3, 512, 512)
 RA_ATOL = 1.0       # pixels are integers 0..255; the kernel should be exact
 RA_FILL = (124.0, 116.0, 104.0)
+FUSED_ARGS = MAIN_ARGS + ["--fused_teacher", "on"]
+# fused-EfficientNet kernels vs plain, of the largest entry of the reference.
+# float32: the two differ in the order of their float32 sums.  bf16: both
+# round at the same points, a sum landing on the other side of a rounding
+# edge moves an element by one bf16 ulp and one such input can move an
+# output by another: 2 ulps at max|ref| = 2^-7 of it.  Sums: of sum|x| (and
+# of sum x^2), the bound of an f32 sum's error; in bf16 the elements that
+# differ by an ulp add to it.
+FE_RTOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+FE_SUM_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+FE_BATCH = {"bfloat16": 64, "float32": 8}
+FE_TIMED_BLOCK = 1        # y (64,16,256,256) -> E=96, 128^2 out: the largest
+FE_PLAIN_ITERS = 3
+# fused forward vs module forward in f32 (the bounds the JAX package holds
+# its Pallas path to against its reference) and in bf16 (rounding drift
+# through 49 chained BatchNorms, bounded loosely)
+FE_FWD_RTOL = 1e-3
+FE_FWD_BF16_RTOL = 0.5
 
 
 def log(msg: str) -> None:
@@ -121,16 +148,17 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from moma_tpu_torch.ops import (_build, flash_attention, fused_bn,
-                                    randaugment)
+                                    fused_effnet, randaugment)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:   # one nvcc per source
+    with ThreadPoolExecutor(max_workers=4) as pool:   # one nvcc per source
         for fut in [pool.submit(m._lib) for m in
-                    (flash_attention, fused_bn, randaugment)]:
+                    (flash_attention, fused_bn, fused_effnet, randaugment)]:
             fut.result()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc seconds per library: {_build.build_seconds()})")
-    for name in ("bn_sums", "randaugment", "flash_attention"):
+    for name in ("bn_sums", "randaugment", "flash_attention",
+                 "fused_effnet"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -390,7 +418,294 @@ def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd}
 
 
-def phase_step_parity(mem="MoCo", attn="self", nce_k="64"):
+def fe_block_shapes(image=512):
+    """(spec, input height) of each effiB0 MBConv block for a square input."""
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    h = -(-image // 2)
+    out = []
+    for spec in FE.block_specs("b0"):
+        out.append((spec, h))
+        h = -(-h // spec.stride)
+    return out
+
+
+def phase_fe_kernels(results, dev="cuda", image=512):
+    """k1_expand_stats / k2_depthwise / k4_project against their plain
+    versions at each of the 16 effiB0 block shapes of a 512^2 input: bf16 at
+    batch 64 (the main path's) and f32 at batch 8, with affines from batch
+    statistics (train mode) and from running statistics (eval mode).  Times
+    in bf16 at batch 64: block FE_TIMED_BLOCK alone, and summed over the
+    launches of one forward."""
+    import torch
+
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    names = ("k1_expand_stats", "k2_depthwise", "k4_project")
+    worst = dict.fromkeys(names, 0.0)
+    total = dict.fromkeys(names, 0.0)
+    total_plain = dict.fromkeys(names, 0.0)
+    timed = {}
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def bn(C):
+        return {"scale": 1.0 + 0.1 * rn(C), "bias": 0.1 * rn(C)}
+
+    def check_map(name, label, got, want, dtype):
+        diff = (got.float() - want.float()).abs()
+        err, ref = float(diff.max()), float(want.float().abs().max())
+        worst[name] = max(worst[name], err)
+        rtol = FE_RTOL[str(dtype)[6:]]
+        if not (got.shape == want.shape and math.isfinite(err)
+                and err <= rtol * ref):
+            raise AssertionError(
+                f"{name} {label}: max abs err {err:.3e} exceeds {rtol:.1e} "
+                f"of max|ref| {ref:.3e}")
+        return err / ref, float((diff > 0).float().mean())
+
+    def check_sums(name, label, got, want, x, dtype):
+        xf = x.float()
+        rel = 0.0
+        for g, w, bound in zip(got, want, (xf.abs().sum((0, 2, 3)),
+                                           (xf * xf).sum((0, 2, 3)))):
+            err = (g - w).abs()
+            if name == "k1_expand_stats":
+                worst[name] = max(worst[name], float(err.max()))
+            rel = max(rel, float((err / (bound + 1e-6)).max()))
+        rtol = FE_SUM_RTOL[str(dtype)[6:]]
+        if not rel <= rtol:
+            raise AssertionError(f"{name} {label}: sums off by {rel:.3e} of "
+                                 f"sum|.|, more than {rtol:.1e}")
+        return rel
+
+    log("[kernels] fused_effnet: errors of maps as a share of max|ref|, of "
+        "sums as a share of sum|.|")
+    for dtype in (torch.bfloat16, torch.float32):
+        N = FE_BATCH[str(dtype)[6:]]
+        for i, (spec, H) in enumerate(fe_block_shapes(image)):
+            C, E, k, st = (spec.in_filters, spec.in_filters * spec.expand,
+                           spec.kernel, spec.stride)
+            label = (f"block {i} y ({N},{C},{H},{H}) E={E} k{k} s{st} -> "
+                     f"{spec.out_filters} {str(dtype)[6:]}")
+            y = rn(N, C, H, H).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            w_dw = rn(E, k, k, scale=1.0 / k)
+            w_proj = rn(spec.out_filters, E, scale=E ** -0.5).to(dtype)
+            se = torch.sigmoid(rn(N, E))
+            running = {"mean": 0.05 * rn(E), "var": 0.5 + 0.5 * torch.rand(
+                E, generator=gen, device=dev)}
+            w_exp = None
+            rel = {}
+            share = 0.0
+            if spec.expand != 1:
+                w_exp = rn(E, C, scale=C ** -0.5).to(dtype)
+                s1 = FE.k1_expand_stats(y, w_exp)
+                sync(dev)
+                rel["k1 sums"] = check_sums(
+                    names[0], label, s1, FE.k1_expand_stats_plain(y, w_exp),
+                    FE._pw(y, w_exp), dtype)
+            for mode in ("train", "eval"):
+                # without expand conv K2 takes no affine: both modes alike
+                ab1 = None
+                if w_exp is not None:
+                    mv = (FE._mv(*s1, N * H * H) if mode == "train"
+                          else (running["mean"], running["var"]))
+                    ab1 = FE._affine(bn(E), *mv)
+                dw, s2, q2 = FE.k2_depthwise(y, w_exp, ab1, w_dw, st)
+                dw_p, s2_p, q2_p = FE.k2_depthwise_plain(y, w_exp, ab1, w_dw,
+                                                         st)
+                mv = (FE._mv(s2_p, q2_p, dw_p.numel() // E) if mode == "train"
+                      else (running["mean"], running["var"]))
+                ab2 = FE._affine(bn(E), *mv)
+                tmp, s3, q3 = FE.k4_project(dw_p, ab2, se, w_proj)
+                tmp_p, s3_p, q3_p = FE.k4_project_plain(dw_p, ab2, se, w_proj)
+                sync(dev)
+                for key, name, got, want, sums in (
+                        ("dwout", names[1], dw, dw_p, ((s2, q2), (s2_p, q2_p))),
+                        ("tmp", names[2], tmp, tmp_p, ((s3, q3), (s3_p, q3_p)))):
+                    r, sh = check_map(name, f"{label} {mode}", got, want,
+                                      dtype)
+                    rel[key] = max(rel.get(key, 0.0), r)
+                    share = max(share, sh)
+                    key = f"{name[:2]} sums"
+                    rel[key] = max(rel.get(key, 0.0), check_sums(
+                        name, f"{label} {mode}", *sums, want, dtype))
+                del dw, tmp, tmp_p
+            line = (f"[kernels] fused_effnet {label}: "
+                    + ", ".join(f"{k_} {v:.1e}" for k_, v in rel.items())
+                    + f"; differing elements {share:.1e}")
+            if dtype == torch.bfloat16:
+                cases = {names[1]: (
+                    lambda: FE.k2_depthwise(y, w_exp, ab1, w_dw, st),
+                    lambda: FE.k2_depthwise_plain(y, w_exp, ab1, w_dw, st)),
+                    names[2]: (
+                    lambda: FE.k4_project(dw_p, ab2, se, w_proj),
+                    lambda: FE.k4_project_plain(dw_p, ab2, se, w_proj))}
+                if w_exp is not None:
+                    cases[names[0]] = (
+                        lambda: FE.k1_expand_stats(y, w_exp),
+                        lambda: FE.k1_expand_stats_plain(y, w_exp))
+                ms = {}
+                for name, (kern, plain) in cases.items():
+                    ms[name] = (cuda_time_ms(kern, 10),
+                                cuda_time_ms(plain, FE_PLAIN_ITERS))
+                    total[name] += ms[name][0]
+                    total_plain[name] += ms[name][1]
+                line += "; kernel/plain ms " + ", ".join(
+                    f"{n_[:2]} {a:.3f}/{b:.3f}" for n_, (a, b) in ms.items())
+                if i == FE_TIMED_BLOCK:
+                    # least time: each input read once and each output
+                    # written once at 3.35 TB/s, against the operations at
+                    # the card's peak for their type: the 1x1 products
+                    # (2*E*C flops per input pixel in K1 and K2, 2*Cout*E per
+                    # pixel in K4) take bf16 operands and accumulate in
+                    # float32, which is the tensor cores' 989 TFLOP/s; the
+                    # depthwise taps (2*k*k*E per output pixel in K2) are
+                    # float32 weights on float32 sums, 67 TFLOP/s
+                    px_in, px_out = N * H * H, dw_p.numel() // E
+                    Co, b = spec.out_filters, y.element_size()
+                    work = {
+                        names[0]: (b * (px_in * C + E * C) + 8 * E,
+                                   2 * E * C * px_in, 0),
+                        names[1]: (b * (px_in * C + E * C + px_out * E)
+                                   + 4 * E * (2 + k * k) + 8 * E,
+                                   2 * E * C * px_in, 2 * k * k * E * px_out),
+                        names[2]: (b * (px_out * (E + Co) + Co * E)
+                                   + 4 * (2 * E + N * E) + 8 * Co,
+                                   2 * Co * E * px_out, 0)}
+                    for name, (nbytes, mm_flops, f32_flops) in work.items():
+                        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                        op_ms = (mm_flops / BF16_TENSOR_FLOPS
+                                 + f32_flops / F32_FLOPS) * 1e3
+                        timed[name] = {
+                            "ms": ms[name][0], "plain_ms": ms[name][1],
+                            "bound_ms": max(byte_ms, op_ms),
+                            "bound_by": ("operations" if op_ms >= byte_ms
+                                         else "bytes"),
+                            "byte_ms": byte_ms, "op_ms": op_ms}
+            log(line)
+            del y, dw_p
+    replaces = dict(zip(names, (207, 229, 256)))
+    for name in names:
+        t = timed[name]
+        byte_ms, op_ms = t.pop("byte_ms"), t.pop("op_ms")
+        log(f"[kernels] {name} bf16 batch {FE_BATCH['bfloat16']}: block "
+            f"{FE_TIMED_BLOCK} kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms by "
+            f"{t['bound_by']} (bytes {byte_ms:.4f}, operations {op_ms:.4f}: "
+            f"products at the 989 TFLOP/s bf16 tensor rate, taps at 67 "
+            f"TFLOP/s f32); summed over one forward's launches kernel "
+            f"{total[name]:.3f} ms, plain {total_plain[name]:.3f} ms")
+        results[name] = {
+            "source": "moma_tpu_torch/csrc/fused_effnet.cu",
+            "replaces": f"moma_tpu/ops/fused_effnet_pallas.py:{replaces[name]}",
+            "max_abs_err": worst[name],
+            # no single PyTorch call computes a conv together with its
+            # BatchNorm statistics without writing the conv's output
+            "library_ms": None, **t}
+
+
+def phase_fe_forward(dev="cuda", f32_sizes=((4, 64), (2, 512)),
+                     main_size=(64, 512)):
+    """fused_forward against the EfficientNet module's forward on the card,
+    same weights.  float32 with TF32 off: pooled, logits and the 49 (mean,
+    var) pairs (the module's, read from its running statistics after a
+    forward with momentum 0) within FE_FWD_RTOL; bf16 at the main path's
+    batch 64, 512^2: the gap, bounded at FE_FWD_BF16_RTOL, and the time of
+    both forwards in train mode."""
+    import copy
+
+    import torch
+
+    from moma_tpu_torch.models.efficientnet import EfficientNet
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    dev = torch.device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+
+    def build(dtype):
+        m = EfficientNet("b0", num_classes=4, dtype=dtype, generator=g)
+        for mod in m.modules():
+            if type(mod).__name__ == "FusedBatchNorm":
+                mod.running_mean.copy_(0.05 * torch.randn(
+                    mod.running_mean.shape, generator=g))
+                mod.running_var.copy_(0.5 + 0.5 * torch.rand(
+                    mod.running_var.shape, generator=g))
+        return m.to(dev, memory_format=torch.channels_last)
+
+    def rel(got, want, floor=1e-6):
+        return float((got - want).abs().max()) / (float(want.abs().max())
+                                                  + floor)
+
+    model = build(None)
+    for B, S in f32_sizes:
+        x = torch.randn(B, S, S, 3, generator=g).to(dev)
+        for train in (False, True):
+            ref = copy.deepcopy(model).train(train)
+            bns = [mod for mod in ref.modules()
+                   if type(mod).__name__ == "FusedBatchNorm"]
+            for mod in bns:
+                mod.momentum = 0.0    # running statistics <- batch statistics
+            with torch.no_grad():
+                feats, logits = ref(x)
+            params, specs = FE.extract_params(model)
+            pooled, lg, coll = FE.fused_forward(params, specs, x, train,
+                                                torch.float32)
+            sync(dev)
+            errs = {"pooled": rel(pooled, feats[-1]), "logits": rel(lg, logits)}
+            if train:
+                order = FE.bn_order(FE.extract_params(ref)[0], specs)
+                if not len(coll) == len(order) == len(bns) == 49:
+                    raise AssertionError(f"{len(coll)} statistics pairs")
+                errs["mean"] = max(rel(m_, bn_["mean"], 1e-2)
+                                   for (m_, _), bn_ in zip(coll, order))
+                errs["var"] = max(rel(v_, bn_["var"], 1e-2)
+                                  for (_, v_), bn_ in zip(coll, order))
+            elif coll:
+                raise AssertionError("eval mode collected statistics")
+            log(f"[forward] fused vs module f32 batch {B} at {S}^2 "
+                f"{'train' if train else 'eval'}: " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in errs.items())
+                + " of max|ref|")
+            bad = {k: v for k, v in errs.items() if not v <= FE_FWD_RTOL}
+            if bad:
+                raise AssertionError(f"fused forward off by {bad}")
+    torch.backends.cudnn.allow_tf32 = True
+
+    model = build(torch.bfloat16).train(True)
+    B, S = main_size
+    x = torch.randint(0, 256, (B, S, S, 3), generator=g).to(
+        dev, torch.bfloat16)
+    x = (x - 128.0) / 64.0
+    params, specs = FE.extract_params(model)
+    with torch.no_grad():
+        feats, _ = model(x)
+        pooled, _, coll = FE.fused_forward(params, specs, x, True,
+                                           torch.bfloat16)
+        gap = rel(pooled, feats[-1].float())
+        if not (len(coll) == 49 and gap <= FE_FWD_BF16_RTOL):
+            raise AssertionError(f"bf16 fused forward: gap {gap:.3f} of "
+                                 f"max|pooled|, {len(coll)} pairs")
+        fused_ms = cuda_time_ms(lambda: FE.fused_forward(
+            params, specs, x, True, torch.bfloat16), 10)
+        module_ms = cuda_time_ms(lambda: model(x), 10)
+        fused_eval_ms = cuda_time_ms(lambda: FE.fused_forward(
+            params, specs, x, False, torch.bfloat16), 10)
+        model.train(False)
+        module_eval_ms = cuda_time_ms(lambda: model(x), 10)
+    log(f"[forward] bf16 batch {B} at {S}^2: fused vs module pooled gap "
+        f"{gap:.3f} of max|ref|; train mode fused {fused_ms:.2f} ms, module "
+        f"{module_ms:.2f} ms; eval mode fused {fused_eval_ms:.2f} ms, module "
+        f"{module_eval_ms:.2f} ms")
+
+
+def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
     """One MoMA step (augmentation included) at 64^2, batch 4, f32: the
     CPU run uses every kernel's plain version, the CUDA run the kernels;
     same weights, images and draws.  TF32 off, so the gap is f32
@@ -410,7 +725,7 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64"):
         "effiB0", "--model_t", "effiB0", "--image_size", "64",
         "--batch_size", "4", "--nce_k", nce_k, "--feat_dim", "32", "--head",
         "mlp", "--mem", mem, "--attn", attn, "-b", "1", "--fp32", "--epochs",
-        "1"])
+        "1", *extra])
     rs = np.random.RandomState(0)
     batch = {"image": rs.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
              "label": rs.randint(0, 4, (4,)).astype(np.int32)}
@@ -442,16 +757,19 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64"):
     if not (worst <= 1e-3 and qerr <= 1e-3):
         raise AssertionError(f"step parity: student params rel {worst:.2e}, "
                              f"queue {qerr:.2e}")
-    log(f"[parity] {mem}/{attn} K={nce_k} 64^2 f32 step cpu vs cuda: loss "
+    log(f"[parity] {mem}/{attn} K={nce_k} {' '.join(extra)} 64^2 f32 step cpu "
+        f"vs cuda: loss "
         f"{float(mc['loss']):.6f} vs {float(mg['loss']):.6f}; loss_kd "
         f"{float(mc['loss_kd']):.6f} vs {float(mg['loss_kd']):.6f}; student "
         f"params max rel diff {worst:.2e}; queue max diff {qerr:.2e}")
 
 
-def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0):
+def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
+                    fused=False):
     """Drive the CLI with `args`; `flash_per_step` launches of each
     flash-attention kernel are expected per step (0 on the MoCo path, whose
-    attentions see 64 tokens and stay dense)."""
+    attentions see 64 tokens and stay dense); `fused`: both teacher forwards
+    run the fused EfficientNet forward."""
     import torch
 
     from moma_tpu_torch.cli import train_student
@@ -481,11 +799,22 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0):
     n_bn = sum(1 for m in state.student.modules()
                if type(m).__name__ == "FusedBatchNorm")
     # first batch: eval-BN KL forward ('exact'), so student + key forwards;
-    # later batches add the train-BN KL forward
-    want = {"channel_sums": 2 * n_bn + 3 * n_bn * (n - 1),
+    # later batches add the train-BN KL forward: 2n - 1 train-mode teacher
+    # forwards and 2n teacher forwards in all
+    want = {"channel_sums": n_bn * n + n_bn * (2 * n - 1),
             "grad_channel_sums": n_bn * n,
             "ra_layer": 2 * n, "flash_fwd": flash_per_step * n,
-            "flash_dq": flash_per_step * n, "flash_dkv": flash_per_step * n}
+            "flash_dq": flash_per_step * n, "flash_dkv": flash_per_step * n,
+            "k1_expand_stats": 0, "k2_depthwise": 0, "k4_project": 0}
+    if fused:
+        # the fused forward takes only its stem and head statistics through
+        # channel_sums; K1 runs in train mode, for blocks with expand conv
+        blocks = state.teacher.blocks
+        n_exp = sum(1 for blk in blocks if blk.has_expand)
+        want.update({"channel_sums": n_bn * n + 2 * (2 * n - 1),
+                     "k1_expand_stats": n_exp * (2 * n - 1),
+                     "k2_depthwise": len(blocks) * 2 * n,
+                     "k4_project": len(blocks) * 2 * n})
     log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} BNs)")
     for k, v in want.items():
         if counts.get(k, 0) != v:
@@ -512,12 +841,17 @@ def main() -> int:
     phase_bn_kernels(results)
     phase_ra_kernel(results)
     phase_flash_kernels(results)
+    phase_fe_kernels(results)
+    phase_fe_forward()
     phase_step_parity()
     phase_step_parity("MoCoAtt", "all", "2048")
+    phase_step_parity(extra=("--fused_teacher", "on"))
     counts = phase_main_path()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
+    fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
     # a kernel's launches: those of the first main path that runs it
-    counts.update({k: att_counts[k] for k in att_counts if k not in counts})
+    for later in (att_counts, fused_counts):
+        counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                            "moma_tpu"))

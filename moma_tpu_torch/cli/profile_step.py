@@ -8,7 +8,9 @@
 Takes train_student's flags (--device defaults to cuda) plus --out; with
 `--mem MoCoAtt --attn all` in place of `--attn self` it profiles the
 MoCoAtt step, whose attention over 2B+K tokens runs the flash-attention
-kernels (they show by name among the trace's top kernels).  It
+kernels (they show by name among the trace's top kernels), and with
+`--fused_teacher on` the step whose teacher forwards run the fused
+EfficientNet forward (its `teacher_forward` phase is then that forward).  It
 builds the run's state with random weights, fixes one synthetic batch
 (data loading is set-up, not step time) and runs the steady-state step
 (train-BN teacher KL forward):
@@ -52,7 +54,8 @@ from moma_tpu_torch.data.pipeline import synthetic_dataset
 from moma_tpu_torch.losses.functional import cross_entropy
 from moma_tpu_torch.runtime import resolve_device
 from moma_tpu_torch.train.loop import to_device
-from moma_tpu_torch.train.moma import build_state, make_moma_train_step
+from moma_tpu_torch.train.moma import (build_state, make_moma_train_step,
+                                       make_teacher_forward)
 from moma_tpu_torch.train.teacher import augment_fns
 
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 2
@@ -159,10 +162,11 @@ def main(argv=None):
     images = augment(batch["image"], gen)
     labels = batch["label"].long()
 
+    teacher_forward = make_teacher_forward(cfg)
+
     def teacher_fwd():
         with torch.no_grad():
-            state.teacher.train(True)
-            state.teacher(images)
+            teacher_forward(state.teacher, images, True)
 
     def student_fwd_bwd():
         state.student.train()
@@ -198,6 +202,7 @@ def main(argv=None):
     summary = {
         "batch": B, "image_size": S, "device": str(device),
         "mem": cfg.moma.mem, "attn": cfg.moma.attn,
+        "fused_teacher": cfg.moma.fused_teacher,
         "step_ms": {"median": step_ms, "min": min(times),
                     "max": max(times), "n": len(times)},
         "img_per_s": B / (step_ms / 1e3),

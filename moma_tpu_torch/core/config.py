@@ -187,8 +187,6 @@ def check_slice(cfg: Config) -> None:
     if r.model_parallel > 1 or r.sequence_parallel or r.pp_microbatch:
         bad.append("--model_parallel / --sequence_parallel / "
                    "--pp_microbatch (Queue 1 items 9-10)")
-    if m.fused_teacher != "off":
-        bad.append("--fused_teacher on (Queue 1 item 8)")
     if m.teacher_quant != "none":
         bad.append("--teacher_quant (Queue 1 item 10)")
     if m.fast_teacher:

@@ -14,7 +14,8 @@
 //     8 rows, so for C = 32 a block touches 512 contiguous bytes per step.
 //   * The grid's y dimension cuts the rows into G chunks; each block writes
 //     its own f32 partial sums (no atomics), and a second small kernel
-//     reduces the G partials of each channel in a fixed order.  The result
+//     (reduce_partials.cuh) reduces the G partials of each channel in a
+//     fixed order.  The result
 //     is therefore the same from run to run.
 //   * The TPU kernel's lane packing (_pack_width / _pick_block_rows) exists
 //     to fill 128-lane vector registers and is not carried over.
@@ -24,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduce_partials.cuh"
 
 namespace {
 
@@ -103,36 +106,6 @@ __global__ void grad_sums_partial(const T* __restrict__ dy,
   }
 }
 
-// Second pass: out[c] = sum over g of part[g, c], in a fixed order.
-// Block (TX channels) x (TY partial-row lanes); lane j sums rows j, j+TY, ...
-__global__ void reduce_partials(const float* __restrict__ part_a,
-                                const float* __restrict__ part_b, int G, int C,
-                                float* __restrict__ out_a,
-                                float* __restrict__ out_b) {
-  const int c = blockIdx.x * TX + threadIdx.x;
-  float a = 0.f, b = 0.f;
-  if (c < C) {
-#pragma unroll 4
-    for (int g = threadIdx.y; g < G; g += TY) {
-      a += part_a[(int64_t)g * C + c];
-      b += part_b[(int64_t)g * C + c];
-    }
-  }
-  __shared__ float sh_a[TY][TX];
-  __shared__ float sh_b[TY][TX];
-  sh_a[threadIdx.y][threadIdx.x] = a;
-  sh_b[threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    for (int i = 1; i < TY; ++i) {
-      a += sh_a[i][threadIdx.x];
-      b += sh_b[i][threadIdx.x];
-    }
-    out_a[c] = a;
-    out_b[c] = b;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -153,7 +126,7 @@ int moma_channel_sums(const void* x, int dtype, int64_t R, int C, int G,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<dim3((C + TX - 1) / TX), block, 0, st>>>(
+  reduce_partials<<<reduce_partials_grid(C), reduce_partials_block(), 0, st>>>(
       part_s, part_q, G, C, out_s, out_q);
   return (int)cudaGetLastError();
 }
@@ -176,7 +149,7 @@ int moma_grad_channel_sums(const void* dy, const void* x, int dtype,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<dim3((C + TX - 1) / TX), block, 0, st>>>(
+  reduce_partials<<<reduce_partials_grid(C), reduce_partials_block(), 0, st>>>(
       part_s, part_p, G, C, out_s, out_p);
   return (int)cudaGetLastError();
 }

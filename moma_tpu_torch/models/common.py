@@ -44,6 +44,20 @@ def tf_same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+def conv2d_same(x: torch.Tensor, w: torch.Tensor, b, stride: int,
+                groups: int = 1) -> torch.Tensor:
+    """F.conv2d with TF/flax 'SAME' padding.  TF-SAME pads (0, 1) for a
+    stride-2 3x3 conv on an even input, which conv2d's symmetric `padding`
+    cannot express: asymmetric pads go through F.pad first."""
+    k = w.shape[-1]
+    ph = tf_same_pads(x.shape[2], k, stride)
+    pw = tf_same_pads(x.shape[3], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, w, b, stride, (ph[0], pw[0]), 1, groups)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, w, b, stride, 0, 1, groups)
+
+
 class TorchLinear(nn.Module):
     """Dense layer with torch-default init; the weight is cast to the
     input's dtype at use (common.py:50-69)."""
@@ -68,11 +82,8 @@ class TorchLinear(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax nn.Conv with 'SAME' padding on NCHW (channels_last) tensors.
-
-    TF-SAME pads (0, 1) for a stride-2 3x3 conv on an even input, which
-    nn.Conv2d's symmetric `padding` cannot express: asymmetric pads go
-    through F.pad first.  `dtype` casts input and weight at use (None =
+    """flax nn.Conv with 'SAME' padding (conv2d_same) on NCHW
+    (channels_last) tensors.  `dtype` casts input and weight at use (None =
     promote the two, flax's default)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -95,10 +106,4 @@ class Conv2d(nn.Module):
         x = x.to(dt)
         w = self.weight.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
-        k, s = self.kernel_size, self.stride
-        ph = tf_same_pads(x.shape[2], k, s)
-        pw = tf_same_pads(x.shape[3], k, s)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, w, b, s, (ph[0], pw[0]), 1, self.groups)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, w, b, s, 0, 1, self.groups)
+        return conv2d_same(x, w, b, self.stride, self.groups)

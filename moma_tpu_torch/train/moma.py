@@ -34,7 +34,11 @@ updated in place:
 Every train-mode BatchNorm goes through the channel-sum kernels, its
 backward through the grad-sum kernel, the augmentation through the
 RandAugment layer kernel, and attention over more than 2048 tokens through
-the flash-attention kernels (on a CUDA device).
+the flash-attention kernels (on a CUDA device).  With `--fused_teacher on`
+both gradient-free teacher forwards (steps 1 and 3) run the recompute-style
+fused forward of ops/fused_effnet.py and its three kernels in place of the
+module forward: the same function by another route
+(train/moma.py:206-212, :321-339, :428-445), in the teacher's compute dtype.
 
 Not ported yet (ROADMAP.md): the cross-arch CMO_EmaTec mode, checkpoints,
 resume, preemption, the TensorBoard writer and --profile_dir; `run_moma`
@@ -60,6 +64,7 @@ from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        random_memory, step_moco,
                                        step_moco_att, step_moco_sstt,
                                        step_moco_st)
+from moma_tpu_torch.ops import fused_effnet
 from moma_tpu_torch.runtime import resolve_device
 from moma_tpu_torch.train.loop import evaluate, train_one_epoch
 from moma_tpu_torch.train.state import MomaState, make_sgd
@@ -92,6 +97,42 @@ def _buffers_restored(*modules: nn.Module):
                 b.copy_(old)
 
 
+def make_teacher_forward(cfg: Config):
+    """forward(teacher, images, train) -> (pooled, logits) for the two
+    gradient-free teacher passes, BN running statistics updated in place
+    when `train`: the module forward, or with `--fused_teacher on` the fused
+    forward in the teacher's compute dtype.  Its parameters are views of the
+    teacher module, taken once per module (the in-place EMA shows through
+    them).  The flag with a teacher that is no EfficientNet raises."""
+    if cfg.moma.fused_teacher == "on":
+        if not cfg.model_t.name.startswith("effiB"):
+            raise ValueError("--fused_teacher on needs an EfficientNet "
+                             f"teacher, got {cfg.model_t.name!r}")
+        variant = "b" + cfg.model_t.name[len("effiB"):]
+        views = {}
+
+        def forward(teacher, images, train: bool):
+            # a module moved or cast since has new storage: take new views
+            key = (id(teacher), teacher.stem_conv.weight.data_ptr())
+            if views.get("of") != key:
+                views["of"] = key
+                views["params"], views["specs"] = (
+                    fused_effnet.extract_params(teacher, variant))
+            params, specs = views["params"], views["specs"]
+            pooled, logits, collected = fused_effnet.fused_forward(
+                params, specs, images, train=train,
+                compute_dtype=teacher.stem_conv.dtype or torch.float32)
+            if train:
+                fused_effnet.updated_batch_stats(params, specs, collected)
+            return pooled, logits
+    else:
+        def forward(teacher, images, train: bool):
+            teacher.train(train)
+            feats, logits = teacher(images)
+            return feats[-1], logits
+    return forward
+
+
 def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                          kl_train_bn_override: Optional[bool] = None):
     """step(state, batch, generator) -> (state, metrics).
@@ -110,6 +151,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     # embed_t is EMA-tracked for the mlp heads only (train/moma.py:382-389)
     ema_head = cfg.moma.head in ("mlp", "mlp_byol")
     shuffle_bn = cfg.moma.shuffle_bn
+    teacher_forward = make_teacher_forward(cfg)
     kl_bn_mode = cfg.moma.kl_teacher_bn
     if kl_bn_mode not in ("train", "eval", "exact"):
         raise ValueError(f"unknown kl_teacher_bn {kl_bn_mode!r}")
@@ -135,8 +177,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
 
         # 1. KL forward, pre-EMA teacher
         with torch.no_grad():
-            teacher.train(kl_train_bn)
-            _, logit_t = teacher(images)
+            _, logit_t = teacher_forward(teacher, images, kl_train_bn)
 
         # 2. EMA from the pre-step student
         ema_update(teacher, student, alpha)
@@ -155,10 +196,9 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 key_images = images[perm]
             else:
                 key_images = images
-            teacher.train(True)
-            feat_key, _ = teacher(key_images)
+            pooled_key, _ = teacher_forward(teacher, key_images, True)
             heads.embed_t.eval()  # the momentum head runs in eval mode
-            k_emb = heads.embed_t(feat_key[-1])
+            k_emb = heads.embed_t(pooled_key)
             if shuffle_bn:
                 k_emb = k_emb[inv]
         # MoCoSSTT's second view, drawn after the permutation as in JAX

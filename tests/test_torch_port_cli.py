@@ -45,8 +45,7 @@ def test_cli_trains_one_epoch_on_cpu(capsys):
 @pytest.mark.parametrize("extra", [
     ["--distill", "kd"], ["--remat"], ["--fast_teacher"],
     ["--fold_idx", "0"], ["--std_pre", "imagenet"], ["--attn", "selff"],
-    ["--bn", "local"], ["--grad_accum", "2"],
-    ["--fused_teacher", "on"], ["--teacher_quant", "int8"],
+    ["--bn", "local"], ["--grad_accum", "2"], ["--teacher_quant", "int8"],
     ["--model_parallel", "2"], ["--model_t", "effiB1"], ["--resume"],
     ["--image_resize"],
 ])
@@ -54,6 +53,37 @@ def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag
     with pytest.raises(NotImplementedError):
         parse_student_args(argv + extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--grad_accum", "2"], ["--bn", "local"], ["--teacher_quant", "int8"],
+    ["--bn", "sync", "--grad_accum", "4"],
+])
+def test_fused_teacher_keeps_the_reference_refusals(extra):
+    """--fused_teacher on is a one-device path: with gradient accumulation,
+    per-device BN or the int8 teacher the JAX package raises too."""
+    argv = [a for a in ARGS if a != "--synthetic"]
+    assert parse_student_args(
+        argv + ["--fused_teacher", "on"]).moma.fused_teacher == "on"
+    with pytest.raises(NotImplementedError):
+        parse_student_args(argv + ["--fused_teacher", "on"] + extra)
+
+
+def test_cli_trains_with_the_fused_teacher_on_cpu():
+    """--fused_teacher on: both teacher forwards through the fused forward,
+    on the CPU through the plain versions of its three kernels."""
+    reset_launch_counts()
+    argv = [a if a != "64" else "32" for a in ARGS]   # 32^2 images, K below
+    argv[argv.index("--nce_k") + 1] = "64"
+    state, result = train_student.main(
+        argv + ["--feat_dim", "16", "--fused_teacher", "on"])
+    tr = result["train"]
+    assert tr["steps"] == 64 and math.isfinite(tr["loss"])
+    assert math.isfinite(result["val"]["loss"])
+    assert state.queue.ptr == (4 * 64) % 64 and state.step == 64
+    assert launch_counts() == {}
+    # the fused forward updated the teacher's running statistics in place
+    assert float(state.teacher.bn1.running_mean.abs().max()) > 0
 
 
 @pytest.mark.parametrize("extra,want", [
@@ -116,7 +146,8 @@ def test_device_busy_takes_the_union_of_intervals(intervals, want):
 
 @pytest.mark.parametrize("extra", [
     [], ["--mem", "MoCoAtt", "--attn", "all", "-b", "1"],
-], ids=["moco", "mocoatt"])
+    ["--fused_teacher", "on"],
+], ids=["moco", "mocoatt", "fused_teacher"])
 def test_profile_step_runs_on_cpu(tmp_path, monkeypatch, extra):
     from moma_tpu_torch.cli import profile_step
 
@@ -128,7 +159,9 @@ def test_profile_step_runs_on_cpu(tmp_path, monkeypatch, extra):
         "effiB0", "--image_size", "32", "--batch_size", "2", "--nce_k", "8",
         "--feat_dim", "16", "--head", "mlp", "--attn", "self", "--fp32"]
         + extra)
-    assert s["mem"] == (extra[1] if extra else "MoCo")
+    assert s["mem"] == (extra[1] if "--mem" in extra else "MoCo")
+    assert s["fused_teacher"] == ("on" if "--fused_teacher" in extra
+                                  else "off")
     assert s["step_ms"]["n"] == 1 and s["step_ms"]["median"] > 0
     assert set(s["phase_ms"]) == {"augment", "teacher_forward",
                                   "student_forward_backward"}

@@ -197,3 +197,123 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
         FA.flash_fwd(big, big, big)
     with pytest.raises(ValueError):
         FA.flash_fwd(x, x.cpu(), x)
+
+
+# (C, expand, k, stride, Cout, N, H, W): the five effiB0 block classes at
+# ragged sizes (pixel counts, channel counts and output tiles that do not
+# divide the kernels' 64-wide tiles), plus one wider than a reduction chunk
+_FE_CASES = [(32, 1, 3, 1, 16, 2, 12, 16), (16, 6, 3, 2, 24, 3, 13, 11),
+             (24, 6, 3, 1, 24, 2, 9, 20), (24, 6, 5, 2, 40, 2, 16, 14),
+             (40, 6, 5, 1, 40, 1, 7, 5), (80, 6, 5, 2, 112, 2, 5, 6),
+             (8, 6, 3, 1, 8, 5, 33, 35)]
+
+
+@pytest.mark.parametrize("case", _FE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_effnet_kernels_match_plain(dev, case, dtype):
+    """K1 / K2 / K4 against their plain versions.  f32: the two differ in
+    the order of their float32 sums.  bf16: a sum that lands on the other
+    side of a rounding edge moves an element by one bf16 ulp, and one such
+    input can move a depthwise output by another."""
+    from moma_tpu_torch.ops import fused_effnet as FE
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    C, expand, k, stride, Cout, N, H, W = case
+    E = C * expand
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    y = rn(N, C, H, W).to(dtype).contiguous(memory_format=torch.channels_last)
+    w_exp = ab1 = None
+    if expand != 1:
+        w_exp = rn(E, C, scale=C ** -0.5).to(dtype)
+        ab1 = torch.stack([1.0 + 0.1 * rn(E), 0.1 * rn(E)])
+    w_dw = rn(E, k, k, scale=1.0 / k)
+    ab2 = torch.stack([1.0 + 0.1 * rn(E), 0.1 * rn(E)])
+    se = torch.sigmoid(rn(N, E))
+    w_proj = rn(Cout, E, scale=E ** -0.5).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+
+    def close(got, want, what, rtol=tol):
+        err = float((got.float() - want.float()).abs().max())
+        ref = float(want.float().abs().max())
+        assert err <= rtol * ref + 1e-6, (what, err, ref)
+
+    def sums_close(got, want, x, what):
+        # the bound of an f32 sum's error is a share of sum|x| (of sum x^2)
+        xf = x.float()
+        for gt, wt, bound in zip(got, want, (xf.abs().sum((0, 2, 3)),
+                                             (xf * xf).sum((0, 2, 3)))):
+            rel = float(((gt - wt).abs() / (bound + 1e-3)).max())
+            assert rel <= (1e-4 if dtype == torch.float32 else 1e-2), (
+                what, rel)
+
+    reset_launch_counts()
+    if expand != 1:
+        got = FE.k1_expand_stats(y, w_exp)
+        sums_close(got, FE.k1_expand_stats_plain(y, w_exp),
+                   FE._pw(y, w_exp), "k1")
+    dw, s2, q2 = FE.k2_depthwise(y, w_exp, ab1, w_dw, stride)
+    dw_p, s2_p, q2_p = FE.k2_depthwise_plain(y, w_exp, ab1, w_dw, stride)
+    torch.cuda.synchronize()
+    assert dw.shape == dw_p.shape and dw.dtype == dtype
+    assert dw.is_contiguous(memory_format=torch.channels_last)
+    close(dw, dw_p, "dwout")
+    sums_close((s2, q2), (s2_p, q2_p), dw_p, "k2 sums")
+    tmp, s3, q3 = FE.k4_project(dw_p, ab2, se, w_proj)
+    tmp_p, s3_p, q3_p = FE.k4_project_plain(dw_p, ab2, se, w_proj)
+    torch.cuda.synchronize()
+    assert tmp.shape == (N, Cout) + tuple(dw.shape[2:])
+    close(tmp, tmp_p, "tmp")
+    sums_close((s3, q3), (s3_p, q3_p), tmp_p, "k4 sums")
+    assert launch_counts() == {
+        "k2_depthwise": 1, "k4_project": 1,
+        **({"k1_expand_stats": 1} if expand != 1 else {})}
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_fused_forward_cuda_matches_cpu(dev, train):
+    from moma_tpu_torch.models.efficientnet import EfficientNet
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    model = EfficientNet("b0", num_classes=5,
+                         generator=torch.Generator().manual_seed(6))
+    model = model.to(memory_format=torch.channels_last)
+    x = torch.randn(3, 64, 48, 3, generator=torch.Generator().manual_seed(7))
+    out = {}
+    for d in ("cpu", dev):
+        m = model.to(d)
+        params, specs = FE.extract_params(m)
+        out[str(d)] = FE.fused_forward(params, specs, x.to(d), train,
+                                       torch.float32)
+    (pc, lc, cc), (pg, lg, cg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(pg.cpu(), pc, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-4)
+    assert len(cc) == len(cg) == (49 if train else 0)
+    for (mc, vc), (mg, vg) in zip(cc, cg):
+        torch.testing.assert_close(mg.cpu(), mc, rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(vg.cpu(), vc, rtol=1e-3, atol=1e-4)
+
+
+def test_fused_effnet_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    y = torch.randn(2, 8, 6, 6, device=dev)
+    w = torch.randn(48, 8, device=dev)
+    yc = y.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="channels_last"):
+        FE.k1_expand_stats(y, w)
+    with pytest.raises(TypeError):
+        FE.k1_expand_stats(yc.half(), w.half())
+    with pytest.raises(ValueError, match="w_exp"):
+        FE.k1_expand_stats(yc, w.bfloat16())
+    w_dw = torch.randn(48, 3, 3, device=dev)
+    with pytest.raises(ValueError, match="go together"):
+        FE.k2_depthwise(yc, w, None, w_dw, 1)
+    with pytest.raises(ValueError, match="stride"):
+        FE.k2_depthwise(yc, None, None, torch.randn(8, 3, 3, device=dev), 3)
+    with pytest.raises(ValueError, match="se"):
+        FE.k4_project(yc, torch.zeros(2, 8, device=dev),
+                      torch.zeros(3, 8, device=dev), w[:4].contiguous())

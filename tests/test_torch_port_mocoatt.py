@@ -308,11 +308,20 @@ def _batches(n):
             for _ in range(n)]
 
 
+_JAX_PROGRAMS = {}
+
+
 def _jax_run(backbones, setup, cfg, programs, batches, augment):
     model, vs, vt = backbones
     jheads, cmo, mems = setup
-    tx = j_make_sgd(j_lr_schedule(LR, EPOCHS, STEPS_PER_EPOCH, cosine=True),
-                    0.9, 5e-4)
+    # one optimizer and, without an injected augmentation, one jitted step
+    # per (mem, attn, K, BN mode) for the whole module: a later case on the
+    # same process reuses the compiled program (the optimizer is a static
+    # field of the state, so it must be the same object for the cache to hit)
+    if "tx" not in _JAX_PROGRAMS:
+        _JAX_PROGRAMS["tx"] = j_make_sgd(
+            j_lr_schedule(LR, EPOCHS, STEPS_PER_EPOCH, cosine=True), 0.9, 5e-4)
+    tx = _JAX_PROGRAMS["tx"]
     params = {"student": vs["params"], "cmo": cmo["params"]}
     state = JState(
         step=jnp.zeros((), jnp.int32), params=params,
@@ -323,9 +332,17 @@ def _jax_run(backbones, setup, cfg, programs, batches, augment):
             ptr=jnp.zeros((), jnp.int32)),
         opt_state=tx.init(params), tx=tx, apply_fn=model.apply,
         teacher_apply_fn=model.apply)
-    steps = {flag: j_make_step(cfg, jheads, augment_fn=augment, donate=False,
+    steps = {}
+    for flag in set(programs):
+        key = (cfg.moma.mem, cfg.moma.attn, cfg.moma.nce_k, flag)
+        if augment is not None or key not in _JAX_PROGRAMS:
+            step = j_make_step(cfg, jheads, augment_fn=augment, donate=False,
                                kl_train_bn_override=flag)
-             for flag in set(programs)}
+            if augment is not None:
+                steps[flag] = step
+                continue
+            _JAX_PROGRAMS[key] = step
+        steps[flag] = _JAX_PROGRAMS[key]
     metrics = []
     for flag, b in zip(programs, batches):
         state, m = steps[flag](state, {k: jnp.asarray(v) for k, v in

@@ -26,7 +26,19 @@ port's channel sums vs flax's mean), so:
 - updates: 2e-3 / 1e-2.  Rounding alone gives at most 6.1e-4 after one
   step and 1.9e-3 after three; a KL gradient 10% off gives 1.1e-2 and
   0.42 (measured on the CPU with a deliberately wrong copy of the step).
+
+The same runs with `fused_teacher='on'` (both teacher forwards through the
+fused EfficientNet forward of each package) are held to the same
+tolerances, with the teacher's running statistics compared after every
+step.  The JAX step calls its fused forward without a compute dtype, i.e.
+in bfloat16 whatever the run's precision, while the port follows the
+teacher's dtype (float32 here), so the test pins the JAX side to float32
+by replacing `fused_effnet_pallas.fused_forward` with a partial that passes
+`compute_dtype=float32` (the step looks the name up when it is traced).
+And the port's own step gives the same losses by either route.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +48,13 @@ import torch
 
 from moma_tpu.core.config import Config as JConfig
 from moma_tpu.core.config import DistillConfig as JDistill
+from moma_tpu.core.config import ModelConfig as JModel
 from moma_tpu.core.config import MomaConfig as JMoma
 from moma_tpu.core.schedules import lr_schedule as j_lr_schedule
 from moma_tpu.models.efficientnet import efficientnet_b0
 from moma_tpu.moma.cmo import CMOHeads as JHeads
 from moma_tpu.moma.queue import QueueState as JQueue
+from moma_tpu.ops import fused_effnet_pallas as JFEP
 from moma_tpu.train.moma import make_moma_train_step as j_make_step
 from moma_tpu.train.state import MomaState as JState
 from moma_tpu.train.state import make_sgd as j_make_sgd
@@ -65,17 +79,19 @@ B, HW, N_CLS, K, FEAT = 4, 64, 4, 64, 32
 ALPHA, LR, EPOCHS, STEPS_PER_EPOCH = 0.99, 0.05, 5, 4
 
 
-def _cfgs():
+def _cfgs(fused="off"):
     jc = JConfig()
+    jc.model_t = JModel(name="effiB0", n_cls=N_CLS)
     jc.distill = JDistill(distill="moma", cls=1.0, div=1.0, beta=1.0)
     jc.moma = JMoma(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
-                    mem="MoCo", head="mlp", attn="self")
+                    mem="MoCo", head="mlp", attn="self", fused_teacher=fused)
     tc = Config()
     tc.model_s = ModelConfig(name="effiB0", n_cls=N_CLS)
     tc.model_t = ModelConfig(name="effiB0", n_cls=N_CLS)
     tc.distill = DistillConfig(distill="moma", cls=1.0, div=1.0, beta=1.0)
     tc.moma = MomaConfig(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
-                         mem="MoCo", head="mlp", attn="self")
+                         mem="MoCo", head="mlp", attn="self",
+                         fused_teacher=fused)
     return jc, tc
 
 
@@ -107,11 +123,21 @@ def _batches(n):
     return out
 
 
-def _jax_run(init_vars, programs, batches):
+_JAX_PROGRAMS = {}
+
+
+def _jax_run(init_vars, programs, batches, fused="off"):
+    """Returns (state, metrics per step, teacher batch_stats per step)."""
     model, jheads, vs, vt, cmo, mem = init_vars
-    jc, _ = _cfgs()
-    tx = j_make_sgd(j_lr_schedule(LR, EPOCHS, STEPS_PER_EPOCH, cosine=True),
-                    0.9, 5e-4)
+    jc, _ = _cfgs(fused)
+    # one optimizer and one jitted step per (route, BN mode) for the whole
+    # module: a later test on the same process reuses the compiled program
+    # (the optimizer is a static field of the state, so it must be the same
+    # object for the cache to hit)
+    if "tx" not in _JAX_PROGRAMS:
+        _JAX_PROGRAMS["tx"] = j_make_sgd(
+            j_lr_schedule(LR, EPOCHS, STEPS_PER_EPOCH, cosine=True), 0.9, 5e-4)
+    tx = _JAX_PROGRAMS["tx"]
     params = {"student": vs["params"], "cmo": cmo["params"]}
     state = JState(
         step=jnp.zeros((), jnp.int32), params=params,
@@ -121,20 +147,26 @@ def _jax_run(init_vars, programs, batches):
                      ptr=jnp.zeros((), jnp.int32)),
         opt_state=tx.init(params), tx=tx, apply_fn=model.apply,
         teacher_apply_fn=model.apply)
-    steps = {flag: j_make_step(jc, jheads, augment_fn=None, donate=False,
-                               kl_train_bn_override=flag)
-             for flag in set(programs)}
-    metrics = []
+    steps = {}
+    for flag in set(programs):
+        key = (id(jheads), fused, flag)
+        if key not in _JAX_PROGRAMS:
+            _JAX_PROGRAMS[key] = j_make_step(
+                jc, jheads, augment_fn=None, donate=False,
+                kl_train_bn_override=flag)
+        steps[flag] = _JAX_PROGRAMS[key]
+    metrics, teacher_bs = [], []
     for flag, b in zip(programs, batches):
         state, m = steps[flag](state, {k: jnp.asarray(v) for k, v in
                                        b.items()}, jax.random.PRNGKey(9))
         metrics.append({k: float(v) for k, v in m.items()})
-    return state, metrics
+        teacher_bs.append(jax.device_get(state.teacher_batch_stats))
+    return state, metrics, teacher_bs
 
 
-def _torch_run(init_vars, programs, batches):
+def _torch_run(init_vars, programs, batches, fused="off"):
     _, _, vs, vt, cmo, mem = init_vars
-    _, tc = _cfgs()
+    _, tc = _cfgs(fused)
     student = EfficientNet("b0", num_classes=N_CLS)
     teacher = EfficientNet("b0", num_classes=N_CLS)
     heads = CMOHeads("mlp", "self", FEAT, s_dim=1280, t_dim=1280)
@@ -151,13 +183,16 @@ def _torch_run(init_vars, programs, batches):
     state.optimizer = make_sgd(state.trainable_params(), 0.9, 5e-4)
     steps = {flag: make_moma_train_step(tc, None, kl_train_bn_override=flag)
              for flag in set(programs)}
-    metrics = []
+    metrics, teacher_bs = [], []
     for flag, b in zip(programs, batches):
         state, m = steps[flag](
             state, {k: torch.from_numpy(v) for k, v in b.items()},
             torch.Generator().manual_seed(9))
         metrics.append({k: float(v) for k, v in m.items()})
-    return state, metrics
+        # a copy: the converter's arrays share the module's memory
+        teacher_bs.append(jax.tree_util.tree_map(
+            np.array, jax_variables(state.teacher, vt)["batch_stats"]))
+    return state, metrics, teacher_bs
 
 
 @pytest.mark.parametrize("programs,rtol,div_rtol,upd_rtol", [
@@ -167,10 +202,59 @@ def _torch_run(init_vars, programs, batches):
 ], ids=["1step-evalbn", "1step-trainbn", "3step-exact"])
 def test_moma_step_matches_jax(init_vars, programs, rtol, div_rtol,
                                upd_rtol):
+    _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, "off")
+
+
+@pytest.mark.parametrize("programs,rtol,div_rtol,upd_rtol", [
+    ((True,), 1e-4, 5e-4, 2e-3),
+    ((False, True, True), 1e-3, 3e-3, 1e-2),
+], ids=["1step-trainbn", "3step-exact"])
+def test_moma_step_with_fused_teacher_matches_jax(
+        init_vars, programs, rtol, div_rtol, upd_rtol, monkeypatch):
+    monkeypatch.setattr(JFEP, "fused_forward", functools.partial(
+        JFEP.fused_forward, compute_dtype=jnp.float32))
+    _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, "on")
+
+
+def test_fused_teacher_step_gives_the_module_route_its_losses(init_vars):
+    """Same function, other route: two 'exact' steps of the port with
+    `fused_teacher` on and off, float32."""
+    programs = (False, True)
     batches = _batches(len(programs))
-    js, jm = _jax_run(init_vars, programs, batches)
-    ts, tm = _torch_run(init_vars, programs, batches)
+    s_off, m_off, bs_off = _torch_run(init_vars, programs, batches, "off")
+    s_on, m_on, bs_on = _torch_run(init_vars, programs, batches, "on")
+    for a, b in zip(m_on, m_off):
+        for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (k, a[k], b[k])
+    floor = group_floor(bs_off[-1])
+    for path, g, w in walk_pairs(bs_on[-1], bs_off[-1], "teacher_bs"):
+        assert_close_scaled(g, w, 1e-4, path, floor)
+    pairs = [(a.detach().numpy(), b.detach().numpy()) for a, b in
+             zip(s_on.student.parameters(), s_off.student.parameters())]
+    floor = 1e-3 * max(float(np.abs(b).max()) for _, b in pairs)
+    for a, b in pairs:
+        assert_close_scaled(a, b, 1e-4, "student", floor)
+
+
+def test_fused_teacher_needs_an_efficientnet_teacher():
+    """The flag is never ignored: with another teacher it raises."""
+    from moma_tpu_torch.train.moma import make_teacher_forward
+    _, tc = _cfgs("on")
+    tc.model_t = ModelConfig(name="resnet8", n_cls=N_CLS)
+    with pytest.raises(ValueError, match="EfficientNet"):
+        make_teacher_forward(tc)
+
+
+def _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, fused):
+    batches = _batches(len(programs))
+    js, jm, jbs = _jax_run(init_vars, programs, batches, fused)
+    ts, tm, tbs = _torch_run(init_vars, programs, batches, fused)
     _, _, vs, vt, cmo, _ = init_vars
+
+    for step, (got, ref) in enumerate(zip(tbs, jbs)):
+        floor = group_floor(ref)
+        for path, g, w in walk_pairs(got, ref, f"teacher_bs step {step}"):
+            assert_close_scaled(g, w, rtol, path, floor)
 
     for a, b in zip(tm, jm):
         for k in ("loss", "loss_cls", "loss_div", "loss_kd"):

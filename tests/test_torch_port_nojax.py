@@ -3,7 +3,8 @@ kernels have no stand-ins.
 
 1. A subprocess blocks jax / flax / optax / orbax and moma_tpu with a
    sys.meta_path finder, imports every moma_tpu_torch module and runs one
-   CPU train step of each ported memory variant.
+   CPU train step of each ported memory variant and one with the fused
+   teacher forward.
 2. No source file of the port, nor chip_smoke.py, imports moma_tpu
    (docstrings may name a counterpart file).
 3. The package source holds no library kernel stand-in
@@ -48,9 +49,11 @@ SCRIPT = textwrap.dedent('''
     ds = synthetic_dataset(2, 32, 4, seed=0)
     batch = to_device({"image": ds.images, "label": ds.labels},
                       torch.device("cpu"))
-    for mem, attn in (("MoCo", "self"), ("MoCoAtt", "all"),
-                      ("MoCoSSTT", "self")):
+    for mem, attn, fused in (("MoCo", "self", "off"), ("MoCoAtt", "all", "off"),
+                             ("MoCoSSTT", "self", "off"),
+                             ("MoCo", "self", "on")):
         cfg = parse_student_args([
+            "--fused_teacher", fused,
             "--device", "cpu", "--dataset", "prostate_hv", "--model_s",
             "effiB0", "--model_t", "effiB0", "--distill", "moma", "--head",
             "mlp", "--mem", mem, "--attn", attn, "--image_size", "32",
@@ -83,7 +86,8 @@ def test_no_library_kernel_or_fallback_in_the_port():
     for path in (PKG / "ops").glob("*.py"):
         assert "try:" not in path.read_text(), f"try: in {path}"
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "bn_sums.cu", "flash_attention.cu", "randaugment.cu"]
+        "bn_sums.cu", "flash_attention.cu", "fused_effnet.cu",
+        "randaugment.cu"]
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
