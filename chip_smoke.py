@@ -68,6 +68,9 @@ MOCOATT_ARGS = [
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+# float32 products on the tensor cores to float32 accuracy: three products
+# of the dense TF32 rate (495 TFLOP/s) per float32 product
+F32_ON_TF32_FLOPS = 495e12 / 3
 FLASH_SHAPE = (4, 2 * 64 + 16384, 128)   # (heads, 2B+K tokens, head dim)
 FLASH_SMALL = (4, 333, 32)               # ragged tiles, bf16
 FLASH_ITERS = 5
@@ -159,9 +162,20 @@ def phase_build():
         f"(nvcc seconds per library: {_build.build_seconds()})")
     for name in ("bn_sums", "randaugment", "flash_attention",
                  "fused_effnet"):
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, line in _build.ptxas_report(name).items():
+            log(f"[build] {name}: {kernel}: {line}")
+    # the flash kernels' shared memory per block and, where the toolkit has
+    # cuobjdump, their tensor-core (HMMA) instructions
+    lib = flash_attention._lib()
+    hmma = _build.sass_counts("flash_attention", "HMMA")
+    for i, kernel in enumerate(("flash_fwd_kernel", "flash_dq_kernel",
+                                "flash_dkv_kernel")):
+        for dtype, tname in ((0, "float"), (1, "bf16")):
+            for dp in (32, 128):
+                inst = f"{kernel}<{tname}, {dp}>"
+                log(f"[build] flash_attention: {inst}: dynamic shared memory "
+                    f"{lib.moma_flash_smem_bytes(i, dtype, dp)} bytes, HMMA "
+                    f"instructions {hmma.get(inst, 'not counted (no cuobjdump)')}")
 
 
 def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
@@ -396,14 +410,16 @@ def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
     for name, (kern, plain) in cases.items():
         ms = cuda_time_ms(kern, FLASH_ITERS)
         plain_ms = cuda_time_ms(plain, FLASH_ITERS)
-        op_ms = flops[name] * H * N * N * d / F32_FLOPS * 1e3
+        op_ms = flops[name] * H * N * N * d / F32_ON_TF32_FLOPS * 1e3
         byte_ms = ((n_in[name] + n_out[name]) * H * N * d * 4
                    / HBM_BYTES_PER_S * 1e3)
         log(f"[kernels] {name} {shape} f32: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.3f} ms "
-            f"(operations at 67 TFLOP/s f32 {op_ms:.3f}, bytes "
-            f"{byte_ms:.4f}; at the 989 TFLOP/s bf16 tensor rate the "
-            f"operations would take {op_ms * 67 / 989:.3f} ms)")
+            f"(operations at 165 TFLOP/s, float32 products as three TF32 "
+            f"products at 495 TFLOP/s: {op_ms:.3f}; bytes {byte_ms:.4f}; "
+            f"the same operations at 67 TFLOP/s float32 outside the tensor "
+            f"cores {op_ms * F32_ON_TF32_FLOPS / F32_FLOPS:.3f}); "
+            f"{flops[name] * H * N * N * d / ms * 1e-9:.1f} TFLOP/s")
         results[name] = {
             "source": "moma_tpu_torch/csrc/flash_attention.cu",
             "replaces": {"flash_fwd": "moma_tpu/ops/flash_attention.py:112",

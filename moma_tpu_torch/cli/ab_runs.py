@@ -1,0 +1,108 @@
+"""Compare checkouts of the repository on one card, in turns.
+
+    python -m moma_tpu_torch.cli.ab_runs --out chiprun_out/ab \
+        build/parent . . build/parent
+
+For each directory in the order given (parent, change, change, parent
+keeps drift in the card's clocks out of the difference), from that
+directory: chip_smoke.py's flash-attention phase (the three kernels against
+their plain versions at (4, 16512, 128) float32, with their times and the
+library's), then `cli/profile_step.py` with chip_smoke.py's effiB0@512
+flags for `--mem MoCoAtt --attn all`, `--attn dual` and `--mem MoCo`.  Each
+run is a process of its own; the kernels are built once per directory.
+Writes `<out>/ab_runs.json` (every run's flash lines and profile summary
+without its trace table) and prints one line per run.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+FLASH = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
+         "print('[card]', c.phase_device()); c.phase_build(); "
+         "c.phase_flash_kernels({})")
+
+
+def _configs():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    # profile_step makes its own synthetic batch and runs a fixed number of
+    # steps: the CLI's data and epoch flags are not its own
+    drop = {"--print_freq": 1, "--epochs": 1, "--synthetic": 0}
+    base, skip = [], 0
+    for a in chip_smoke.MOCOATT_ARGS:
+        if skip:
+            skip -= 1
+        elif a in drop:
+            skip = drop[a]
+        else:
+            base.append(a)
+    swap = {"all": "dual"}
+    return {"mocoatt_all": base,
+            "mocoatt_dual": [swap.get(a, a) for a in base],
+            "moco": [{"MoCoAtt": "MoCo", "all": "self"}.get(a, a)
+                     for a in base]}
+
+
+def _run(cmd, cwd, timeout):
+    proc = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[:4])} in {cwd} failed "
+                           f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("moma_tpu_torch ab_runs")
+    p.add_argument("--out", default="build/ab")
+    p.add_argument("dirs", nargs="+")
+    a = p.parse_args(argv)
+    os.makedirs(a.out, exist_ok=True)
+    configs = _configs()
+    runs = []
+    for i, d in enumerate(a.dirs):
+        d = os.path.abspath(d)
+        out = _run([sys.executable, "-c", FLASH], d, 900)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("[kernels] flash", "[kernels] library",
+                                   "[device]", "[card]"))]
+        run = {"dir": d, "turn": i, "flash": lines, "steps": {}}
+        for line in lines:
+            print(f"[ab] turn {i} {d}: {line}", flush=True)
+        for name, args in configs.items():
+            prof_dir = os.path.join(d, "build", f"ab_profile_{i}_{name}")
+            out = _run([sys.executable, "-m",
+                        "moma_tpu_torch.cli.profile_step", "--out", prof_dir,
+                        *args], d, 900)
+            summary = json.loads(out.strip().splitlines()[-1])
+            run["steps"][name] = summary
+            flash = {}
+            for n, ms in summary["trace"]["top_kernels_ms"]:
+                m = re.search(r"flash_\w+_kernel", n)
+                if m:   # device ms per step over the profiled steps
+                    flash[m.group(0)] = ms / summary["profiled_steps"]
+            print(f"[ab] turn {i} {d}: {name} step "
+                  f"{summary['step_ms']['median']:.2f} ms (min "
+                  f"{summary['step_ms']['min']:.2f}, max "
+                  f"{summary['step_ms']['max']:.2f}), busy "
+                  f"{summary['device_busy_ms_per_step']:.2f} ms, idle "
+                  f"{summary['idle_share_vs_step']:.4f}, peak "
+                  f"{summary['peak_mem_gib']:.2f} GiB; flash kernels per "
+                  f"step (ms) {flash}", flush=True)
+        runs.append(run)
+        with open(os.path.join(a.out, "ab_runs.json"), "w") as f:
+            json.dump(runs, f, indent=1)
+    return runs
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

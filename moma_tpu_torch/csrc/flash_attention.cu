@@ -13,32 +13,58 @@
 // are computed by the caller, as in the JAX package.
 //
 // What bounds them on an H100: operations.  A launch at (4, 16512, 128)
-// moves 0.1 GB and does 0.56 / 0.84 / 1.12 TFLOP, thousands of flops per
-// byte.  The products here are float32 FMAs on the CUDA cores (no tensor
-// cores), so the rate they are entitled to is the card's 67 TFLOP/s.
+// moves 0.1 GB and does 0.56 / 0.84 / 1.12 TFLOP (4 / 6 / 8 H N^2 d),
+// thousands of flops per byte.
 //
-// Design:
-//   * The TPU grid runs in order and carries (m, l, acc) in scratch from one
-//     key block to the next.  Here a block of 256 threads owns one head and
-//     one tile of 64 rows and loops over the tiles of the other axis itself:
-//     forward and dq own 64 query rows and walk the keys; dk/dv owns 64 key
-//     rows and walks the queries.  Every output element has one owner, so
-//     there are no atomics and a result repeats from run to run.
-//   * Tiles of 64 x d go through shared memory as float32 (bf16 inputs are
-//     widened when loaded), rows padded by 4 floats so that float4 reads of
-//     16 different rows fall on different banks.  The running m, l and the
-//     output accumulators stay in registers.
-//   * Threads form a 16 x 16 grid.  For the score tile, thread (ty, tx)
-//     owns rows 4*ty..4*ty+3 and columns tx, tx+16, tx+32, tx+48; the 16
-//     threads of a row group reduce max and sum with warp shuffles.  The
-//     probabilities (or ds) go through shared memory for the second
-//     product, where a thread owns the same 4 rows and d/16 columns.
-//   * Any N: the last tile is masked by index.  A masked column has
-//     probability exactly 0 and a masked row is never stored.
-//   * With bf16 inputs, p and ds are rounded to bf16 before the second
-//     product, as the TPU kernels round them (:137, :232, :267, :272).
-// Every launch goes on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// Forward and dq run on the tensor cores, to float32 accuracy.  Each
+// float32 product is three TF32 products, a_hi b_hi + a_hi b_lo + a_lo b_hi
+// (hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi)), accumulated in
+// float32 by mma.sync m16n8k8: an error of the order of 2^-21 relative, as
+// PyTorch's float32 memory-efficient attention gets from CUTLASS's
+// OpMultiplyAddFastF32; one TF32 product alone would miss the port's 1e-4
+// tolerance by 5x.  Their rate is the card's 495 TFLOP/s dense TF32 over
+// three, 165 TFLOP/s.  bf16 inputs (and p, ds rounded to bf16) are exact in
+// TF32: the same code takes one product.
+//   * FlashAttention-2 layout: a block of 8 warps owns one head and 128
+//     query rows, 16 per warp, and streams the key tiles; a warp's scores
+//     cover all keys of the tile, so row max and row sum are shuffles within
+//     a quad of lanes, and m, l and the output accumulator stay in
+//     registers.
+//   * p (forward) and ds (dq) never leave registers: the m16n8 accumulator
+//     of scores is the A operand of the second product once the 8 keys of a
+//     slice are read in the order (0,2,4,6,1,3,5,7), and V (K in dq) is
+//     read from shared memory in that order.
+//   * The tensor cores round their float32 sums toward zero: an output
+//     accumulator carried through them over 16512 keys drifts by 1e-4 of
+//     its size.  So the second product of each key tile is summed from zero
+//     (48 rounding steps at most) and added to the output with float32 adds.
+//   * K and V tiles arrive by cp.async in a ring of two stages; the next
+//     tile's copy is issued before the current tile's products.  Q (and dO)
+//     are staged once per block in the input type and split into hi / lo as
+//     fragments are read.  Rows are padded to a 4-byte word count of 4 mod
+//     32, so every fragment read hits 32 distinct banks.
+//   * Shared memory, head dim 128, float32: forward 128 query rows + 2
+//     stages x (K, V) of 64 keys; dq 128 query rows of qs and of dO + 2
+//     stages x (K, V) of 32 keys; both (128 + 256) x 132 x 4 = 202,752 bytes
+//     of the 232,448 a block may take, one block of 8 warps per SM.
+//     bf16 tiles are half that.
+//   * Any N (the last tile is masked by index: a masked key has p exactly
+//     0), any head dim up to 128 (columns past d stay zero in shared memory;
+//     rows whose length is no multiple of 16 bytes take 4-byte copies, odd
+//     bf16 rows plain loads), float32 and bf16.
+// dk/dv is still float32 FMAs on the CUDA cores (67 TFLOP/s):
+//   * A block of 256 threads owns one head and 64 key rows and loops over
+//     the query tiles itself.  Tiles of 64 x d go through shared memory as
+//     float32 (bf16 inputs are widened when loaded), rows padded by 4
+//     floats so that float4 reads of 16 different rows fall on different
+//     banks; thread (ty, tx) of a 16 x 16 grid owns score rows 4*ty..4*ty+3
+//     and columns tx, tx+16, tx+32, tx+48; p and ds go through shared memory
+//     for the second products.
+// Every output element has one owner, so there are no atomics and a result
+// repeats bit for bit from run to run.  With bf16 inputs, p and ds are
+// rounded to bf16 before the second product, as the TPU kernels round them
+// (:137, :232, :267, :272).  Every launch goes on the caller's stream,
+// allocates nothing and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +72,7 @@
 
 namespace {
 
+// dk/dv: a block of 16 x 16 threads, 64-row tiles
 constexpr int BM = 64;   // rows of the tile a block owns
 constexpr int BN = 64;   // rows of the tile it streams
 constexpr int NT = 256;  // threads: 16 (ty) x 16 (tx)
@@ -138,128 +165,442 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
   }
 }
 
-// acc[x][c] += sum_j P[4*ty + x][j] * V[j][col(c)]  (P: stride LP, 64 wide)
-template <int DP>
-__device__ __forceinline__ void tile_pv(float (&acc)[4][DP / 16],
-                                        const float* P, const float* V,
-                                        int ty, int tx) {
-  constexpr int LD = DP + 4, CW = DP / 16;
-  for (int j = 0; j < BN; j += 4) {
-    float p[4][4];
+// ------------------------------------------- tensor-core pieces (fwd and dq)
+
+constexpr int TC_NT = 256;     // threads of a forward / dq block: 8 warps
+constexpr int TC_BM = 128;     // query rows a block owns, 16 per warp
+constexpr int FWD_BN = 64;     // keys of a streamed K/V tile, forward
+constexpr int DQ_BN = 32;      // keys of a streamed K/V tile, dq
+constexpr int STAGES = 2;      // K/V tiles in flight
+
+// Row stride of a staged tile in elements: a multiple of 16 bytes (for
+// 16-byte copies) whose 4-byte word count is 4 mod 32, so that fragment
+// reads at g * LD + t and (2t or 2t+1) * LD + g hit 32 distinct banks.
+template <typename T, int DP>
+struct Tile {
+  static constexpr int LD = sizeof(T) == 4 ? DP + 4 : DP + 8;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0+R-1 of a row-major (n, d) matrix into a shared tile of
+// stride LD, in the input type.  Rows past n are written as zeros (a copy
+// of 0 source bytes fills with zeros); columns past d are never written,
+// and stay the zeros the kernel starts from.  vec is the copy width in
+// bytes: 16 when every row starts 16-byte aligned, else 4, else (bf16 rows
+// of odd length) a plain load of one element.
+template <typename T, int DP, int R>
+__device__ __forceinline__ void copy_rows(T* s, const T* g, int r0, int n,
+                                          int d, int vec) {
+  constexpr int LD = Tile<T, DP>::LD;
+  if (vec == 16) {
+    constexpr int E = 16 / sizeof(T), CPR = DP / E;
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(&P[(ty * 4 + x) * LP + j]);
-      p[x][0] = t.x; p[x][1] = t.y; p[x][2] = t.z; p[x][3] = t.w;
+    for (int idx = threadIdx.x; idx < R * CPR; idx += TC_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * E;
+      if (c < d) {
+        const bool live = r0 + r < n;
+        cp_async16(s + r * LD + c, live ? g + (int64_t)(r0 + r) * d + c : g,
+                   live ? 16 : 0);
+      }
     }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float vv[CW];
-      Cols<DP>::load(vv, V + (j + jj) * LD, tx);
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int c = 0; c < CW; ++c) acc[x][c] += p[x][jj] * vv[c];
+  } else if (vec == 4) {
+    constexpr int E = 4 / sizeof(T), CPR = DP / E;
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < R * CPR; idx += TC_NT) {
+      const int r = idx / CPR, c = (idx % CPR) * E;
+      if (c < d) {
+        const bool live = r0 + r < n;
+        cp_async4(s + r * LD + c, live ? g + (int64_t)(r0 + r) * d + c : g,
+                  live ? 4 : 0);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < R * DP; idx += TC_NT) {
+      const int r = idx / DP, c = idx % DP;
+      if (c < d)
+        s[r * LD + c] =
+            r0 + r < n ? g[(int64_t)(r0 + r) * d + c] : T(0.f);
     }
   }
 }
 
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ void zero_smem(void* p, int bytes) {
+  float4* q = static_cast<float4*>(p);
+  for (int i = threadIdx.x; i < bytes / 16; i += TC_NT)
+    q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
-__device__ __forceinline__ float group_sum(float v) {
+
+__device__ __forceinline__ float ld_f32(const float* s, int i) {
+  return s[i];
+}
+__device__ __forceinline__ float ld_f32(const __nv_bfloat16* s, int i) {
+  return __bfloat162float(s[i]);
+}
+
+// two neighbouring elements (i even: one 8- or 4-byte read)
+__device__ __forceinline__ float2 ld_f32x2(const float* s, int i) {
+  return *reinterpret_cast<const float2*>(s + i);
+}
+__device__ __forceinline__ float2 ld_f32x2(const __nv_bfloat16* s, int i) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s + i));
+}
+
+// cvt.rna.tf32.f32 (to 10 mantissa bits, ties away from zero) in integer
+// arithmetic, bit for bit the same for finite x: the split is the kernels'
+// busiest arithmetic, and an integer add and a logical and issue at a
+// higher rate than the conversion instruction.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo in TF32.  With SPLIT false (bf16 inputs, and p / ds already
+// rounded to bf16) x is exact in TF32: hi is x and lo is never read.
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// c += a * b for one m16n8k8 TF32 tile (float32 accumulate)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 16 x 8 operand split for the products: a0..a3 at (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4) of the tile.
+template <bool SPLIT>
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float x0, float x1, float x2,
+                                      float x3) {
+    split<SPLIT>(x0, hi[0], lo[0]);
+    split<SPLIT>(x1, hi[1], lo[1]);
+    split<SPLIT>(x2, hi[2], lo[2]);
+    split<SPLIT>(x3, hi[3], lo[3]);
+  }
+  // rows g, g+8 of a shared tile of stride LD, its columns k..k+7 taken in
+  // the order (0,2,4,6,1,3,5,7): columns k+2t, k+2t+1, one read per row
+  template <typename T, int LD>
+  __device__ __forceinline__ void load(const T* s, int k, int g, int t) {
+    const float2 r0 = ld_f32x2(s, g * LD + k + 2 * t);
+    const float2 r1 = ld_f32x2(s, (g + 8) * LD + k + 2 * t);
+    set(r0.x, r1.x, r0.y, r1.y);
+  }
+};
+
+// c += A * B with B's column (b0, b1) split the same way: three TF32
+// products, a_lo b_hi + a_hi b_lo + a_hi b_hi, for float32 operands (the
+// small terms first); one for operands that are exact in TF32.
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA<SPLIT>& a,
+                                     float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split<SPLIT>(b0, bh0, bl0);
+  split<SPLIT>(b1, bh1, bl1);
+  if constexpr (SPLIT) {
+    mma_tf32(c, a.lo, bh0, bh1);
+    mma_tf32(c, a.hi, bl0, bl1);
+  }
+  mma_tf32(c, a.hi, bh0, bh1);
+}
+
+// c[i][j] += A_i . (rows 8j..8j+7 of B_i)^T for NP pairs (A_i, B_i): the
+// NT products of a warp's 16 rows of A_i (stride LD) with the NS * 8 rows
+// of B_i, over all DP columns (past the head dim both are zero).  A and B
+// take the columns of a k-slice in the same order (FragA::load), so B's
+// (b0, b1) are neighbours too.  No branch inside: the NP * NS accumulators
+// are independent chains for the scheduler to interleave.
+template <bool SPLIT, typename T, int LD, int DP, int NS, int NP>
+__device__ __forceinline__ void mma_nt(float (&c)[NP][NS][4],
+                                       const T* const (&A)[NP],
+                                       const T* const (&B)[NP], int g,
+                                       int t) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+  for (int k = 0; k < DP; k += 8) {
+    FragA<SPLIT> a[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) a[i].template load<T, LD>(A[i], k, g, t);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const float2 b = ld_f32x2(B[i], (8 * j + g) * LD + k + 2 * t);
+        mma3<SPLIT>(c[i][j], a[i], b.x, b.y);
+      }
+  }
+}
+
+// c = P . V over one key tile, from zero: P is the warp's NS score
+// accumulators (keys 8j + 2t, 8j + 2t + 1 of rows g, g + 8), V the tile's
+// NS * 8 rows (stride LD).  Keys of a slice are taken in the order
+// (0,2,4,6,1,3,5,7): then the accumulator's (c0, c2, c1, c3) are the A
+// operand's (a0..a3) as they are, and row kk of B is key 2t (kk = t) or
+// 2t + 1 (kk = t + 4).  The caller adds c to its running sum with float32
+// adds: the tensor cores round their sums toward zero, and a sum carried in
+// their accumulator across all 16512 keys drifts by 1e-4 of its size.
+template <bool SPLIT, typename T, int LD, int DP, int NS>
+__device__ __forceinline__ void mma_nn(float (&c)[DP / 8][4],
+                                       const float (&p)[NS][4], const T* V,
+                                       int g, int t) {
+  const T* v0 = V + 2 * t * LD + g;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    FragA<SPLIT> a;
+    a.set(p[j][0], p[j][2], p[j][1], p[j][3]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      mma3<SPLIT>(c[n], a, ld_f32(v0, 8 * j * LD + 8 * n),
+                  ld_f32(v0, (8 * j + 1) * LD + 8 * n));
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ------------------------------------------------------------------ forward
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(TC_NT, 1)
 flash_fwd_kernel(const T* __restrict__ qs, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ m_out, float* __restrict__ l_out, int Nq,
-                 int Nk, int d) {
-  constexpr int LD = DP + 4, CW = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * LD;
-  float* Vs = Ks + BN * LD;
-  float* Ps = Vs + BN * LD;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int dr = (d + 3) & ~3;
-  const T* qh = qs + (int64_t)h * Nq * d;
+                 int Nk, int d, int vec) {
+  constexpr int LD = Tile<T, DP>::LD, BN = FWD_BN, NS = BN / 8, ND = DP / 8;
+  constexpr bool SPLIT = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + TC_BM * LD;
+  T* Vs = Ks + STAGES * BN * LD;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int h = blockIdx.y, q0 = blockIdx.x * TC_BM;
   const T* kh = k + (int64_t)h * Nk * d;
   const T* vh = v + (int64_t)h * Nk * d;
+  const int ntiles = (Nk + BN - 1) / BN;
 
-  load_tile<T, DP>(Qs, qh, q0, Nq, d);
-  float acc[4][CW];
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    m_i[x] = NEG_INF;
-    l_i[x] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[x][c] = 0.f;
-  }
+  zero_smem(smem_raw, (TC_BM + 2 * STAGES * BN) * LD * sizeof(T));
+  __syncthreads();
+  copy_rows<T, DP, TC_BM>(Qs, qs + (int64_t)h * Nq * d, q0, Nq, d, vec);
+  copy_rows<T, DP, BN>(Ks, kh, 0, Nk, d, vec);
+  copy_rows<T, DP, BN>(Vs, vh, 0, Nk, d, vec);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < Nk; k0 += BN) {
-    __syncthreads();  // the last tile's readers are done (Qs stored, first)
-    load_tile<T, DP>(Ks, kh, k0, Nk, d);
-    load_tile<T, DP>(Vs, vh, k0, Nk, d);
-    __syncthreads();
-    float s[4][4] = {};
-    tile_dot<LD>(s, Qs, Ks, ty, tx, dr);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        if (k0 + tx + 16 * y >= Nk) s[x][y] = NEG_INF;
-        mx = fmaxf(mx, s[x][y]);
-      }
-      const float m_new = fmaxf(m_i[x], group_max(mx));
-      const float alpha = expf(m_i[x] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const float p = expf(s[x][y] - m_new);
-        rs += p;
-        Ps[(ty * 4 + x) * LP + tx + 16 * y] = round_as<T>(p);
-      }
-      l_i[x] = l_i[x] * alpha + group_sum(rs);
-      m_i[x] = m_new;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[x][c] *= alpha;
+  // this thread's rows: g and g + 8 of the warp's 16
+  float acc[ND][4] = {};
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const T* Qw = Qs + warp * 16 * LD;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < ntiles) {  // the next tile streams in under this one
+      copy_rows<T, DP, BN>(Ks + (st ^ 1) * BN * LD, kh, (it + 1) * BN, Nk, d,
+                           vec);
+      copy_rows<T, DP, BN>(Vs + (st ^ 1) * BN * LD, vh, (it + 1) * BN, Nk, d,
+                           vec);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    tile_pv<DP>(acc, Ps, Vs, ty, tx);
+    const T* Kt = Ks + st * BN * LD;
+    const T* Vt = Vs + st * BN * LD;
+
+    float sc[1][NS][4] = {};
+    mma_nt<SPLIT, T, LD, DP, NS, 1>(sc, {Qw}, {Kt}, g, t);
+    float(&s)[NS][4] = sc[0];
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (it * BN + 8 * j + 2 * t + (e & 1) >= Nk) s[j][e] = NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
+      alpha[r] = __expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[j][e] - m_r[e >> 1]);
+        rs[e >> 1] += p;
+        s[j][e] = round_as<T>(p);
+      }
+    // l stays a partial sum over this thread's columns until the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+    float pv[ND][4] = {};
+    mma_nn<SPLIT, T, LD, DP, NS>(pv, s, Vt, g, t);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
+    __syncthreads();  // every warp is done with this stage
   }
 
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int row = q0 + ty * 4 + x;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    const float l_row = quad_sum(l_r[r]);
     if (row >= Nq) continue;
     const int64_t base = ((int64_t)h * Nq + row) * d;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) {
-      const int col = Cols<DP>::col(tx, c);
-      if (col < d) store_as(&o[base + col], acc[x][c] / l_i[x]);
-    }
-    if (tx == 0) {
-      m_out[(int64_t)h * Nq + row] = m_i[x];
-      l_out[(int64_t)h * Nq + row] = l_i[x];
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < d) store_as(&o[base + col], acc[n][2 * r + e] / l_row);
+      }
+    if (t == 0) {
+      m_out[(int64_t)h * Nq + row] = m_r[r];
+      l_out[(int64_t)h * Nq + row] = l_row;
     }
   }
 }
 
-// ----------------------------------------------------------------- backward
+// ----------------------------------------------------------------------- dq
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(TC_NT, 1)
+flash_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dO,
+                const float* __restrict__ m, const float* __restrict__ l,
+                const float* __restrict__ delta, float* __restrict__ dq,
+                int Nq, int Nk, int d, int vec) {
+  constexpr int LD = Tile<T, DP>::LD, BN = DQ_BN, NS = BN / 8, ND = DP / 8;
+  constexpr bool SPLIT = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Gs = Qs + TC_BM * LD;
+  T* Ks = Gs + TC_BM * LD;
+  T* Vs = Ks + STAGES * BN * LD;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int h = blockIdx.y, q0 = blockIdx.x * TC_BM;
+  const T* kh = k + (int64_t)h * Nk * d;
+  const T* vh = v + (int64_t)h * Nk * d;
+  const int ntiles = (Nk + BN - 1) / BN;
+
+  zero_smem(smem_raw, (2 * TC_BM + 2 * STAGES * BN) * LD * sizeof(T));
+  __syncthreads();
+  copy_rows<T, DP, TC_BM>(Qs, qs + (int64_t)h * Nq * d, q0, Nq, d, vec);
+  copy_rows<T, DP, TC_BM>(Gs, dO + (int64_t)h * Nq * d, q0, Nq, d, vec);
+  copy_rows<T, DP, BN>(Ks, kh, 0, Nk, d, vec);
+  copy_rows<T, DP, BN>(Vs, vh, 0, Nk, d, vec);
+  cp_async_commit();
+
+  float m_r[2], l_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    const bool live = row < Nq;
+    m_r[r] = live ? m[(int64_t)h * Nq + row] : 0.f;
+    l_r[r] = live ? l[(int64_t)h * Nq + row] : 1.f;
+    dl_r[r] = live ? delta[(int64_t)h * Nq + row] : 0.f;
+  }
+  const float inv_l[2] = {1.f / l_r[0], 1.f / l_r[1]};
+  float acc[ND][4] = {};
+  const T* Qw = Qs + warp * 16 * LD;
+  const T* Gw = Gs + warp * 16 * LD;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < ntiles) {
+      copy_rows<T, DP, BN>(Ks + (st ^ 1) * BN * LD, kh, (it + 1) * BN, Nk, d,
+                           vec);
+      copy_rows<T, DP, BN>(Vs + (st ^ 1) * BN * LD, vh, (it + 1) * BN, Nk, d,
+                           vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* Kt = Ks + st * BN * LD;
+    const T* Vt = Vs + st * BN * LD;
+
+    float sd[2][NS][4] = {};   // scores and dO v^T
+    mma_nt<SPLIT, T, LD, DP, NS, 2>(sd, {Qw, Gw}, {Kt, Vt}, g, t);
+    float(&s)[NS][4] = sd[0];
+    const float(&dp)[NS][4] = sd[1];
+    // ds = p (dp - delta), p = exp(s - m) / l; columns past Nk give 0
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = it * BN + 8 * j + 2 * t + (e & 1) < Nk
+                            ? __expf(s[j][e] - m_r[r]) * inv_l[r]
+                            : 0.f;
+        s[j][e] = round_as<T>(p * (dp[j][e] - dl_r[r]));
+      }
+    float dsk[ND][4] = {};
+    mma_nn<SPLIT, T, LD, DP, NS>(dsk, s, Kt, g, t);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += dsk[n][e];
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= Nq) continue;
+    const int64_t base = ((int64_t)h * Nq + row) * d;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < d) dq[base + col] = acc[n][2 * r + e];
+      }
+  }
+}
+
+// ------------------------------------------------------------------ dk / dv
 
 // p and ds of the thread's 4 x 4 scores; rows past Nq and columns past Nk
 // give exactly 0.
@@ -283,69 +624,6 @@ __device__ __forceinline__ void probs(const float (&s)[4][4],
       if (Ps != nullptr) Ps[at] = round_as<T>(p);
       Ds[at] = round_as<T>(ds);
     }
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
-flash_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dO,
-                const float* __restrict__ m, const float* __restrict__ l,
-                const float* __restrict__ delta, float* __restrict__ dq,
-                int Nq, int Nk, int d) {
-  constexpr int LD = DP + 4, CW = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + BM * LD;
-  float* Ks = Gs + BM * LD;
-  float* Vs = Ks + BN * LD;
-  float* Ds = Vs + BN * LD;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int dr = (d + 3) & ~3;
-  const T* kh = k + (int64_t)h * Nk * d;
-  const T* vh = v + (int64_t)h * Nk * d;
-
-  load_tile<T, DP>(Qs, qs + (int64_t)h * Nq * d, q0, Nq, d);
-  load_tile<T, DP>(Gs, dO + (int64_t)h * Nq * d, q0, Nq, d);
-  float m_r[4], l_r[4], dl_r[4];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int row = q0 + ty * 4 + x;
-    const bool live = row < Nq;
-    m_r[x] = live ? m[(int64_t)h * Nq + row] : 0.f;
-    l_r[x] = live ? l[(int64_t)h * Nq + row] : 1.f;
-    dl_r[x] = live ? delta[(int64_t)h * Nq + row] : 0.f;
-  }
-  float acc[4][CW];
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[x][c] = 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += BN) {
-    __syncthreads();
-    load_tile<T, DP>(Ks, kh, k0, Nk, d);
-    load_tile<T, DP>(Vs, vh, k0, Nk, d);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<LD>(s, Qs, Ks, ty, tx, dr);
-    tile_dot<LD>(dp, Gs, Vs, ty, tx, dr);
-    probs<T>(s, dp, m_r, l_r, dl_r, q0, k0, Nq, Nk, ty, tx, nullptr, Ds);
-    __syncthreads();
-    tile_pv<DP>(acc, Ds, Ks, ty, tx);
-  }
-
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int row = q0 + ty * 4 + x;
-    if (row >= Nq) continue;
-    const int64_t base = ((int64_t)h * Nq + row) * d;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) {
-      const int col = Cols<DP>::col(tx, c);
-      if (col < d) dq[base + col] = acc[x][c];
-    }
-  }
 }
 
 template <typename T, int DP>
@@ -455,16 +733,43 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// bytes per copy that every row of the given matrices allows: a row starts
+// d elements after the last one, from each base pointer
+template <typename T>
+int copy_width(int d, const void* a, const void* b, const void* c,
+               const void* e) {
+  const void* ptrs[4] = {a, b, c, e};
+  const int widths[2] = {16, 4};
+  for (int w : widths) {
+    bool ok = ((size_t)d * sizeof(T)) % w == 0;
+    for (const void* p : ptrs)
+      ok = ok && (p == nullptr || reinterpret_cast<uintptr_t>(p) % w == 0);
+    if (ok) return w;
+  }
+  return (int)sizeof(T);
+}
+
+// dynamic shared memory of kernel 0 (forward), 1 (dq) or 2 (dk/dv)
+template <typename T, int DP>
+constexpr size_t smem_bytes(int kernel) {
+  constexpr size_t row = Tile<T, DP>::LD * sizeof(T);
+  return kernel == 0   ? (TC_BM + 2 * STAGES * FWD_BN) * row
+         : kernel == 1 ? (2 * TC_BM + 2 * STAGES * DQ_BN) * row
+                       : tile_bytes(DP, 4, 2, 3);
+}
+
 template <typename T, int DP>
 cudaError_t launch_fwd(const void* qs, const void* k, const void* v, void* o,
                        float* m, float* l, int H, int Nq, int Nk, int d,
                        cudaStream_t st) {
-  constexpr size_t bytes = tile_bytes(DP, 3, 1, 0);
+  constexpr size_t bytes = smem_bytes<T, DP>(0);
   cudaError_t err = allow_smem(flash_fwd_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, DP><<<dim3((Nq + BM - 1) / BM, H), NT, bytes, st>>>(
-      static_cast<const T*>(qs), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), m, l, Nq, Nk, d);
+  flash_fwd_kernel<T, DP>
+      <<<dim3((Nq + TC_BM - 1) / TC_BM, H), TC_NT, bytes, st>>>(
+          static_cast<const T*>(qs), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), m, l, Nq, Nk, d,
+          copy_width<T>(d, qs, k, v, nullptr));
   return cudaGetLastError();
 }
 
@@ -473,13 +778,14 @@ cudaError_t launch_dq(const void* qs, const void* k, const void* v,
                       const void* dO, const float* m, const float* l,
                       const float* delta, float* dq, int H, int Nq, int Nk,
                       int d, cudaStream_t st) {
-  constexpr size_t bytes = tile_bytes(DP, 4, 1, 0);
+  constexpr size_t bytes = smem_bytes<T, DP>(1);
   cudaError_t err = allow_smem(flash_dq_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, DP><<<dim3((Nq + BM - 1) / BM, H), NT, bytes, st>>>(
-      static_cast<const T*>(qs), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO), m, l, delta, dq,
-      Nq, Nk, d);
+  flash_dq_kernel<T, DP>
+      <<<dim3((Nq + TC_BM - 1) / TC_BM, H), TC_NT, bytes, st>>>(
+          static_cast<const T*>(qs), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dO), m, l, delta,
+          dq, Nq, Nk, d, copy_width<T>(d, qs, k, v, dO));
   return cudaGetLastError();
 }
 
@@ -488,7 +794,7 @@ cudaError_t launch_dkv(const void* qs, const void* k, const void* v,
                        const void* dO, const float* m, const float* l,
                        const float* delta, float* dk, float* dv, int H,
                        int Nq, int Nk, int d, cudaStream_t st) {
-  constexpr size_t bytes = tile_bytes(DP, 4, 2, 3);
+  constexpr size_t bytes = smem_bytes<T, DP>(2);
   cudaError_t err = allow_smem(flash_dkv_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
   flash_dkv_kernel<T, DP><<<dim3((Nk + BN - 1) / BN, H), NT, bytes, st>>>(
@@ -538,6 +844,16 @@ int moma_flash_dkv(const void* qs, const void* k, const void* v,
                    const float* delta, float* dk, float* dv, int dtype, int H,
                    int Nq, int Nk, int d, void* stream) {
   MOMA_DISPATCH(launch_dkv, qs, k, v, dO, m, l, delta, dk, dv, H, Nq, Nk, d);
+}
+
+// dynamic shared memory in bytes of the instance that a launch of kernel
+// 0 (forward), 1 (dq) or 2 (dk/dv) takes for this dtype and head dim
+int moma_flash_smem_bytes(int kernel, int dtype, int d) {
+  if (dtype == 1)
+    return (int)(d <= 32 ? smem_bytes<__nv_bfloat16, 32>(kernel)
+                         : smem_bytes<__nv_bfloat16, 128>(kernel));
+  return (int)(d <= 32 ? smem_bytes<float, 32>(kernel)
+                       : smem_bytes<float, 128>(kernel));
 }
 
 const char* moma_error_string(int err) {

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -69,14 +70,23 @@ def _key(name: str, flags) -> str:
     return h.hexdigest()[:16]
 
 
+def _flags(name: str):
+    return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def lib_path(name: str) -> Path:
+    """Where the library built from this exact source and flags lives."""
+    return BUILD_DIR / f"lib{name}-{_key(name, _flags(name))}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` (if this exact source is not built yet)
     and load it."""
-    flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, ())
+    flags = _flags(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"lib{name}-{_key(name, flags)}.so"
-    if not lib_path.exists():
+    lib_path_ = lib_path(name)
+    if not lib_path_.exists():
         t0 = time.perf_counter()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -89,10 +99,10 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{log}")
-        lib_path.with_suffix(".log").write_text(log)
-        os.replace(tmp, lib_path)
+        lib_path_.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib_path_)
         _BUILD_SECONDS[name] = time.perf_counter() - t0
-    return ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path_))
 
 
 def build_seconds() -> Dict[str, float]:
@@ -104,9 +114,63 @@ def build_seconds() -> Dict[str, float]:
 def build_log(name: str) -> str:
     """nvcc's output (ptxas register/shared-memory report) of the built
     library for `name`."""
-    flags = ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, ())
-    p = BUILD_DIR / f"lib{name}-{_key(name, flags)}.log"
+    p = lib_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name from its mangled entry name (the last component of
+    a nested name such as `_ZN<namespace><name>I...`), with the flash
+    kernels' template arguments: `flash_fwd_kernel<float, 128>`."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, name = m.end(), mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group(0)
+        pos += len(n)
+        name = mangled[pos:pos + int(n)]
+        pos += int(n)
+    t = re.match(r"I(f|13__nv_bfloat16)Li(\d+)E", mangled[pos:])
+    if t:
+        name += f"<{'float' if t.group(1) == 'f' else 'bf16'}, {t.group(2)}>"
+    return name
+
+
+def ptxas_report(name: str) -> Dict[str, str]:
+    """kernel -> ptxas's line on its registers and spills, from the build
+    log of `name` (nvcc runs with -Xptxas -v)."""
+    out: Dict[str, str] = {}
+    kernel = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+        elif kernel and ("spill" in line or "registers" in line):
+            out[kernel] = (out.get(kernel, "") + " " + line.split(
+                ":", 1)[-1].strip()).strip()
+    return out
+
+
+def sass_counts(name: str, opcode: str) -> Dict[str, int]:
+    """kernel -> number of `opcode` instructions in the built library's
+    machine code (cuobjdump -sass); empty where the toolkit that has nvcc
+    has no cuobjdump."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            counts[kernel] = 0
+        elif kernel and re.search(rf"\b{opcode}\b", line):
+            counts[kernel] += 1
+    return counts
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -15,7 +15,8 @@ three Pallas kernels become CUDA kernels in csrc/flash_attention.cu:
 
 with p = exp(s - m) / l and ds = p * (dO v^T - delta).  What bounds them on
 an H100 is operations (thousands of flops per byte moved); the design — one
-block per (head, 64-row tile) looping over the other axis, no atomics — is
+block per (head, row tile) looping over the other axis, no atomics; forward
+and dq on the tensor cores as three TF32 products per float32 product — is
 described at the top of the CUDA source.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
@@ -60,6 +61,8 @@ def _lib() -> ctypes.CDLL:
     lib.moma_flash_dq.restype = i32
     lib.moma_flash_dkv.argtypes = [p] * 9 + [i32] * 5 + [p]
     lib.moma_flash_dkv.restype = i32
+    lib.moma_flash_smem_bytes.argtypes = [i32] * 3
+    lib.moma_flash_smem_bytes.restype = i32
     return lib
 
 

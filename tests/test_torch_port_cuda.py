@@ -132,9 +132,14 @@ def _flash_inputs(dev, H, Nq, Nk, d, dtype, seed=3):
 _FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
+# (H, Nq, Nk, d): Nq and Nk that cut the 128-row and the 32- / 64-key tiles
+# raggedly, Nq != Nk, and head dims whose rows are no multiple of 16 bytes
+# (d = 41: 4-byte copies in f32, plain loads in bf16; d = 36: 4-byte copies
+# in bf16)
 @pytest.mark.parametrize("shape", [(4, 64, 64, 16), (2, 100, 100, 8),
                                    (4, 300, 300, 32), (1, 70, 257, 128),
-                                   (2, 513, 200, 40)])
+                                   (2, 513, 200, 40), (2, 200, 333, 41),
+                                   (3, 129, 97, 36)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(dev, shape, dtype):
     from moma_tpu_torch.ops import flash_attention as FA
@@ -162,6 +167,49 @@ def test_flash_kernels_match_plain(dev, shape, dtype):
     torch.cuda.synchronize()
     close(dk, dk_p, "dk")
     close(dv, dv_p, "dv")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_repeat_bit_for_bit(dev, dtype):
+    """One owner per output element and no atomics: two launches on the
+    same inputs give the same bits."""
+    from moma_tpu_torch.ops import flash_attention as FA
+
+    qs, k, v, do = _flash_inputs(dev, 2, 300, 260, 64, dtype, seed=8)
+    runs = []
+    for _ in range(2):
+        o, m, l = FA.flash_fwd(qs, k, v)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        dq = FA.flash_dq(qs, k, v, do, m, l, delta)
+        runs.append((o, m, l, dq) + FA.flash_dkv(qs, k, v, do, m, l, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_kernels_take_rows_off_16_byte_alignment(dev):
+    """Contiguous views that start 4 bytes past an aligned address take the
+    4-byte copies and give what aligned copies of the same values give."""
+    from moma_tpu_torch.ops import flash_attention as FA
+
+    qs, k, v, do = _flash_inputs(dev, 2, 150, 90, 128, torch.float32, seed=9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q2, k2, v2, do2 = (shifted(t) for t in (qs, k, v, do))
+    assert q2.data_ptr() % 16 != 0 and q2.is_contiguous()
+    o, m, l = FA.flash_fwd(qs, k, v)
+    o2, m2, l2 = FA.flash_fwd(q2, k2, v2)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = FA.flash_dq(qs, k, v, do, m, l, delta)
+    dq2 = FA.flash_dq(q2, k2, v2, do2, m, l, delta)
+    torch.cuda.synchronize()
+    for a, b in ((o, o2), (m, m2), (l, l2), (dq, dq2)):
+        assert torch.equal(a, b)
 
 
 def test_streaming_attention_cuda_matches_cpu(dev):

@@ -202,3 +202,61 @@ def test_only_the_device_picks_the_route():
         assert "use_pallas" not in inspect.signature(fn).parameters
     src = inspect.getsource(FA)
     assert "try:" not in src and "except" not in src
+
+
+# ------------------------------------------------- tensor-core numerics
+# csrc/flash_attention.cu computes the forward and dq products of float32
+# operands on the tensor cores as three TF32 products, a_hi b_hi + a_hi b_lo
+# + a_lo b_hi with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi),
+# accumulated in float32.  These tests emulate that arithmetic in numpy and
+# show why three products are needed for the kernels' 1e-4 tolerance.
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: x rounded to 10 mantissa bits, ties away from zero,
+    on the float32 bit pattern."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_dot(a, b, products):
+    """a @ b of float32 matrices as TF32 products summed in float32: one
+    product (hi hi) or three (lo hi + hi lo + hi hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if products == 3:
+        out = (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + out
+    return out
+
+
+def test_tf32_emulation_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    x = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                  1 + 3 * 2.0 ** -12, 3.0], np.float32)
+    want = np.array([one + ulp, -(one + ulp), one, one + ulp, 3.0],
+                    np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)
+    lo = _tf32(x - _tf32(x))
+    assert np.all(np.abs(x - _tf32(x) - lo) <= 2.0 ** -21 * np.abs(x))
+
+
+@pytest.mark.parametrize("products,bound,within", [(3, 1e-5, True),
+                                                   (1, 1e-4, False)])
+def test_attention_on_tf32_products(products, bound, within):
+    """softmax(qs k^T) v at (1, 2056, 128), as chip_smoke.py draws its
+    inputs, against a float64 reference: three TF32 products per float32
+    product stay within 1e-5 of max|ref|, one does not stay within 1e-4."""
+    rs = np.random.RandomState(0)
+    N, d = 2056, 128
+    qs = (rs.randn(N, d) * d ** -0.5).astype(np.float32)
+    k, v = (rs.randn(N, d).astype(np.float32) for _ in range(2))
+    s64 = qs.astype(np.float64) @ k.T.astype(np.float64)
+    p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+    ref = (p64 @ v) / p64.sum(-1, keepdims=True)
+    s = _tf32_dot(qs, k.T, products)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    o = _tf32_dot(p, v, products) / p.sum(-1, keepdims=True)
+    err = np.abs(o - ref).max() / np.abs(ref).max()
+    assert (err <= bound) == within, err
