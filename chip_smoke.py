@@ -21,7 +21,9 @@ Phases (each prints its own lines):
                  flash-attention kernels), the least time the card could
                  take (bound) and, where one PyTorch call computes the same
                  function, that call's time (library; used nowhere in the
-                 package); the three fused-EfficientNet kernels at each of
+                 package; for dq and dk/dv also their share of the
+                 library's backward by operations); the BN sums' achieved
+                 GB/s; the three fused-EfficientNet kernels at each of
                  the 16 effiB0 block shapes of a 512^2 input
   4 forward    : the fused EfficientNet forward against the module forward
                  on the card, same weights: f32 (TF32 off) at 64^2 and
@@ -176,6 +178,13 @@ def phase_build():
                 log(f"[build] flash_attention: {inst}: dynamic shared memory "
                     f"{lib.moma_flash_smem_bytes(i, dtype, dp)} bytes, HMMA "
                     f"instructions {hmma.get(inst, 'not counted (no cuobjdump)')}")
+    # all three flash kernels run on the tensor cores
+    if hmma:
+        for kernel in ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel"):
+            if not hmma.get(f"{kernel}<float, 128>"):
+                raise AssertionError(f"{kernel}<float, 128> has no HMMA "
+                                     "instruction")
 
 
 def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
@@ -218,9 +227,14 @@ def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
                         f"exceeds {BN_RTOL}")
                 ms = cuda_time_ms(kern)
                 plain_ms = cuda_time_ms(plain)
+                # each input read once: x, or dy and x
+                nbytes = (1 if name == "channel_sums" else 2) * (
+                    x.numel() * x.element_size())
                 log(f"[kernels] {name} {shape} {str(dtype)[6:]}: "
-                    f"max err/sum|.| {rel:.2e}, kernel {ms:.3f} ms, "
-                    f"plain {plain_ms:.3f} ms")
+                    f"max err/sum|.| {rel:.2e}, kernel {ms:.3f} ms "
+                    f"({nbytes / ms * 1e-6:.1f} GB/s, "
+                    f"{nbytes / ms * 1e3 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s)"
+                    f", plain {plain_ms:.3f} ms")
                 if shape == shapes[1] and dtype == torch.bfloat16:
                     times[name] = (ms, plain_ms)
             if shape == shapes[1] and dtype == torch.bfloat16:
@@ -385,7 +399,7 @@ def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
                 f"{err:.2e}")
     # times at the path's shape (float32; the last inputs of the loop)
     H, N, d = shape
-    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}   # x H N^2 d
     n_in = {"flash_fwd": 3, "flash_dq": 4, "flash_dkv": 4}
     n_out = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 2}
     q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (qs, k, v))
@@ -404,9 +418,16 @@ def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
                              f"function: max abs diff {lib_err:.2e}")
     lib_fwd = cuda_time_ms(sdpa_fwd, FLASH_ITERS)
     lib_bwd = cuda_time_ms(sdpa_fwd_bwd, FLASH_ITERS) - lib_fwd
+    # the library's backward does dq's and dk/dv's work in one call: each
+    # kernel's share of it by operations (6 and 8 of the 14 H N^2 d flops)
+    lib_share = {"flash_fwd": lib_fwd,
+                 "flash_dq": lib_bwd * flops["flash_dq"] / 14,
+                 "flash_dkv": lib_bwd * flops["flash_dkv"] / 14}
     log(f"[kernels] library yardstick scaled_dot_product_attention {shape} "
         f"f32: forward {lib_fwd:.3f} ms, backward (dq, dk and dv together; "
-        f"forward+backward minus forward) {lib_bwd:.3f} ms")
+        f"forward+backward minus forward) {lib_bwd:.3f} ms; by operations "
+        f"dq's 6/14 share {lib_share['flash_dq']:.3f} ms, dk/dv's 8/14 "
+        f"{lib_share['flash_dkv']:.3f} ms")
     for name, (kern, plain) in cases.items():
         ms = cuda_time_ms(kern, FLASH_ITERS)
         plain_ms = cuda_time_ms(plain, FLASH_ITERS)
@@ -414,7 +435,9 @@ def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
         byte_ms = ((n_in[name] + n_out[name]) * H * N * d * 4
                    / HBM_BYTES_PER_S * 1e3)
         log(f"[kernels] {name} {shape} f32: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.3f} ms "
+            f"{plain_ms:.3f} ms, library share {lib_share[name]:.3f} ms "
+            f"({ms / lib_share[name]:.2f}x), bound "
+            f"{max(op_ms, byte_ms):.3f} ms "
             f"(operations at 165 TFLOP/s, float32 products as three TF32 "
             f"products at 495 TFLOP/s: {op_ms:.3f}; bytes {byte_ms:.4f}; "
             f"the same operations at 67 TFLOP/s float32 outside the tensor "
@@ -430,8 +453,9 @@ def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             # dq and dkv: the library's whole backward, which does the work
-            # of both kernels in one call
-            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd}
+            # of both kernels in one call, and its share by operations
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "library_share_ms": lib_share[name]}
 
 
 def fe_block_shapes(image=512):
@@ -876,9 +900,10 @@ def main() -> int:
     kernels = [dict(name=k, route="cuda", launches=counts.get(k, 0), **v)
                for k, v in results.items()]
     print(json.dumps({"kernels": [
-        {k: kk[k] for k in ("name", "route", "source", "replaces",
-                            "launches", "max_abs_err", "ms", "plain_ms",
-                            "bound_ms", "bound_by", "library_ms")}
+        {**{k: kk[k] for k in ("name", "route", "source", "replaces",
+                               "launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")},
+         "library_share_ms": kk.get("library_share_ms")}
         for kk in kernels]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,12 @@ For each directory in the order given (parent, change, change, parent
 keeps drift in the card's clocks out of the difference), from that
 directory: chip_smoke.py's flash-attention phase (the three kernels against
 their plain versions at (4, 16512, 128) float32, with their times and the
-library's), then `cli/profile_step.py` with chip_smoke.py's effiB0@512
+library's) and its BatchNorm phase (the two channel-sum kernels at
+chip_smoke.BN_SHAPES, with the library's time at the second shape), then
+`cli/profile_step.py` with chip_smoke.py's effiB0@512
 flags for `--mem MoCoAtt --attn all`, `--attn dual` and `--mem MoCo`.  Each
 run is a process of its own; the kernels are built once per directory.
-Writes `<out>/ab_runs.json` (every run's flash lines and profile summary
+Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary
 without its trace table) and prints one line per run.  Needs a CUDA device.
 """
 
@@ -24,9 +26,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-FLASH = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
-         "print('[card]', c.phase_device()); c.phase_build(); "
-         "c.phase_flash_kernels({})")
+KERNELS = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
+           "print('[card]', c.phase_device()); c.phase_build(); "
+           "c.phase_flash_kernels({}); c.phase_bn_kernels({})")
 
 
 def _configs():
@@ -71,11 +73,13 @@ def main(argv=None):
     runs = []
     for i, d in enumerate(a.dirs):
         d = os.path.abspath(d)
-        out = _run([sys.executable, "-c", FLASH], d, 900)
+        out = _run([sys.executable, "-c", KERNELS], d, 900)
         lines = [ln for ln in out.splitlines()
                  if ln.startswith(("[kernels] flash", "[kernels] library",
+                                   "[kernels] channel_sums",
+                                   "[kernels] grad_channel_sums",
                                    "[device]", "[card]"))]
-        run = {"dir": d, "turn": i, "flash": lines, "steps": {}}
+        run = {"dir": d, "turn": i, "kernels": lines, "steps": {}}
         for line in lines:
             print(f"[ab] turn {i} {d}: {line}", flush=True)
         for name, args in configs.items():

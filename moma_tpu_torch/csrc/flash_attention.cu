@@ -16,8 +16,8 @@
 // moves 0.1 GB and does 0.56 / 0.84 / 1.12 TFLOP (4 / 6 / 8 H N^2 d),
 // thousands of flops per byte.
 //
-// Forward and dq run on the tensor cores, to float32 accuracy.  Each
-// float32 product is three TF32 products, a_hi b_hi + a_hi b_lo + a_lo b_hi
+// All three run on the tensor cores, to float32 accuracy.  Each float32
+// product is three TF32 products, a_hi b_hi + a_hi b_lo + a_lo b_hi
 // (hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi)), accumulated in
 // float32 by mma.sync m16n8k8: an error of the order of 2^-21 relative, as
 // PyTorch's float32 memory-efficient attention gets from CUTLASS's
@@ -25,41 +25,49 @@
 // tolerance by 5x.  Their rate is the card's 495 TFLOP/s dense TF32 over
 // three, 165 TFLOP/s.  bf16 inputs (and p, ds rounded to bf16) are exact in
 // TF32: the same code takes one product.
-//   * FlashAttention-2 layout: a block of 8 warps owns one head and 128
-//     query rows, 16 per warp, and streams the key tiles; a warp's scores
-//     cover all keys of the tile, so row max and row sum are shuffles within
-//     a quad of lanes, and m, l and the output accumulator stay in
-//     registers.
-//   * p (forward) and ds (dq) never leave registers: the m16n8 accumulator
-//     of scores is the A operand of the second product once the 8 keys of a
-//     slice are read in the order (0,2,4,6,1,3,5,7), and V (K in dq) is
-//     read from shared memory in that order.
+//   * Forward and dq, FlashAttention-2 layout: a block of 8 warps owns one
+//     head and 128 query rows, 16 per warp, and streams the key tiles; a
+//     warp's scores cover all keys of the tile, so row max and row sum are
+//     shuffles within a quad of lanes, and m, l and the output accumulator
+//     stay in registers.
+//   * dk/dv, the same layout turned over: a block of 8 warps owns one head
+//     and 128 key rows, 16 per warp, and streams the query tiles (qs, dO
+//     and their m, l, delta).  A warp computes the transposed scores
+//     directly, s^T = K_w qs^T and dp^T = V_w dO^T, as NT products with its
+//     own K / V rows as A, so p^T = exp(s^T - m_col) / l_col and
+//     ds^T = p^T (dp^T - delta_col) take their statistics by column, and
+//     dv += p^T dO, dk += ds^T qs are NN products over the query axis.
+//   * p and ds never leave registers: the m16n8 accumulator of scores is
+//     the A operand of the second product once the 8 keys (dk/dv: queries)
+//     of a slice are read in the order (0,2,4,6,1,3,5,7), and V (K in dq;
+//     dO and qs in dk/dv) is read from shared memory in that order.
 //   * The tensor cores round their float32 sums toward zero: an output
 //     accumulator carried through them over 16512 keys drifts by 1e-4 of
-//     its size.  So the second product of each key tile is summed from zero
-//     (48 rounding steps at most) and added to the output with float32 adds.
-//   * K and V tiles arrive by cp.async in a ring of two stages; the next
-//     tile's copy is issued before the current tile's products.  Q (and dO)
-//     are staged once per block in the input type and split into hi / lo as
-//     fragments are read.  Rows are padded to a 4-byte word count of 4 mod
-//     32, so every fragment read hits 32 distinct banks.
+//     its size.  So the second product of each tile is summed from zero
+//     (48 rounding steps at most) and added to the output with float32
+//     adds.  In dk/dv that from-zero sum spans all 16 column groups (64
+//     registers beside dk and dv's 128, a few spilled): 16 independent
+//     chains of products per warp ran faster on an H100 than 4 or 8 groups
+//     at a time, which hold 16 or 32 registers.
+//   * The streamed tiles arrive by cp.async in a ring of two stages; the
+//     next tile's copy is issued before the current tile's products (in
+//     dk/dv right after the one barrier a tile, which also frees its stage).  The
+//     rows a block owns (Q and dO; K and V in dk/dv) are staged once in the
+//     input type and split into hi / lo as fragments are read.  Rows are
+//     padded to a 4-byte word count of 4 mod 32, so every fragment read
+//     hits 32 distinct banks.
 //   * Shared memory, head dim 128, float32: forward 128 query rows + 2
 //     stages x (K, V) of 64 keys; dq 128 query rows of qs and of dO + 2
-//     stages x (K, V) of 32 keys; both (128 + 256) x 132 x 4 = 202,752 bytes
-//     of the 232,448 a block may take, one block of 8 warps per SM.
-//     bf16 tiles are half that.
-//   * Any N (the last tile is masked by index: a masked key has p exactly
-//     0), any head dim up to 128 (columns past d stay zero in shared memory;
-//     rows whose length is no multiple of 16 bytes take 4-byte copies, odd
-//     bf16 rows plain loads), float32 and bf16.
-// dk/dv is still float32 FMAs on the CUDA cores (67 TFLOP/s):
-//   * A block of 256 threads owns one head and 64 key rows and loops over
-//     the query tiles itself.  Tiles of 64 x d go through shared memory as
-//     float32 (bf16 inputs are widened when loaded), rows padded by 4
-//     floats so that float4 reads of 16 different rows fall on different
-//     banks; thread (ty, tx) of a 16 x 16 grid owns score rows 4*ty..4*ty+3
-//     and columns tx, tx+16, tx+32, tx+48; p and ds go through shared memory
-//     for the second products.
+//     stages x (K, V) of 32 keys; dk/dv 128 key rows of K and of V + 2
+//     stages x (qs, dO) of 32 queries and their m, l, delta; all three
+//     (128 + 256) x 132 x 4 = 202,752 bytes (dk/dv 768 more) of the 232,448
+//     a block may take, one block of 8 warps per SM.  bf16 tiles are half
+//     that.
+//   * Any N (the last tile is masked by index: a masked key, or in dk/dv a
+//     masked query, has p exactly 0; key rows past N are zero and not
+//     stored), any head dim up to 128 (columns past d stay zero in shared
+//     memory; rows whose length is no multiple of 16 bytes take 4-byte
+//     copies, odd bf16 rows plain loads), float32 and bf16.
 // Every output element has one owner, so there are no atomics and a result
 // repeats bit for bit from run to run.  With bf16 inputs, p and ds are
 // rounded to bf16 before the second product, as the TPU kernels round them
@@ -72,17 +80,8 @@
 
 namespace {
 
-// dk/dv: a block of 16 x 16 threads, 64-row tiles
-constexpr int BM = 64;   // rows of the tile a block owns
-constexpr int BN = 64;   // rows of the tile it streams
-constexpr int NT = 256;  // threads: 16 (ty) x 16 (tx)
-constexpr int LP = BN + 4;  // row stride of the p / ds tile
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 // round to the input type, back in float32
 template <typename T>
 __device__ __forceinline__ float round_as(float x);
@@ -97,81 +96,14 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// 64 rows x DP columns of a row-major (nrows, d) matrix, from row r0, into
-// shared memory with row stride DP + 4; rows past nrows and columns past d
-// are zero.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* s, const T* g, int r0,
-                                          int nrows, int d) {
-  constexpr int LD = DP + 4;
-  for (int idx = threadIdx.x; idx < 64 * DP; idx += NT) {
-    const int r = idx / DP, c = idx % DP;
-    float v = 0.f;
-    if (r0 + r < nrows && c < d) v = to_f32(g[(int64_t)(r0 + r) * d + c]);
-    s[r * LD + c] = v;
-  }
-}
+// ------------------------------------------------------ tensor-core pieces
 
-// The d/16 output columns of thread tx: groups of VW = min(4, DP/16)
-// neighbouring columns, one group every 16*VW columns.
-template <int DP>
-struct Cols {
-  static constexpr int CW = DP / 16;
-  static constexpr int VW = CW < 4 ? CW : 4;
-  static constexpr int NG = CW / VW;
-  __device__ static __forceinline__ int col(int tx, int c) {
-    return (c / VW) * (16 * VW) + tx * VW + (c % VW);
-  }
-  // the thread's CW values of one shared-memory row
-  __device__ static __forceinline__ void load(float* dst, const float* row,
-                                              int tx) {
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float* src = row + g * (16 * VW) + tx * VW;
-      if constexpr (VW == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(src);
-        dst[g * 4 + 0] = t.x; dst[g * 4 + 1] = t.y;
-        dst[g * 4 + 2] = t.z; dst[g * 4 + 3] = t.w;
-      } else if constexpr (VW == 2) {
-        const float2 t = *reinterpret_cast<const float2*>(src);
-        dst[g * 2 + 0] = t.x; dst[g * 2 + 1] = t.y;
-      } else {
-        dst[g] = src[0];
-      }
-    }
-  }
-};
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// s[x][y] += A[4*ty + x] . B[tx + 16*y] over the first dr columns
-template <int LD>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
-                                         const float* B, int ty, int tx,
-                                         int dr) {
-  for (int kk = 0; kk < dr; kk += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      a[x] = *reinterpret_cast<const float4*>(&A[(ty * 4 + x) * LD + kk]);
-      b[x] = *reinterpret_cast<const float4*>(&B[(tx + 16 * x) * LD + kk]);
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) s[x][y] += dot4(a[x], b[y]);
-  }
-}
-
-// ------------------------------------------- tensor-core pieces (fwd and dq)
-
-constexpr int TC_NT = 256;     // threads of a forward / dq block: 8 warps
-constexpr int TC_BM = 128;     // query rows a block owns, 16 per warp
+constexpr int TC_NT = 256;     // threads of a block: 8 warps
+constexpr int TC_BM = 128;     // rows a block owns (queries; dk/dv: keys)
 constexpr int FWD_BN = 64;     // keys of a streamed K/V tile, forward
 constexpr int DQ_BN = 32;      // keys of a streamed K/V tile, dq
-constexpr int STAGES = 2;      // K/V tiles in flight
+constexpr int DKV_BQ = 32;     // queries of a streamed qs/dO tile, dk/dv
+constexpr int STAGES = 2;      // streamed tiles in flight
 
 // Row stride of a staged tile in elements: a multiple of 16 bytes (for
 // 16-byte copies) whose 4-byte word count is 4 mod 32, so that fragment
@@ -602,130 +534,147 @@ flash_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ dk / dv
 
-// p and ds of the thread's 4 x 4 scores; rows past Nq and columns past Nk
-// give exactly 0.
-template <typename T>
-__device__ __forceinline__ void probs(const float (&s)[4][4],
-                                      const float (&dp)[4][4],
-                                      const float (&m_r)[4],
-                                      const float (&l_r)[4],
-                                      const float (&dl_r)[4], int row0,
-                                      int col0, int Nq, int Nk, int ty, int tx,
-                                      float* Ps, float* Ds) {
+// acc += P . B over one streamed tile, the tile's sum from zero: the
+// products of mma_nn (P the warp's NS transposed score accumulators, B the
+// tile's dO or qs rows) with all NS A fragments split before the first
+// product, which ran 7% faster on an H100 than splitting each as its
+// slice comes (mma_nn's order, which the forward and dq keep).
+template <bool SPLIT, typename T, int LD, int DP, int NS>
+__device__ __forceinline__ void mma_tn_acc(float (&acc)[DP / 8][4],
+                                           const float (&p)[NS][4],
+                                           const T* B, int g, int t) {
+  FragA<SPLIT> a[NS];
 #pragma unroll
-  for (int x = 0; x < 4; ++x)
+  for (int j = 0; j < NS; ++j) a[j].set(p[j][0], p[j][2], p[j][1], p[j][3]);
+  const T* b0 = B + 2 * t * LD + g;
+  float c[DP / 8][4] = {};
 #pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const bool live =
-          (row0 + ty * 4 + x < Nq) && (col0 + tx + 16 * y < Nk);
-      const float p = live ? expf(s[x][y] - m_r[x]) / l_r[x] : 0.f;
-      const float ds = p * (dp[x][y] - dl_r[x]);
-      const int at = (ty * 4 + x) * LP + tx + 16 * y;
-      if (Ps != nullptr) Ps[at] = round_as<T>(p);
-      Ds[at] = round_as<T>(ds);
-    }
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      mma3<SPLIT>(c[n], a[j], ld_f32(b0, 8 * j * LD + 8 * n),
+                  ld_f32(b0, (8 * j + 1) * LD + 8 * n));
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += c[n][e];
+}
+
+// R floats from r0 of a length-n vector into shared memory by 4-byte
+// cp.async; entries past n are zero
+template <int R>
+__device__ __forceinline__ void copy_stats(float* s, const float* g, int r0,
+                                           int n) {
+  for (int i = threadIdx.x; i < R; i += TC_NT) {
+    const bool live = r0 + i < n;
+    cp_async4(s + i, live ? g + r0 + i : g, live ? 4 : 0);
+  }
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(TC_NT, 1)
 flash_dkv_kernel(const T* __restrict__ qs, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dO,
                  const float* __restrict__ m, const float* __restrict__ l,
                  const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int Nq, int Nk, int d) {
-  constexpr int LD = DP + 4, CW = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BN * LD;
-  float* Qs = Vs + BN * LD;
-  float* Gs = Qs + BM * LD;
-  float* Ps = Gs + BM * LD;
-  float* Ds = Ps + BM * LP;
-  float* Ms = Ds + BM * LP;
-  float* Ls = Ms + BM;
-  float* Dl = Ls + BM;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int h = blockIdx.y, j0 = blockIdx.x * BN;
-  const int dr = (d + 3) & ~3;
+                 float* __restrict__ dv, int Nq, int Nk, int d, int vec) {
+  constexpr int LD = Tile<T, DP>::LD, BQ = DKV_BQ, NS = BQ / 8, ND = DP / 8;
+  constexpr bool SPLIT = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TC_BM * LD;
+  T* Qs = Vs + TC_BM * LD;
+  T* Gs = Qs + STAGES * BQ * LD;
+  float* St = reinterpret_cast<float*>(Gs + STAGES * BQ * LD);  // m, l, delta
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int h = blockIdx.y, j0 = blockIdx.x * TC_BM;
   const T* qh = qs + (int64_t)h * Nq * d;
   const T* gh = dO + (int64_t)h * Nq * d;
+  const float* mh = m + (int64_t)h * Nq;
+  const float* lh = l + (int64_t)h * Nq;
+  const float* dh = delta + (int64_t)h * Nq;
+  const int ntiles = (Nq + BQ - 1) / BQ;
 
-  load_tile<T, DP>(Ks, k + (int64_t)h * Nk * d, j0, Nk, d);
-  load_tile<T, DP>(Vs, v + (int64_t)h * Nk * d, j0, Nk, d);
-  // the thread owns key rows 4*ty..4*ty+3 of dk and dv
-  float acc_k[4][CW], acc_v[4][CW];
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc_k[x][c] = acc_v[x][c] = 0.f;
+  zero_smem(smem_raw, (2 * TC_BM + 2 * STAGES * BQ) * LD * sizeof(T) +
+                          STAGES * 3 * BQ * sizeof(float));
+  __syncthreads();
+  copy_rows<T, DP, TC_BM>(Ks, k + (int64_t)h * Nk * d, j0, Nk, d, vec);
+  copy_rows<T, DP, TC_BM>(Vs, v + (int64_t)h * Nk * d, j0, Nk, d, vec);
+  auto copy_tile = [&](int st, int i0) {
+    copy_rows<T, DP, BQ>(Qs + st * BQ * LD, qh, i0, Nq, d, vec);
+    copy_rows<T, DP, BQ>(Gs + st * BQ * LD, gh, i0, Nq, d, vec);
+    float* s = St + st * 3 * BQ;
+    copy_stats<BQ>(s, mh, i0, Nq);
+    copy_stats<BQ>(s + BQ, lh, i0, Nq);
+    copy_stats<BQ>(s + 2 * BQ, dh, i0, Nq);
+  };
+  copy_tile(0, 0);
+  cp_async_commit();
 
-  for (int i0 = 0; i0 < Nq; i0 += BM) {
+  // this thread's key rows: g and g + 8 of the warp's 16
+  float acc_k[ND][4] = {}, acc_v[ND][4] = {};
+  const T* Kw = Ks + warp * 16 * LD;
+  const T* Vw = Vs + warp * 16 * LD;
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    // tile it has landed, and every warp is done with tile it - 1, whose
+    // stage the next tile's copy now fills under this tile's products: one
+    // barrier a tile
+    cp_async_wait<0>();
     __syncthreads();
-    load_tile<T, DP>(Qs, qh, i0, Nq, d);
-    load_tile<T, DP>(Gs, gh, i0, Nq, d);
-    if (threadIdx.x < BM) {
-      const int row = i0 + threadIdx.x;
-      const bool live = row < Nq;
-      Ms[threadIdx.x] = live ? m[(int64_t)h * Nq + row] : 0.f;
-      Ls[threadIdx.x] = live ? l[(int64_t)h * Nq + row] : 1.f;
-      Dl[threadIdx.x] = live ? delta[(int64_t)h * Nq + row] : 0.f;
-    }
-    __syncthreads();
-    // scores of query rows 4*ty.. against key columns tx + 16*y
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<LD>(s, Qs, Ks, ty, tx, dr);
-    tile_dot<LD>(dp, Gs, Vs, ty, tx, dr);
-    float m_r[4], l_r[4], dl_r[4];
+    if (it + 1 < ntiles) copy_tile(st ^ 1, (it + 1) * BQ);
+    cp_async_commit();
+    const T* Qt = Qs + st * BQ * LD;
+    const T* Gt = Gs + st * BQ * LD;
+    const float* Mt = St + st * 3 * BQ;
+
+    float sd[2][NS][4] = {};   // s^T and dp^T: keys x queries
+    mma_nt<SPLIT, T, LD, DP, NS, 2>(sd, {Kw, Vw}, {Qt, Gt}, g, t);
+    float(&p)[NS][4] = sd[0];
+    float(&ds)[NS][4] = sd[1];
+    // p^T = exp(s^T - m) / l and ds^T = p^T (dp^T - delta) by query
+    // column; columns past Nq give exactly 0
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      m_r[x] = Ms[ty * 4 + x];
-      l_r[x] = Ls[ty * 4 + x];
-      dl_r[x] = Dl[ty * 4 + x];
-    }
-    probs<T>(s, dp, m_r, l_r, dl_r, i0, j0, Nq, Nk, ty, tx, Ps, Ds);
-    __syncthreads();
-    // dv[j] += sum_i p[i][j] dO[i];  dk[j] += sum_i ds[i][j] qs[i]
-    for (int i = 0; i < BM; ++i) {
-      const float4 pt = *reinterpret_cast<const float4*>(&Ps[i * LP + ty * 4]);
-      const float4 dt = *reinterpret_cast<const float4*>(&Ds[i * LP + ty * 4]);
-      const float pp[4] = {pt.x, pt.y, pt.z, pt.w};
-      const float dd[4] = {dt.x, dt.y, dt.z, dt.w};
-      float gv[CW], qv[CW];
-      Cols<DP>::load(gv, Gs + i * LD, tx);
-      Cols<DP>::load(qv, Qs + i * LD, tx);
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * t + c;
+        const bool live = it * BQ + col < Nq;
+        const float m_c = Mt[col], inv_l = 1.f / Mt[BQ + col],
+                    dl_c = Mt[2 * BQ + col];
 #pragma unroll
-        for (int c = 0; c < CW; ++c) {
-          acc_v[x][c] += pp[x] * gv[c];
-          acc_k[x][c] += dd[x] * qv[c];
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const float pe = live ? __expf(p[j][e] - m_c) * inv_l : 0.f;
+          ds[j][e] = round_as<T>(pe * (ds[j][e] - dl_c));
+          p[j][e] = round_as<T>(pe);
         }
-    }
+      }
+    // dv += p^T dO and dk += ds^T qs over the tile's queries
+    mma_tn_acc<SPLIT, T, LD, DP, NS>(acc_v, p, Gt, g, t);
+    mma_tn_acc<SPLIT, T, LD, DP, NS>(acc_k, ds, Qt, g, t);
   }
 
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int row = j0 + ty * 4 + x;
+  for (int r = 0; r < 2; ++r) {
+    const int row = j0 + warp * 16 + g + 8 * r;
     if (row >= Nk) continue;
     const int64_t base = ((int64_t)h * Nk + row) * d;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) {
-      const int col = Cols<DP>::col(tx, c);
-      if (col < d) {
-        dk[base + col] = acc_k[x][c];
-        dv[base + col] = acc_v[x][c];
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < d) {
+          dk[base + col] = acc_k[n][2 * r + e];
+          dv[base + col] = acc_v[n][2 * r + e];
+        }
       }
-    }
   }
 }
 
 // ------------------------------------------------------------------ launches
-
-constexpr size_t tile_bytes(int dp, int tiles, int ptiles, int stats) {
-  return sizeof(float) *
-         ((size_t)tiles * 64 * (dp + 4) + (size_t)ptiles * BM * LP +
-          (size_t)stats * BM);
-}
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -755,7 +704,8 @@ constexpr size_t smem_bytes(int kernel) {
   constexpr size_t row = Tile<T, DP>::LD * sizeof(T);
   return kernel == 0   ? (TC_BM + 2 * STAGES * FWD_BN) * row
          : kernel == 1 ? (2 * TC_BM + 2 * STAGES * DQ_BN) * row
-                       : tile_bytes(DP, 4, 2, 3);
+                       : (2 * TC_BM + 2 * STAGES * DKV_BQ) * row +
+                             STAGES * 3 * DKV_BQ * sizeof(float);
 }
 
 template <typename T, int DP>
@@ -797,10 +747,11 @@ cudaError_t launch_dkv(const void* qs, const void* k, const void* v,
   constexpr size_t bytes = smem_bytes<T, DP>(2);
   cudaError_t err = allow_smem(flash_dkv_kernel<T, DP>, bytes);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, DP><<<dim3((Nk + BN - 1) / BN, H), NT, bytes, st>>>(
-      static_cast<const T*>(qs), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO), m, l, delta, dk,
-      dv, Nq, Nk, d);
+  flash_dkv_kernel<T, DP>
+      <<<dim3((Nk + TC_BM - 1) / TC_BM, H), TC_NT, bytes, st>>>(
+          static_cast<const T*>(qs), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dO), m, l, delta,
+          dk, dv, Nq, Nk, d, copy_width<T>(d, qs, k, v, dO));
   return cudaGetLastError();
 }
 

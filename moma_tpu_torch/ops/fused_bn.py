@@ -48,6 +48,8 @@ def _lib() -> ctypes.CDLL:
     lib.moma_grad_channel_sums.argtypes = [
         p, p, i32, p, i64, i32, i32, p, p, p, p, p]
     lib.moma_grad_channel_sums.restype = i32
+    lib.moma_grad_sums_chunks.argtypes = [p, p, i32, i64, i32, p]
+    lib.moma_grad_sums_chunks.restype = i32
     return lib
 
 
@@ -76,7 +78,7 @@ def _check_cuda_input(name: str, *ts: torch.Tensor) -> None:
 
 
 def _row_chunks(R: int, C: int) -> int:
-    """Number of row chunks G (grid.y) of the first pass."""
+    """Number of row chunks G (grid.y) of channel_sums' first pass."""
     gx = -(-C // _TX)
     return max(1, min(-(-R // _ROWS_PER_BLOCK_MIN), _TARGET_BLOCKS // gx))
 
@@ -134,10 +136,17 @@ def grad_channel_sums(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor):
         raise ValueError("grad_channel_sums: mean must be a contiguous "
                          f"float32 ({C},) tensor on {x.device}")
     R = x.numel() // C
-    G = _row_chunks(R, C)
+    lib = _lib()
+    # the launcher picks its row chunks (from the card's occupancy); the
+    # partial-sum scratch holds one row of C floats per chunk
+    G = ctypes.c_int()
+    rc = lib.moma_grad_sums_chunks(dy.data_ptr(), x.data_ptr(),
+                                   _DTYPE_CODES[x.dtype], R, C,
+                                   ctypes.byref(G))
+    _build.check(lib, rc, "grad_channel_sums")
+    G = G.value
     part = torch.empty((2, G, C), dtype=torch.float32, device=x.device)
     out = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    lib = _lib()
     rc = lib.moma_grad_channel_sums(
         dy.data_ptr(), x.data_ptr(), _DTYPE_CODES[x.dtype], mean.data_ptr(),
         R, C, G, part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(),

@@ -27,21 +27,55 @@ def dev():
     torch.backends.cudnn.allow_tf32 = True
 
 
+def _shifted(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# grad_channel_sums loads 16 bytes a thread where C and the base pointers
+# allow it, else 4-byte (2 bf16 or 1 f32 channels) or, for bf16 of odd C,
+# 2-byte loads: odd C (7, 33), many rows at a vector-width C (2,64,64,96),
+# C = 1280 with few rows (3 and 2*4*4), and views off 16-byte alignment
 @pytest.mark.parametrize("shape", [(4, 8, 8, 24), (2, 5, 3, 7), (3, 1000),
-                                   (2, 4, 4, 1280), (1, 1, 1, 33)])
+                                   (2, 4, 4, 1280), (1, 1, 1, 33),
+                                   (2, 64, 64, 96), (3, 1280), (5, 9, 7, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bn_sums_match_plain(dev, shape, dtype):
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bn_sums_match_plain(dev, shape, dtype, aligned):
     from moma_tpu_torch.ops import fused_bn as FB
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
     dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    if not aligned:
+        x, dy = _shifted(x), _shifted(dy)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
     mean = x.float().reshape(-1, shape[-1]).mean(0)
     for got, want in ((FB.channel_sums(x), FB.channel_sums_plain(x)),
                       (FB.grad_channel_sums(dy, x, mean),
                        FB.grad_channel_sums_plain(dy, x, mean))):
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_channel_sums_repeats_bit_for_bit(dev, dtype):
+    """Per-block partials and a fixed-order second pass, no atomics: two
+    launches on the same inputs give the same bits."""
+    from moma_tpu_torch.ops import fused_bn as FB
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = (torch.randn(4, 64, 64, 96, generator=g, device=dev) + 0.5).to(dtype)
+    dy = torch.randn(4, 64, 64, 96, generator=g, device=dev).to(dtype)
+    mean = x.float().mean((0, 1, 2))
+    a = FB.grad_channel_sums(dy, x, mean)
+    b = FB.grad_channel_sums(dy, x, mean)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_bn_wrappers_refuse_what_the_kernel_does_not_take(dev):
@@ -193,22 +227,17 @@ def test_flash_kernels_take_rows_off_16_byte_alignment(dev):
     from moma_tpu_torch.ops import flash_attention as FA
 
     qs, k, v, do = _flash_inputs(dev, 2, 150, 90, 128, torch.float32, seed=9)
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, device=dev)
-        out = buf[1:].view(t.shape)
-        out.copy_(t)
-        return out
-
-    q2, k2, v2, do2 = (shifted(t) for t in (qs, k, v, do))
+    q2, k2, v2, do2 = (_shifted(t) for t in (qs, k, v, do))
     assert q2.data_ptr() % 16 != 0 and q2.is_contiguous()
     o, m, l = FA.flash_fwd(qs, k, v)
     o2, m2, l2 = FA.flash_fwd(q2, k2, v2)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
     dq = FA.flash_dq(qs, k, v, do, m, l, delta)
     dq2 = FA.flash_dq(q2, k2, v2, do2, m, l, delta)
+    dk, dv = FA.flash_dkv(qs, k, v, do, m, l, delta)
+    dk2, dv2 = FA.flash_dkv(q2, k2, v2, do2, m, l, delta)
     torch.cuda.synchronize()
-    for a, b in ((o, o2), (m, m2), (l, l2), (dq, dq2)):
+    for a, b in ((o, o2), (m, m2), (l, l2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
 
 

@@ -260,3 +260,36 @@ def test_attention_on_tf32_products(products, bound, within):
     o = _tf32_dot(p, v, products) / p.sum(-1, keepdims=True)
     err = np.abs(o - ref).max() / np.abs(ref).max()
     assert (err <= bound) == within, err
+
+
+@pytest.mark.parametrize("products,bound,within", [(3, 1e-5, True),
+                                                   (1, 1e-4, False)])
+def test_dkv_on_tf32_products(products, bound, within):
+    """dk and dv as csrc/flash_attention.cu's dk/dv kernel computes them, on
+    transposed scores: s^T = K qs^T and dp^T = V dO^T, p^T = exp(s^T - m) / l
+    and ds^T = p^T (dp^T - delta) by query column, dv = p^T dO and
+    dk = ds^T qs, every product of float32 operands as TF32 products.  At
+    (1, 2056, 128), drawn as chip_smoke.py draws its inputs, three products
+    stay within 1e-5 of max|ref| of a float64 reference for both, one does
+    not stay within 1e-4."""
+    rs = np.random.RandomState(0)
+    N, d = 2056, 128
+    qs = (rs.randn(N, d) * d ** -0.5).astype(np.float32)
+    k, v, do = (rs.randn(N, d).astype(np.float32) for _ in range(3))
+    q64, k64, v64, g64 = (t.astype(np.float64) for t in (qs, k, v, do))
+    s64 = q64 @ k64.T
+    m64 = s64.max(-1, keepdims=True)
+    l64 = np.exp(s64 - m64).sum(-1, keepdims=True)
+    p64 = np.exp(s64 - m64) / l64
+    delta64 = ((p64 @ v64) * g64).sum(-1, keepdims=True)
+    ds64 = p64 * (g64 @ v64.T - delta64)
+    ref = {"dk": ds64.T @ q64, "dv": p64.T @ g64}
+    # the kernel's inputs: the forward's statistics as float32 rows
+    m, l, delta = (t.astype(np.float32).T for t in (m64, l64, delta64))
+    pt = np.exp(_tf32_dot(k, qs.T, products) - m) / l
+    dst = pt * (_tf32_dot(v, do.T, products) - delta)
+    got = {"dk": _tf32_dot(dst, qs, products),
+           "dv": _tf32_dot(pt, do, products)}
+    for name in ("dk", "dv"):
+        err = np.abs(got[name] - ref[name]).max() / np.abs(ref[name]).max()
+        assert (err <= bound) == within, (name, err)
