@@ -15,7 +15,11 @@ the hand-written kernels.
 Phases (each prints its own lines):
   1 device     : torch.cuda.is_available() or fail; card name + power limit
   2 build      : nvcc-compile moma_tpu_torch/csrc/*.cu into build/, one
-                 nvcc per source, all started together
+                 nvcc per source, all started together; ptxas's registers
+                 and spills per kernel instance and, where the toolkit has
+                 cuobjdump, the HMMA (tensor-core) instructions of the flash
+                 and fused-EfficientNet kernels; fails if a flash kernel or
+                 an instance of K2 / K4 has none
   3 kernels    : kernel vs plain version at the main paths' shapes, with
                  max error and CUDA-event times (median of 20; of 5 for the
                  flash-attention kernels), the least time the card could
@@ -24,7 +28,10 @@ Phases (each prints its own lines):
                  package; for dq and dk/dv also their share of the
                  library's backward by operations); the BN sums' achieved
                  GB/s; the three fused-EfficientNet kernels at each of
-                 the 16 effiB0 block shapes of a 512^2 input
+                 the 16 effiB0 block shapes of a 512^2 input, each launch
+                 beside its bound (bytes, products, taps; the silu's
+                 special-function work shown beside it) and its launch
+                 plan, and their sums over one forward
   4 forward    : the fused EfficientNet forward against the module forward
                  on the card, same weights: f32 (TF32 off) at 64^2 and
                  512^2, train and eval mode, then bf16 at batch 64, 512^2
@@ -73,6 +80,13 @@ BF16_TENSOR_FLOPS = 989e12
 # float32 products on the tensor cores to float32 accuracy: three products
 # of the dense TF32 rate (495 TFLOP/s) per float32 product
 F32_ON_TF32_FLOPS = 495e12 / 3
+# the special-function units (ex2, rcp): 16 results a clock on each of 132
+# SMs at the 1.98 GHz boost clock; a silu of float32 internals takes two
+# there.  Shown beside a fused kernel's bound, never part of it: the
+# exponential can run as a polynomial and the reciprocal as Newton steps on
+# the FMA pipes, so the card computes silus faster than this.
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+SFU_PER_SILU = 2
 FLASH_SHAPE = (4, 2 * 64 + 16384, 128)   # (heads, 2B+K tokens, head dim)
 FLASH_SMALL = (4, 333, 32)               # ragged tiles, bf16
 FLASH_ITERS = 5
@@ -185,6 +199,14 @@ def phase_build():
             if not hmma.get(f"{kernel}<float, 128>"):
                 raise AssertionError(f"{kernel}<float, 128> has no HMMA "
                                      "instruction")
+    # and so do every instance of K2 and K4 of the fused forward
+    hmma = _build.sass_counts("fused_effnet", "HMMA")
+    for inst, n in sorted(hmma.items()):
+        log(f"[build] fused_effnet: {inst}: HMMA instructions {n}")
+        if inst.startswith(("k2_kernel", "k4_kernel")) and not n:
+            raise AssertionError(f"{inst} has no HMMA instruction")
+    if hmma and not any(k.startswith("k2_kernel") for k in hmma):
+        raise AssertionError("no k2_kernel instance in fused_effnet")
 
 
 def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
@@ -476,7 +498,10 @@ def phase_fe_kernels(results, dev="cuda", image=512):
     batch 64 (the main path's) and f32 at batch 8, with affines from batch
     statistics (train mode) and from running statistics (eval mode).  Times
     in bf16 at batch 64: block FE_TIMED_BLOCK alone, and summed over the
-    launches of one forward."""
+    launches of one forward, each beside its bound (bytes, products and
+    taps, with the silu's special-function work shown beside it; the sum
+    over a forward's launches too), with the launch plan (grid.y, shared
+    memory, blocks an SM, K2's tile) K2 and K4 took."""
     import torch
 
     from moma_tpu_torch.ops import fused_effnet as FE
@@ -487,6 +512,8 @@ def phase_fe_kernels(results, dev="cuda", image=512):
     worst = dict.fromkeys(names, 0.0)
     total = dict.fromkeys(names, 0.0)
     total_plain = dict.fromkeys(names, 0.0)
+    total_bound = dict.fromkeys(names, 0.0)
+    total_silu = dict.fromkeys(names, 0.0)
     timed = {}
 
     def rn(*shape, scale=1.0):
@@ -597,49 +624,85 @@ def phase_fe_kernels(results, dev="cuda", image=512):
                     total_plain[name] += ms[name][1]
                 line += "; kernel/plain ms " + ", ".join(
                     f"{n_[:2]} {a:.3f}/{b:.3f}" for n_, (a, b) in ms.items())
-                if i == FE_TIMED_BLOCK:
-                    # least time: each input read once and each output
-                    # written once at 3.35 TB/s, against the operations at
-                    # the card's peak for their type: the 1x1 products
-                    # (2*E*C flops per input pixel in K1 and K2, 2*Cout*E per
-                    # pixel in K4) take bf16 operands and accumulate in
-                    # float32, which is the tensor cores' 989 TFLOP/s; the
-                    # depthwise taps (2*k*k*E per output pixel in K2) are
-                    # float32 weights on float32 sums, 67 TFLOP/s
-                    px_in, px_out = N * H * H, dw_p.numel() // E
-                    Co, b = spec.out_filters, y.element_size()
-                    work = {
-                        names[0]: (b * (px_in * C + E * C) + 8 * E,
-                                   2 * E * C * px_in, 0),
-                        names[1]: (b * (px_in * C + E * C + px_out * E)
-                                   + 4 * E * (2 + k * k) + 8 * E,
-                                   2 * E * C * px_in, 2 * k * k * E * px_out),
-                        names[2]: (b * (px_out * (E + Co) + Co * E)
-                                   + 4 * (2 * E + N * E) + 8 * Co,
-                                   2 * Co * E * px_out, 0)}
-                    for name, (nbytes, mm_flops, f32_flops) in work.items():
-                        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                        op_ms = (mm_flops / BF16_TENSOR_FLOPS
-                                 + f32_flops / F32_FLOPS) * 1e3
+                # least time: each input read once and each output written
+                # once at 3.35 TB/s, against the busiest unit's operations:
+                # the 1x1 products (2*E*C flops per input pixel in K1 and
+                # K2, 2*Cout*E per pixel in K4) take bf16 operands and
+                # accumulate in float32, the tensor cores' 989 TFLOP/s; the
+                # depthwise taps (2*k*k*E per output pixel in K2) are
+                # float32 weights on float32 sums, 67 TFLOP/s.  Shown
+                # beside the bound, not part of it: each activated
+                # element's silu (E per input pixel in K2, E per output
+                # pixel in K4) as an exponential and a reciprocal on the
+                # special-function units
+                px_in, px_out = N * H * H, dw_p.numel() // E
+                Co, b = spec.out_filters, y.element_size()
+                work = {
+                    names[1]: (b * (px_in * C + E * C + px_out * E)
+                               + 4 * E * (2 + k * k) + 8 * E,
+                               2 * E * C * px_in if w_exp is not None else 0,
+                               2 * k * k * E * px_out,
+                               E * px_in if w_exp is not None else 0),
+                    names[2]: (b * (px_out * (E + Co) + Co * E)
+                               + 4 * (2 * E + N * E) + 8 * Co,
+                               2 * Co * E * px_out, 0, E * px_out)}
+                if w_exp is not None:
+                    work[names[0]] = (b * (px_in * C + E * C) + 8 * E,
+                                      2 * E * C * px_in, 0, 0)
+                for name, (nbytes, mm, f32, silu) in work.items():
+                    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                             "products": mm / BF16_TENSOR_FLOPS * 1e3,
+                             "taps": f32 / F32_FLOPS * 1e3,
+                             "silu": silu * SFU_PER_SILU / SFU_OPS_PER_S
+                             * 1e3}
+                    op_ms = max(parts["products"], parts["taps"])
+                    bound = max(parts["bytes"], op_ms)
+                    total_bound[name] += bound
+                    total_silu[name] += parts["silu"]
+                    line += (f"; {name[:2]} bound {bound:.4f} (" + ", ".join(
+                        f"{k_} {parts[k_]:.4f}" for k_ in ("bytes",
+                                                           "products", "taps"))
+                        + f"; silu {parts['silu']:.4f} not in it)")
+                    if i == FE_TIMED_BLOCK:
                         timed[name] = {
                             "ms": ms[name][0], "plain_ms": ms[name][1],
-                            "bound_ms": max(byte_ms, op_ms),
-                            "bound_by": ("operations" if op_ms >= byte_ms
-                                         else "bytes"),
-                            "byte_ms": byte_ms, "op_ms": op_ms}
+                            "bound_ms": bound,
+                            "bound_by": ("operations"
+                                         if op_ms >= parts["bytes"]
+                                         else "bytes"), **parts}
+                # the launch plans K2 and K4 took: grid.y, dynamic shared
+                # memory a block, blocks an SM holds (and K2's output tile)
+                Ho = dw_p.shape[2]
+                plans = {
+                    "k2": FE.launch_plan(names[1], 1, N, C, E, k, st, Ho, Ho,
+                                         int(w_exp is not None)),
+                    "k4": FE.launch_plan(names[2], 1, px_out, Ho * Ho,
+                                         spec.out_filters)}
+                line += ("; plans (grid.y, smem, per SM, K2's tile rows, "
+                         "cols) ") + ", ".join(
+                    f"{k_} {v}" for k_, v in plans.items())
             log(line)
             del y, dw_p
     replaces = dict(zip(names, (207, 229, 256)))
     for name in names:
         t = timed[name]
-        byte_ms, op_ms = t.pop("byte_ms"), t.pop("op_ms")
+        parts = {k_: t.pop(k_) for k_ in ("bytes", "products", "taps",
+                                           "silu")}
         log(f"[kernels] {name} bf16 batch {FE_BATCH['bfloat16']}: block "
             f"{FE_TIMED_BLOCK} kernel {t['ms']:.3f} ms, plain "
-            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms by "
-            f"{t['bound_by']} (bytes {byte_ms:.4f}, operations {op_ms:.4f}: "
-            f"products at the 989 TFLOP/s bf16 tensor rate, taps at 67 "
-            f"TFLOP/s f32); summed over one forward's launches kernel "
-            f"{total[name]:.3f} ms, plain {total_plain[name]:.3f} ms")
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} (" + ", ".join(
+                f"{k_} {v:.4f}" for k_, v in parts.items())
+            + "; bytes at 3.35 TB/s, products at the 989 TFLOP/s bf16 "
+            "tensor rate, taps at 67 TFLOP/s f32; not in the bound, silu at "
+            "2 operations of the special-function units' 4.18 T/s)")
+        loss = total[name] - total_bound[name]
+        log(f"[kernels] {name} summed over one forward's launches: kernel "
+            f"{total[name]:.3f} ms, plain {total_plain[name]:.3f} ms, bound "
+            f"{total_bound[name]:.4f} ms (silu on the special-function "
+            f"units {total_silu[name]:.4f} ms, not in it); loss "
+            f"{loss:.3f} ms a forward, "
+            f"{2 * loss:.3f} ms a step (two train-mode teacher forwards)")
         results[name] = {
             "source": "moma_tpu_torch/csrc/fused_effnet.cu",
             "replaces": f"moma_tpu/ops/fused_effnet_pallas.py:{replaces[name]}",

@@ -7,11 +7,14 @@ For each directory in the order given (parent, change, change, parent
 keeps drift in the card's clocks out of the difference), from that
 directory: chip_smoke.py's flash-attention phase (the three kernels against
 their plain versions at (4, 16512, 128) float32, with their times and the
-library's) and its BatchNorm phase (the two channel-sum kernels at
-chip_smoke.BN_SHAPES, with the library's time at the second shape), then
-`cli/profile_step.py` with chip_smoke.py's effiB0@512
-flags for `--mem MoCoAtt --attn all`, `--attn dual` and `--mem MoCo`.  Each
-run is a process of its own; the kernels are built once per directory.
+library's), its BatchNorm phase (the two channel-sum kernels at
+chip_smoke.BN_SHAPES, with the library's time at the second shape), its
+fused-EfficientNet kernel phase (K1 / K2 / K4 at the 16 effiB0@512 block
+shapes, with their sums over one forward) and its fused-forward phase (the
+fused against the module teacher forward), then `cli/profile_step.py`
+with chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`,
+`--attn dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`.  Each run
+is a process of its own; the kernels are built once per directory.
 Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary
 without its trace table) and prints one line per run.  Needs a CUDA device.
 """
@@ -28,7 +31,10 @@ from pathlib import Path
 
 KERNELS = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
            "print('[card]', c.phase_device()); c.phase_build(); "
-           "c.phase_flash_kernels({}); c.phase_bn_kernels({})")
+           "c.phase_flash_kernels({}); c.phase_bn_kernels({}); "
+           "c.phase_fe_kernels({}); c.phase_fe_forward()")
+# the kernels whose device time per step the trace reports
+TRACED = re.compile(r"flash_\w+_kernel|k[124]_kernel")
 
 
 def _configs():
@@ -47,10 +53,11 @@ def _configs():
         else:
             base.append(a)
     swap = {"all": "dual"}
+    moco = [{"MoCoAtt": "MoCo", "all": "self"}.get(a, a) for a in base]
     return {"mocoatt_all": base,
             "mocoatt_dual": [swap.get(a, a) for a in base],
-            "moco": [{"MoCoAtt": "MoCo", "all": "self"}.get(a, a)
-                     for a in base]}
+            "moco": moco,
+            "moco_fused": moco + ["--fused_teacher", "on"]}
 
 
 def _run(cmd, cwd, timeout):
@@ -73,12 +80,15 @@ def main(argv=None):
     runs = []
     for i, d in enumerate(a.dirs):
         d = os.path.abspath(d)
-        out = _run([sys.executable, "-c", KERNELS], d, 900)
+        out = _run([sys.executable, "-c", KERNELS], d, 1500)
         lines = [ln for ln in out.splitlines()
                  if ln.startswith(("[kernels] flash", "[kernels] library",
                                    "[kernels] channel_sums",
                                    "[kernels] grad_channel_sums",
-                                   "[device]", "[card]"))]
+                                   "[kernels] k1_expand_stats",
+                                   "[kernels] k2_depthwise",
+                                   "[kernels] k4_project",
+                                   "[forward] bf16", "[device]", "[card]"))]
         run = {"dir": d, "turn": i, "kernels": lines, "steps": {}}
         for line in lines:
             print(f"[ab] turn {i} {d}: {line}", flush=True)
@@ -89,19 +99,20 @@ def main(argv=None):
                         *args], d, 900)
             summary = json.loads(out.strip().splitlines()[-1])
             run["steps"][name] = summary
-            flash = {}
+            kernels = {}
             for n, ms in summary["trace"]["top_kernels_ms"]:
-                m = re.search(r"flash_\w+_kernel", n)
+                m = TRACED.search(n)
                 if m:   # device ms per step over the profiled steps
-                    flash[m.group(0)] = ms / summary["profiled_steps"]
+                    kernels[m.group(0)] = (kernels.get(m.group(0), 0.0)
+                                           + ms / summary["profiled_steps"])
             print(f"[ab] turn {i} {d}: {name} step "
                   f"{summary['step_ms']['median']:.2f} ms (min "
                   f"{summary['step_ms']['min']:.2f}, max "
                   f"{summary['step_ms']['max']:.2f}), busy "
                   f"{summary['device_busy_ms_per_step']:.2f} ms, idle "
                   f"{summary['idle_share_vs_step']:.4f}, peak "
-                  f"{summary['peak_mem_gib']:.2f} GiB; flash kernels per "
-                  f"step (ms) {flash}", flush=True)
+                  f"{summary['peak_mem_gib']:.2f} GiB; kernels per step "
+                  f"(ms) {kernels}", flush=True)
         runs.append(run)
         with open(os.path.join(a.out, "ab_runs.json"), "w") as f:
             json.dump(runs, f, indent=1)

@@ -120,8 +120,9 @@ def build_log(name: str) -> str:
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's name from its mangled entry name (the last component of
-    a nested name such as `_ZN<namespace><name>I...`), with the flash
-    kernels' template arguments: `flash_fwd_kernel<float, 128>`."""
+    a nested name such as `_ZN<namespace><name>I...`), with its type and
+    integer template arguments: `flash_fwd_kernel<float, 128>`,
+    `k2_kernel<bf16, 5, 1, 6>`."""
     m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
@@ -131,9 +132,11 @@ def _kernel_name(mangled: str) -> str:
         pos += len(n)
         name = mangled[pos:pos + int(n)]
         pos += int(n)
-    t = re.match(r"I(f|13__nv_bfloat16)Li(\d+)E", mangled[pos:])
+    t = re.match(r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", mangled[pos:])
     if t:
-        name += f"<{'float' if t.group(1) == 'f' else 'bf16'}, {t.group(2)}>"
+        args = ["float" if t.group(1) == "f" else "bf16"]
+        args += re.findall(r"Li(\d+)E", t.group(2))
+        name += f"<{', '.join(args)}>"
     return name
 
 

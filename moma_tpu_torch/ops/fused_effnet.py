@@ -72,9 +72,8 @@ from moma_tpu_torch.runtime import count_launch
 
 Tensor = torch.Tensor
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64                    # pixels and channels per tile (csrc TM, TN)
-_TARGET_BLOCKS = 8 * 132      # blocks a launch aims at: 8 on each of 132 SMs
-_K2_OUT_TILE = {1: (8, 16), 2: (8, 8)}   # output rows x columns per stride
+_TILE = 64                    # K1: pixels and channels per tile (csrc TM, TN)
+_TARGET_BLOCKS = 8 * 132      # K1: blocks a launch aims at
 
 
 class BlockSpec(NamedTuple):
@@ -258,9 +257,13 @@ def _lib() -> ctypes.CDLL:
     lib.moma_fe_k1.restype = i32
     lib.moma_fe_k2.argtypes = [p, p, p, p, p, i32] + [i32] * 14 + [p] * 5
     lib.moma_fe_k2.restype = i32
+    lib.moma_fe_k2_rows.argtypes = [i32] * 9 + [p] * 5
+    lib.moma_fe_k2_rows.restype = i32
     lib.moma_fe_k4.argtypes = [p, p, p, p, p, i32, i64, i32, i32, i32, i32,
                                p, p, p, p, p]
     lib.moma_fe_k4.restype = i32
+    lib.moma_fe_k4_rows.argtypes = [i32, i64, i32, i32, p, p, p]
+    lib.moma_fe_k4_rows.restype = i32
     return lib
 
 
@@ -290,8 +293,23 @@ def _check_mat(name: str, what: str, t: Tensor, shape, dtype, dev) -> None:
 
 
 def _row_groups(tiles: int, col_tiles: int) -> int:
-    """grid.y: how many blocks share the tiles of one channel tile."""
+    """K1's grid.y: how many blocks share the tiles of one channel tile."""
     return max(1, min(tiles, _TARGET_BLOCKS // col_tiles))
+
+
+def launch_plan(name: str, *args) -> Tuple[int, ...]:
+    """The launch plan K2 (`name` "k2_depthwise") or K4 ("k4_project") takes
+    for these sizes, as csrc/fused_effnet.cu picks it from the card: grid.y
+    (one wave of resident blocks, and the rows of partial sums the wrapper
+    allocates), dynamic shared memory bytes, resident blocks an SM, and for
+    K2 its output tile's rows and columns.  args: those of moma_fe_k2_rows /
+    moma_fe_k4_rows before the outputs."""
+    lib = _lib()
+    k2 = name == "k2_depthwise"
+    fn = lib.moma_fe_k2_rows if k2 else lib.moma_fe_k4_rows
+    out = [ctypes.c_int(0) for _ in range(5 if k2 else 3)]
+    _build.check(lib, fn(*args, *map(ctypes.byref, out)), name)
+    return tuple(o.value for o in out)
 
 
 def _stream(t: Tensor) -> int:
@@ -355,10 +373,8 @@ def k2_depthwise(y: Tensor, w_exp: Optional[Tensor], ab1: Optional[Tensor],
         _check_mat(name, "w_exp", w_exp, (E, C), y.dtype, y.device)
         _check_mat(name, "ab1", ab1, (2, E), torch.float32, y.device)
     Ho, Wo = -(-H // stride), -(-W // stride)
-    toh, tow = _K2_OUT_TILE[stride]
-    toh, tow = min(toh, Ho), min(tow, Wo)
-    tiles = N * -(-Ho // toh) * -(-Wo // tow)
-    G = _row_groups(tiles, -(-E // _TILE))
+    G, _, _, toh, tow = launch_plan(name, _DTYPE_CODES[y.dtype], N, C, E, k,
+                                    stride, Ho, Wo, int(w_exp is not None))
     dw = torch.empty((N, E, Ho, Wo), dtype=y.dtype, device=y.device,
                      memory_format=torch.channels_last)
     part, out = _sum_buffers(G, E, y.device)
@@ -391,7 +407,10 @@ def k4_project(dwout: Tensor, ab2: Tensor, se: Tensor, w_proj: Tensor):
     _check_mat(name, "se", se, (N, E), torch.float32, dev)
     _check_mat(name, "w_proj", w_proj, (Cout, E), dwout.dtype, dev)
     P = N * H * W
-    G = _row_groups(-(-P // _TILE), -(-Cout // _TILE))
+    if P >= 2 ** 31:
+        raise ValueError(f"{name}: {P} pixels, more than the kernel's "
+                         "32-bit pixel index takes")
+    G = launch_plan(name, _DTYPE_CODES[dwout.dtype], P, H * W, Cout)[0]
     tmp = torch.empty((N, Cout, H, W), dtype=dwout.dtype, device=dev,
                       memory_format=torch.channels_last)
     part, out = _sum_buffers(G, Cout, dev)

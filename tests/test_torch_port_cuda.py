@@ -278,26 +278,31 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 # (C, expand, k, stride, Cout, N, H, W): the five effiB0 block classes at
 # ragged sizes (pixel counts, channel counts and output tiles that do not
-# divide the kernels' 64-wide tiles), plus one wider than a reduction chunk
+# divide the kernels' tiles), plus one wider than a reduction chunk; then
+# each of effiB0's 12 distinct (C, E, k, stride, Cout) at its full channel
+# widths on a small image (E from 32 to 1152, Cout 320 spanning several
+# column tiles); then rows whose bytes are no multiple of 16 (C = 12 in
+# bf16 takes 4-byte copies; C = 41, odd, plain loads in bf16 and 4-byte
+# copies in f32) and Cout 320 behind them
 _FE_CASES = [(32, 1, 3, 1, 16, 2, 12, 16), (16, 6, 3, 2, 24, 3, 13, 11),
              (24, 6, 3, 1, 24, 2, 9, 20), (24, 6, 5, 2, 40, 2, 16, 14),
              (40, 6, 5, 1, 40, 1, 7, 5), (80, 6, 5, 2, 112, 2, 5, 6),
              (8, 6, 3, 1, 8, 5, 33, 35)]
+_FE_CASES += [(C, x, k, s, Co, 2, 10, 9) for C, x, k, s, Co in (
+    (32, 1, 3, 1, 16), (16, 6, 3, 2, 24), (24, 6, 3, 1, 24),
+    (24, 6, 5, 2, 40), (40, 6, 5, 1, 40), (40, 6, 3, 2, 80),
+    (80, 6, 3, 1, 80), (80, 6, 5, 1, 112), (112, 6, 5, 1, 112),
+    (112, 6, 5, 2, 192), (192, 6, 5, 1, 192), (192, 6, 3, 1, 320))]
+_FE_CASES += [(12, 6, 3, 1, 320, 1, 5, 6), (41, 1, 5, 2, 8, 1, 7, 9),
+              (41, 6, 3, 1, 20, 2, 7, 9)]
 
 
-@pytest.mark.parametrize("case", _FE_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_effnet_kernels_match_plain(dev, case, dtype):
-    """K1 / K2 / K4 against their plain versions.  f32: the two differ in
-    the order of their float32 sums.  bf16: a sum that lands on the other
-    side of a rounding edge moves an element by one bf16 ulp, and one such
-    input can move a depthwise output by another."""
-    from moma_tpu_torch.ops import fused_effnet as FE
-    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
-
+def _fe_inputs(dev, case, dtype, seed=5):
+    """y, w_exp, ab1 (both None without expand conv), w_dw, ab2, se,
+    w_proj for a _FE_CASES entry."""
     C, expand, k, stride, Cout, N, H, W = case
     E = C * expand
-    g = torch.Generator(device=dev).manual_seed(5)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
@@ -311,6 +316,27 @@ def test_fused_effnet_kernels_match_plain(dev, case, dtype):
     ab2 = torch.stack([1.0 + 0.1 * rn(E), 0.1 * rn(E)])
     se = torch.sigmoid(rn(N, E))
     w_proj = rn(Cout, E, scale=E ** -0.5).to(dtype)
+    return y, w_exp, ab1, w_dw, ab2, se, w_proj
+
+
+def _shifted_map(t):
+    """A channels_last copy of the (N, C, H, W) map t whose data starts one
+    element past a 16-byte aligned address."""
+    return _shifted(t.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("case", _FE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_effnet_kernels_match_plain(dev, case, dtype):
+    """K1 / K2 / K4 against their plain versions.  f32: the two differ in
+    the order of their float32 sums.  bf16: a sum that lands on the other
+    side of a rounding edge moves an element by one bf16 ulp, and one such
+    input can move a depthwise output by another."""
+    from moma_tpu_torch.ops import fused_effnet as FE
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    C, expand, k, stride, Cout, N, H, W = case
+    y, w_exp, ab1, w_dw, ab2, se, w_proj = _fe_inputs(dev, case, dtype)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
 
     def close(got, want, what, rtol=tol):
@@ -348,6 +374,55 @@ def test_fused_effnet_kernels_match_plain(dev, case, dtype):
     assert launch_counts() == {
         "k2_depthwise": 1, "k4_project": 1,
         **({"k1_expand_stats": 1} if expand != 1 else {})}
+
+
+@pytest.mark.parametrize("case", [(16, 6, 3, 2, 24, 2, 9, 10),
+                                  (32, 1, 5, 1, 40, 2, 11, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_effnet_kernels_take_rows_off_16_byte_alignment(dev, case,
+                                                              dtype):
+    """K2 and K4 read y, W_exp, dwout and W_proj from base pointers one
+    element past 16-byte alignment (4-byte copies in f32, plain loads in
+    bf16) and agree with the plain versions as the aligned cases do."""
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    y, w_exp, ab1, w_dw, ab2, se, w_proj = _fe_inputs(dev, case, dtype, 9)
+    dw_p, s2_p, q2_p = FE.k2_depthwise_plain(y, w_exp, ab1, w_dw, case[3])
+    tmp_p, s3_p, q3_p = FE.k4_project_plain(dw_p, ab2, se, w_proj)
+    ys, dws = _shifted_map(y), _shifted_map(dw_p)
+    assert ys.data_ptr() % 16 and dws.data_ptr() % 16
+    dw, s2, q2 = FE.k2_depthwise(
+        ys, None if w_exp is None else _shifted(w_exp), ab1, w_dw, case[3])
+    tmp, s3, q3 = FE.k4_project(dws, ab2, se, _shifted(w_proj))
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for got, want in ((dw, dw_p), (tmp, tmp_p)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max()) + 1e-6
+    for got, want, x in (((s2, q2), (s2_p, q2_p), dw_p),
+                         ((s3, q3), (s3_p, q3_p), tmp_p)):
+        xf = x.float()
+        for gt, wt, bound in zip(got, want, (xf.abs().sum((0, 2, 3)),
+                                             (xf * xf).sum((0, 2, 3)))):
+            rel = float(((gt - wt).abs() / (bound + 1e-3)).max())
+            assert rel <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_effnet_kernels_repeat_bit_for_bit(dev, dtype):
+    """Per-block partials and a fixed-order second pass, no atomics: two
+    launches of K2 and of K4 on the same inputs give the same bits."""
+    from moma_tpu_torch.ops import fused_effnet as FE
+
+    case = (40, 6, 5, 1, 40, 4, 33, 30)
+    y, w_exp, ab1, w_dw, ab2, se, w_proj = _fe_inputs(dev, case, dtype, 11)
+    a = FE.k2_depthwise(y, w_exp, ab1, w_dw, 1)
+    b = FE.k2_depthwise(y, w_exp, ab1, w_dw, 1)
+    c = FE.k4_project(a[0], ab2, se, w_proj)
+    d = FE.k4_project(a[0], ab2, se, w_proj)
+    torch.cuda.synchronize()
+    for u, v in zip(a + c, b + d):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.parametrize("train", [False, True])
