@@ -19,7 +19,7 @@ Phases (each prints its own lines):
                  and spills per kernel instance and, where the toolkit has
                  cuobjdump, the HMMA (tensor-core) instructions of the flash
                  and fused-EfficientNet kernels; fails if a flash kernel or
-                 an instance of K2 / K4 has none
+                 an instance of K1 / K2 / K4 has none
   3 kernels    : kernel vs plain version at the main paths' shapes, with
                  max error and CUDA-event times (median of 20; of 5 for the
                  flash-attention kernels), the least time the card could
@@ -27,7 +27,9 @@ Phases (each prints its own lines):
                  function, that call's time (library; used nowhere in the
                  package; for dq and dk/dv also their share of the
                  library's backward by operations); the BN sums' achieved
-                 GB/s; the three fused-EfficientNet kernels at each of
+                 GB/s, and channel_sums at the 49 BatchNorm inputs of one
+                 effiB0@512^2 batch-64 forward, summed beside the summed
+                 bound; the three fused-EfficientNet kernels at each of
                  the 16 effiB0 block shapes of a 512^2 input, each launch
                  beside its bound (bytes, products, taps; the silu's
                  special-function work shown beside it) and its launch
@@ -62,6 +64,7 @@ import time
 
 WATCHDOG_S = 1140
 TIMING_ITERS = 20
+SPIN_CYCLES = 4_000_000   # about 2 ms of a timed call's lead (cuda_time_ms)
 MAIN_ARGS = [
     "--distill", "moma", "--dataset", "prostate_hv", "--model_s", "effiB0",
     "--model_t", "effiB0", "--image_size", "512", "--batch_size", "64",
@@ -131,6 +134,13 @@ def sync(dev) -> None:
 
 
 def cuda_time_ms(fn, iters: int = TIMING_ITERS) -> float:
+    """Median device time of fn() over `iters` calls, in ms.  Before each
+    call the device spins for SPIN_CYCLES, so the host has enqueued the
+    start event, fn's launches and the end event before the device reaches
+    them: the events time the device's work, not the wrappers' host-side
+    work (some 50 us a call, which a step hides behind earlier kernels).
+    With SPIN_CYCLES = 0 the events time the host's work too, as this
+    timer did before the spin was added."""
     import torch
 
     for _ in range(2):
@@ -140,6 +150,8 @@ def cuda_time_ms(fn, iters: int = TIMING_ITERS) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if SPIN_CYCLES:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -199,14 +211,15 @@ def phase_build():
             if not hmma.get(f"{kernel}<float, 128>"):
                 raise AssertionError(f"{kernel}<float, 128> has no HMMA "
                                      "instruction")
-    # and so do every instance of K2 and K4 of the fused forward
+    # and so do every instance of K1, K2 and K4 of the fused forward
     hmma = _build.sass_counts("fused_effnet", "HMMA")
     for inst, n in sorted(hmma.items()):
         log(f"[build] fused_effnet: {inst}: HMMA instructions {n}")
-        if inst.startswith(("k2_kernel", "k4_kernel")) and not n:
+        if inst.startswith(("k1_kernel", "k2_kernel", "k4_kernel")) and not n:
             raise AssertionError(f"{inst} has no HMMA instruction")
-    if hmma and not any(k.startswith("k2_kernel") for k in hmma):
-        raise AssertionError("no k2_kernel instance in fused_effnet")
+    for kernel in ("k1_kernel", "k2_kernel", "k4_kernel"):
+        if hmma and not any(k.startswith(kernel) for k in hmma):
+            raise AssertionError(f"no {kernel} instance in fused_effnet")
 
 
 def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
@@ -308,6 +321,73 @@ def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
         "plain_ms": times["grad_channel_sums"][1],
         "bound_ms": bounds_ms["grad_channel_sums"], "bound_by": "bytes",
         "library_ms": lib["grad_channel_sums"]}
+
+
+def bn_forward_shapes(image=512, batch=64):
+    """The (N, H, W, C) input of each of the 49 BatchNorms of one effiB0
+    forward at image^2, in the order the forward runs them: the stem's, each
+    MBConv block's bn1 (blocks with expand conv), bn2 and bn3, the head's."""
+    from moma_tpu_torch.models.efficientnet import round_filters
+
+    h = -(-image // 2)
+    out = [(batch, h, h, round_filters(32, 1.0))]
+    for spec, hin in fe_block_shapes(image):
+        E = spec.in_filters * spec.expand
+        h = -(-hin // spec.stride)
+        if spec.expand != 1:
+            out.append((batch, hin, hin, E))
+        out += [(batch, h, h, E), (batch, h, h, spec.out_filters)]
+    return out + [(batch, h, h, round_filters(1280, 1.0))]
+
+
+def phase_bn_forward(dev="cuda", image=512, batch=64):
+    """channel_sums at the 49 BatchNorm inputs of one effiB0 forward
+    (image^2, batch 64, bf16): each distinct shape once against its plain
+    version (not timed), then the kernel's and torch.batch_norm_stats'
+    times; their sums over the forward beside the summed bound (each input
+    read once at 3.35 TB/s).  Inputs under the 50 MB L2 stay there between
+    timed launches, as a BatchNorm's input often is after the conv that
+    wrote it."""
+    import torch
+
+    from moma_tpu_torch.ops import fused_bn as FB
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes = bn_forward_shapes(image, batch)
+    if len(shapes) != 49:
+        raise AssertionError(f"{len(shapes)} BatchNorms in an effiB0 forward")
+    tot = {"kernel": 0.0, "library": 0.0, "bound": 0.0}
+    for shape in sorted(set(shapes), key=shapes.index):
+        n = shapes.count(shape)
+        x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(
+            torch.bfloat16)
+        got, want = FB.channel_sums(x), FB.channel_sums_plain(x)
+        xf = x.float()
+        rel = max(float(((g - w).abs() / (b + 1e-6)).max()) for g, w, b in
+                  zip(got, want, (xf.abs().sum((0, 1, 2)),
+                                  (xf * xf).sum((0, 1, 2)))))
+        del xf
+        if not rel <= BN_RTOL:
+            raise AssertionError(f"channel_sums {shape} bf16: error "
+                                 f"{rel:.3e} of sum|.| exceeds {BN_RTOL}")
+        ms = cuda_time_ms(lambda: FB.channel_sums(x))
+        xn = x.permute(0, 3, 1, 2)
+        lib_ms = cuda_time_ms(lambda: torch.batch_norm_stats(xn, 1e-5))
+        bound = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        for k, v in (("kernel", ms), ("library", lib_ms), ("bound", bound)):
+            tot[k] += n * v
+        log(f"[kernels] channel_sums forward shape {shape} bf16 x{n}: max "
+            f"err/sum|.| {rel:.2e}, kernel {ms:.4f} ms, batch_norm_stats "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound / ms:.1%} of it)")
+        del x, xn
+    log(f"[kernels] channel_sums summed over one effiB0@{image}^2 batch-"
+        f"{batch} bf16 forward's 49 BatchNorms: kernel {tot['kernel']:.3f} "
+        f"ms, batch_norm_stats {tot['library']:.3f} ms, bound "
+        f"{tot['bound']:.3f} ms (bytes at 3.35 TB/s); loss "
+        f"{tot['kernel'] - tot['bound']:.3f} ms a forward")
+    return tot
 
 
 def phase_ra_kernel(results, dev="cuda", shape=RA_SHAPE):
@@ -501,7 +581,7 @@ def phase_fe_kernels(results, dev="cuda", image=512):
     launches of one forward, each beside its bound (bytes, products and
     taps, with the silu's special-function work shown beside it; the sum
     over a forward's launches too), with the launch plan (grid.y, shared
-    memory, blocks an SM, K2's tile) K2 and K4 took."""
+    memory, blocks an SM, K1's channels a block, K2's tile) each took."""
     import torch
 
     from moma_tpu_torch.ops import fused_effnet as FE
@@ -670,16 +750,19 @@ def phase_fe_kernels(results, dev="cuda", image=512):
                             "bound_by": ("operations"
                                          if op_ms >= parts["bytes"]
                                          else "bytes"), **parts}
-                # the launch plans K2 and K4 took: grid.y, dynamic shared
-                # memory a block, blocks an SM holds (and K2's output tile)
+                # the launch plans K1, K2 and K4 took: grid.y, dynamic
+                # shared memory a block, blocks an SM holds (then K1's
+                # channels a block, K2's output tile)
                 Ho = dw_p.shape[2]
                 plans = {
                     "k2": FE.launch_plan(names[1], 1, N, C, E, k, st, Ho, Ho,
                                          int(w_exp is not None)),
                     "k4": FE.launch_plan(names[2], 1, px_out, Ho * Ho,
                                          spec.out_filters)}
-                line += ("; plans (grid.y, smem, per SM, K2's tile rows, "
-                         "cols) ") + ", ".join(
+                if w_exp is not None:
+                    plans["k1"] = FE.launch_plan(names[0], 1, px_in, C, E)
+                line += ("; plans (grid.y, smem, per SM, K1's channels a "
+                         "block, K2's tile rows, cols) ") + ", ".join(
                     f"{k_} {v}" for k_, v in plans.items())
             log(line)
             del y, dw_p
@@ -942,6 +1025,7 @@ def main() -> int:
     phase_build()
     results = {}
     phase_bn_kernels(results)
+    phase_bn_forward()
     phase_ra_kernel(results)
     phase_flash_kernels(results)
     phase_fe_kernels(results)

@@ -11,9 +11,15 @@ library's), its BatchNorm phase (the two channel-sum kernels at
 chip_smoke.BN_SHAPES, with the library's time at the second shape), its
 fused-EfficientNet kernel phase (K1 / K2 / K4 at the 16 effiB0@512 block
 shapes, with their sums over one forward) and its fused-forward phase (the
-fused against the module teacher forward), then `cli/profile_step.py`
-with chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`,
-`--attn dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`.  Each run
+fused against the module teacher forward), this checkout's chip_smoke.py
+phase_bn_forward on that directory's kernels (channel_sums summed over the
+49 BatchNorm inputs of one effiB0@512 batch-64 forward); every directory's
+phases time with this checkout's chip_smoke.cuda_time_ms, so all turns'
+kernel times are measured the same way; after a `[timer]` line, the BN and
+fused-kernel phases again with the host's work in the times (SPIN_CYCLES =
+0, how the timer measured before its spin).  Then `cli/profile_step.py` with
+chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`, `--attn
+dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`.  Each run
 is a process of its own; the kernels are built once per directory.
 Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary
 without its trace table) and prints one line per run.  Needs a CUDA device.
@@ -30,11 +36,24 @@ import sys
 from pathlib import Path
 
 KERNELS = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
+           # this checkout's chip_smoke: its timer for every directory's
+           # phases, and its phase_bn_forward on the directory's kernels
+           "import importlib.util as u; "
+           "s = u.spec_from_file_location('smoke', sys.argv[1]); "
+           "m = u.module_from_spec(s); s.loader.exec_module(m); "
+           "c.cuda_time_ms = m.cuda_time_ms; "
            "print('[card]', c.phase_device()); c.phase_build(); "
            "c.phase_flash_kernels({}); c.phase_bn_kernels({}); "
-           "c.phase_fe_kernels({}); c.phase_fe_forward()")
+           "c.phase_fe_kernels({}); c.phase_fe_forward(); "
+           "m.phase_bn_forward(); "
+           # the BN and fused kernels again, timed with the host's work in
+           # (how the timer measured before its spin), for numbers of that kind
+           "m.SPIN_CYCLES = 0; print('[timer] host work in', flush=True); "
+           "c.phase_bn_kernels({}); c.phase_fe_kernels({}); "
+           "m.phase_bn_forward()")
+SMOKE = str(Path(__file__).resolve().parents[2] / "chip_smoke.py")
 # the kernels whose device time per step the trace reports
-TRACED = re.compile(r"flash_\w+_kernel|k[124]_kernel")
+TRACED = re.compile(r"flash_\w+_kernel|k[124]_kernel|(?:grad_)?sums_partial")
 
 
 def _configs():
@@ -80,7 +99,7 @@ def main(argv=None):
     runs = []
     for i, d in enumerate(a.dirs):
         d = os.path.abspath(d)
-        out = _run([sys.executable, "-c", KERNELS], d, 1500)
+        out = _run([sys.executable, "-c", KERNELS, SMOKE], d, 1500)
         lines = [ln for ln in out.splitlines()
                  if ln.startswith(("[kernels] flash", "[kernels] library",
                                    "[kernels] channel_sums",
@@ -88,7 +107,8 @@ def main(argv=None):
                                    "[kernels] k1_expand_stats",
                                    "[kernels] k2_depthwise",
                                    "[kernels] k4_project",
-                                   "[forward] bf16", "[device]", "[card]"))]
+                                   "[forward] bf16", "[device]", "[card]",
+                                   "[timer]"))]
         run = {"dir": d, "turn": i, "kernels": lines, "steps": {}}
         for line in lines:
             print(f"[ab] turn {i} {d}: {line}", flush=True)

@@ -8,31 +8,35 @@
 //
 // What bounds them on an H100: bytes.  Each element is read once and costs
 // two or three flops, far below the ~295 flop/byte the card needs before
-// compute matters, so the designs stream the input once at full width.
-// Both write per-block f32 partial sums (no atomics), and a second small
-// kernel (reduce_partials.cuh) reduces the partials of each channel in a
-// fixed order, so a result is the same from run to run.
-//   * channel_sums: threads run along C (TX = 32 channels per block column)
-//     and rows (TY = 8): a warp reads 32 neighbouring channels of one row,
-//     a block 8 rows, so for C = 32 a block touches 512 contiguous bytes per
-//     step.  The grid's y dimension cuts the rows into G chunks.
-//   * grad_channel_sums reads two tensors (dy and x) and is the one of the
-//     two that a PyTorch call (batch_norm_backward_reduce) beat, so it loads
-//     16 bytes a thread: a thread owns a fixed group of NV = 8 bf16 (4 f32)
-//     neighbouring channels, and a block of CB channel groups x RP rows
-//     reads RP whole rows per step, RP * C contiguous elements (C = 96 bf16:
-//     12 groups x 21 rows, 4032 bytes of each tensor).  Each thread keeps 4
-//     independent loads of each tensor in flight (rows r, r + RP, r + 2RP,
-//     r + 3RP), and addresses inside a block's chunk of rows are 32-bit
-//     offsets from the chunk's base.  The launcher sizes the grid to one
-//     wave of resident blocks, each a contiguous chunk of rows, and tells
-//     the wrapper how many chunks that is (moma_grad_sums_chunks).  A C that
-//     is no multiple of the vector, or a base pointer off 16 bytes, takes
-//     4-byte loads (2 bf16 or 1 f32 channels) or, for bf16 of odd C, 2-byte
-//     loads, in the same kernel: the launcher picks the width from C and
-//     the pointers.
-//   * The TPU kernel's lane packing (_pack_width / _pick_block_rows) exists
-//     to fill 128-lane vector registers and is not carried over.
+// compute matters, so both stream their input once at full width, through
+// one first-pass routine (chunk_sums) whose per-element operation is its
+// template parameter: x -> (x, x^2) or (dy, x) -> (dy, dy (x - mean)).
+//   * A thread owns a fixed group of NV = 8 bf16 (4 f32) neighbouring
+//     channels and loads them as one 16-byte vector.  A block of CB channel
+//     groups x RP rows of threads reads RP whole rows per step, RP * C
+//     contiguous elements (C = 96 bf16: 12 groups x 21 rows, 4032 bytes of
+//     each tensor).  CB is CV (the row's groups) split evenly over
+//     ceil(CV / 256) column blocks and RP = 256 / CB, so at effiB0's 15
+//     widths (16 .. 1280) in either dtype every thread of a block owns
+//     channels (a block has 144 to 256 threads).
+//   * Each thread keeps 4 independent loads of each tensor in flight (rows
+//     r, r + RP, r + 2RP, r + 3RP), and addresses inside a block's chunk of
+//     rows are 32-bit offsets from the chunk's base.
+//   * The launcher sizes the grid to one wave of resident blocks (the
+//     card's occupancy for the kernel and block size, asked once:
+//     occupancy.cuh), each a contiguous chunk of rows, and tells the
+//     wrapper how many chunks that is (moma_channel_sums_chunks,
+//     moma_grad_sums_chunks).
+//   * A C that is no multiple of the vector, or a base pointer off 16
+//     bytes, takes 4-byte loads (2 bf16 or 1 f32 channels) or, for bf16 of
+//     odd C, 2-byte loads, in the same kernel: the launcher picks the width
+//     from C and the pointers.
+// A block adds its RP rows of threads by a fixed tree in shared memory and
+// writes one row of f32 partial sums (no atomics); a second small kernel
+// (reduce_partials.cuh) adds the rows of partials of each channel in a
+// fixed order, so a result is the same from run to run.  The TPU kernel's
+// lane packing (_pack_width / _pick_block_rows) exists to fill 128-lane
+// vector registers and is not carried over.
 // Every launch goes on the caller's stream, allocates nothing (the Python
 // wrapper passes the partial-sum scratch) and returns cudaGetLastError().
 
@@ -43,54 +47,14 @@
 #include <algorithm>
 #include <cstring>
 
+#include "occupancy.cuh"
 #include "reduce_partials.cuh"
 
 namespace {
 
-constexpr int TX = 32;  // threads along C
-constexpr int TY = 8;   // threads along rows (first pass) / partials (second)
-
-__device__ __forceinline__ float load_f32(const float* p, int64_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-
-template <typename T>
-__global__ void sums_partial(const T* __restrict__ x, int64_t R, int C,
-                             float* __restrict__ part_s,
-                             float* __restrict__ part_q) {
-  const int c = blockIdx.x * TX + threadIdx.x;
-  float s = 0.f, q = 0.f;
-  if (c < C) {
-    const int64_t step = (int64_t)gridDim.y * TY;
-#pragma unroll 4
-    for (int64_t r = (int64_t)blockIdx.y * TY + threadIdx.y; r < R;
-         r += step) {
-      const float v = load_f32(x, r * C + c);
-      s += v;
-      q += v * v;
-    }
-  }
-  __shared__ float sh_s[TY][TX];
-  __shared__ float sh_q[TY][TX];
-  sh_s[threadIdx.y][threadIdx.x] = s;
-  sh_q[threadIdx.y][threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    for (int i = 1; i < TY; ++i) {
-      s += sh_s[i][threadIdx.x];
-      q += sh_q[i][threadIdx.x];
-    }
-    part_s[(int64_t)blockIdx.y * C + c] = s;
-    part_q[(int64_t)blockIdx.y * C + c] = q;
-  }
-}
-
-constexpr int GS_NT = 256;    // threads of a grad_sums block
-constexpr int GS_UNROLL = 4;  // loads of each tensor in flight per thread
-constexpr int GS_NV = 8;      // most channels a thread owns (16 bytes bf16)
+constexpr int SUM_NT = 256;    // most threads of a first-pass block
+constexpr int SUM_UNROLL = 4;  // loads of each tensor in flight per thread
+constexpr int SUM_NV = 8;      // most channels a thread owns (16 bytes bf16)
 
 // W bytes of T loaded as one word
 template <int W>
@@ -114,66 +78,110 @@ __device__ __forceinline__ void widen(float* f, const R& r) {
                                           : w[i / 2] << 16);
 }
 
+// The per-element operations of the two reductions, for a thread that owns
+// NV channels from c0: start() takes what it needs of the channels, add()
+// folds element i of one row into the thread's sums s and p.
+template <int NV>
+struct SumSq {  // x -> (x, x^2)
+  static constexpr int inputs = 1;
+  __device__ __forceinline__ void start(const float*, int) {}
+  __device__ __forceinline__ void add(int, float x, float, float& s,
+                                      float& p) const {
+    s += x;
+    p += x * x;
+  }
+};
+template <int NV>
+struct GradSums {  // (dy, x) -> (dy, dy (x - mean))
+  static constexpr int inputs = 2;
+  float mu[NV];
+  __device__ __forceinline__ void start(const float* mean, int c0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) mu[i] = mean[c0 + i];
+  }
+  __device__ __forceinline__ void add(int i, float dy, float x, float& s,
+                                      float& p) const {
+    s += dy;
+    p += dy * (x - mu[i]);
+  }
+};
+
 // The rows [r0, r0 + rows) of a block's chunk, W bytes a load: thread
-// (ri, cgl) sums channels c0 .. c0 + NV - 1 over rows ri, ri + RP, ...;
-// then the block adds its RP rows of threads in order and writes one
-// partial per channel.
-template <typename T, int W>
-__device__ __forceinline__ void grad_sums_chunk(
-    const T* __restrict__ dy, const T* __restrict__ x,
+// (ri, cgl) folds channels c0 .. c0 + NV - 1 of rows ri, ri + RP, ... of a
+// (and b, for an operation of two inputs) into its sums; then the block
+// adds its RP rows of threads in a fixed tree and writes one partial per
+// channel.  sh_s, sh_p: SUM_NT * SUM_NV floats each.
+template <typename T, int W, template <int> class Op>
+__device__ __forceinline__ void chunk_sums(
+    const T* __restrict__ a, const T* __restrict__ b,
     const float* __restrict__ mean, int64_t r0, int rows, int C, int CB,
     int RP, int CV, float* __restrict__ part_s, float* __restrict__ part_p,
     float* sh_s, float* sh_p) {
   constexpr int NV = W / sizeof(T);
+  constexpr bool two = Op<NV>::inputs == 2;
   using R = typename Raw<W>::type;
   const int cgl = threadIdx.x % CB, ri = threadIdx.x / CB;
   const int cg = blockIdx.x * CB + cgl;
   const int c0 = cg * NV;
+  const bool live = cg < CV;
   float s[NV] = {}, p[NV] = {};
-  if (cg < CV) {
-    float mu[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) mu[i] = mean[c0 + i];
-    const R* gd = reinterpret_cast<const R*>(dy + r0 * C + c0);
-    const R* gx = reinterpret_cast<const R*>(x + r0 * C + c0);
+  if (live) {
+    Op<NV> op;
+    op.start(mean, c0);
+    const R* ga = reinterpret_cast<const R*>(a + r0 * C + c0);
+    const R* gb = reinterpret_cast<const R*>(b + r0 * C + c0);
     // 32-bit offsets in loads of W bytes; rows * C fits (launcher)
     const int step = RP * (C / NV), end = rows * (C / NV);
     int off = ri * (C / NV);
-    auto add = [&](const R& a, const R& b) {
-      float fd[NV], fx[NV];
-      widen<T>(fd, a);
-      widen<T>(fx, b);
+    auto add = [&](const R& u, const R& v) {
+      float fa[NV], fb[NV] = {};
+      widen<T>(fa, u);
+      if constexpr (two) widen<T>(fb, v);
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        s[i] += fd[i];
-        p[i] += fd[i] * (fx[i] - mu[i]);
-      }
+      for (int i = 0; i < NV; ++i) op.add(i, fa[i], two ? fb[i] : 0.f, s[i],
+                                          p[i]);
     };
-    for (; off + (GS_UNROLL - 1) * step < end; off += GS_UNROLL * step) {
-      R a[GS_UNROLL], b[GS_UNROLL];
+    for (; off + (SUM_UNROLL - 1) * step < end; off += SUM_UNROLL * step) {
+      R u[SUM_UNROLL], v[SUM_UNROLL] = {};
 #pragma unroll
-      for (int u = 0; u < GS_UNROLL; ++u) {
-        a[u] = __ldg(gd + off + u * step);
-        b[u] = __ldg(gx + off + u * step);
+      for (int k = 0; k < SUM_UNROLL; ++k) {
+        u[k] = __ldg(ga + off + k * step);
+        if constexpr (two) v[k] = __ldg(gb + off + k * step);
       }
 #pragma unroll
-      for (int u = 0; u < GS_UNROLL; ++u) add(a[u], b[u]);
+      for (int k = 0; k < SUM_UNROLL; ++k) add(u[k], v[k]);
     }
-    for (; off < end; off += step) add(__ldg(gd + off), __ldg(gx + off));
+    for (; off < end; off += step) {
+      R v{};
+      if constexpr (two) v = __ldg(gb + off);
+      add(__ldg(ga + off), v);
+    }
   }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    sh_s[threadIdx.x * NV + i] = s[i];
-    sh_p[threadIdx.x * NV + i] = p[i];
-  }
-  __syncthreads();
-  if (ri == 0 && cg < CV) {
-    for (int j = 1; j < RP; ++j)
+  // rows of threads [h, n) fold into [0, n - h), h = ceil(n / 2), until
+  // row 0 holds the block's sums: the same order in every run
+  const int slot = (ri * CB + cgl) * NV;
+  for (int n = RP; n > 1;) {
+    const int h = (n + 1) / 2;
+    if (ri >= h && ri < n) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
-        s[i] += sh_s[(j * CB + cgl) * NV + i];
-        p[i] += sh_p[(j * CB + cgl) * NV + i];
+        sh_s[slot + i] = s[i];
+        sh_p[slot + i] = p[i];
       }
+    }
+    __syncthreads();
+    if (ri < n - h) {
+      const int from = slot + h * CB * NV;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        s[i] += sh_s[from + i];
+        p[i] += sh_p[from + i];
+      }
+    }
+    __syncthreads();
+    n = h;
+  }
+  if (ri == 0 && live) {
     const int64_t at = (int64_t)blockIdx.y * C + c0;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -183,28 +191,46 @@ __device__ __forceinline__ void grad_sums_chunk(
   }
 }
 
-// grid (ceil(CV / CB), G), CB * RP threads; block y takes rows
+// grid (gx, G), CB * RP threads; block y takes rows
 // [y * chunk, min(R, (y + 1) * chunk)); vec is the load width in bytes
-template <typename T>
-__global__ void __launch_bounds__(GS_NT)
-grad_sums_partial(const T* __restrict__ dy, const T* __restrict__ x,
-                  const float* __restrict__ mean, int64_t R, int C,
-                  int chunk, int vec, int CB, int RP,
-                  float* __restrict__ part_s, float* __restrict__ part_p) {
-  __shared__ float sh_s[GS_NT * GS_NV];
-  __shared__ float sh_p[GS_NT * GS_NV];
+template <typename T, template <int> class Op>
+__device__ __forceinline__ void first_pass(
+    const T* __restrict__ a, const T* __restrict__ b,
+    const float* __restrict__ mean, int64_t R, int C, int chunk, int vec,
+    int CB, int RP, float* __restrict__ part_s, float* __restrict__ part_p) {
+  __shared__ float sh_s[SUM_NT * SUM_NV];
+  __shared__ float sh_p[SUM_NT * SUM_NV];
   const int64_t r0 = (int64_t)blockIdx.y * chunk;
   const int rows = r0 >= R ? 0 : R - r0 < chunk ? (int)(R - r0) : chunk;
   const int CV = C * (int)sizeof(T) / vec;
   if (vec == 16)
-    grad_sums_chunk<T, 16>(dy, x, mean, r0, rows, C, CB, RP, CV, part_s,
-                           part_p, sh_s, sh_p);
-  else if (vec == 4)
-    grad_sums_chunk<T, 4>(dy, x, mean, r0, rows, C, CB, RP, CV, part_s,
+    chunk_sums<T, 16, Op>(a, b, mean, r0, rows, C, CB, RP, CV, part_s,
                           part_p, sh_s, sh_p);
+  else if (vec == 4)
+    chunk_sums<T, 4, Op>(a, b, mean, r0, rows, C, CB, RP, CV, part_s,
+                         part_p, sh_s, sh_p);
   else
-    grad_sums_chunk<T, sizeof(T)>(dy, x, mean, r0, rows, C, CB, RP, CV,
-                                  part_s, part_p, sh_s, sh_p);
+    chunk_sums<T, sizeof(T), Op>(a, b, mean, r0, rows, C, CB, RP, CV,
+                                 part_s, part_p, sh_s, sh_p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SUM_NT)
+sums_partial(const T* __restrict__ x, int64_t R, int C, int chunk, int vec,
+             int CB, int RP, float* __restrict__ part_s,
+             float* __restrict__ part_q) {
+  first_pass<T, SumSq>(x, x, nullptr, R, C, chunk, vec, CB, RP, part_s,
+                       part_q);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SUM_NT)
+grad_sums_partial(const T* __restrict__ dy, const T* __restrict__ x,
+                  const float* __restrict__ mean, int64_t R, int C,
+                  int chunk, int vec, int CB, int RP,
+                  float* __restrict__ part_s, float* __restrict__ part_p) {
+  first_pass<T, GradSums>(dy, x, mean, R, C, chunk, vec, CB, RP, part_s,
+                          part_p);
 }
 
 // bytes a load may take: 16 when rows of C elements and both base pointers
@@ -223,35 +249,34 @@ int sums_width(int C, const void* a, const void* b) {
 
 // The first pass's grid: the load width (bytes), CB channel groups x RP
 // rows of threads a block, gx column blocks, and G chunks of rows: one wave
-// of resident blocks, at least 4 rounds of GS_UNROLL loads a thread,
+// of resident blocks, at least one round of SUM_UNROLL loads a thread (a
+// small input is read in one round of loads, not in dependent rounds),
 // partials (written, then read by the second pass) at most 1/16 of the
 // input bytes, and as many chunks as 32-bit offsets need.
-struct GradGrid {
+struct SumGrid {
   int vec, CB, RP, gx;
   int64_t G;
 };
 
-template <typename T>
-cudaError_t grad_grid(const void* dy, const void* x, int64_t R, int C,
-                      GradGrid* g) {
-  g->vec = sums_width<T>(C, dy, x);
+template <typename T, bool GRAD>
+cudaError_t sums_grid(const void* a, const void* b, int64_t R, int C,
+                      SumGrid* g) {
+  g->vec = sums_width<T>(C, a, b);
   const int CV = C * (int)sizeof(T) / g->vec;
-  g->CB = CV < GS_NT ? CV : GS_NT;
-  g->RP = GS_NT / g->CB;
-  g->gx = (CV + g->CB - 1) / g->CB;
-  // blocks of this size that one SM holds, asked once per size
-  static int resident[GS_NT + 1];
-  const int threads = g->CB * g->RP;
-  int dev = 0, sms = 0;
+  g->gx = (CV + SUM_NT - 1) / SUM_NT;
+  g->CB = (CV + g->gx - 1) / g->gx;
+  g->RP = SUM_NT / g->CB;
+  const void* fn = GRAD ? (const void*)grad_sums_partial<T>
+                        : (const void*)sums_partial<T>;
+  int dev = 0, sms = 0, resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && resident[threads] == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident[threads], grad_sums_partial<T>, threads, 0);
+  if (err == cudaSuccess)
+    err = resident_blocks(fn, g->CB * g->RP, 0, &resident);
   if (err != cudaSuccess) return err;
-  int64_t G = (int64_t)resident[threads] * sms / g->gx;
-  const int64_t rounds = 4 * GS_UNROLL * (int64_t)g->RP;
+  int64_t G = (int64_t)resident * sms / g->gx;
+  const int64_t rounds = SUM_UNROLL * (int64_t)g->RP;
   G = std::min(G, (R + rounds - 1) / rounds);
   G = std::min(G, R * (int64_t)sizeof(T) / 128);
   G = std::max(G, (int64_t)1);
@@ -260,54 +285,82 @@ cudaError_t grad_grid(const void* dy, const void* x, int64_t R, int C,
 }
 
 template <typename T>
-cudaError_t launch_grad_sums(const void* dy, const void* x,
-                             const float* mean, int64_t R, int C, int G,
-                             float* part_s, float* part_p, cudaStream_t st) {
-  GradGrid g;
-  cudaError_t err = grad_grid<T>(dy, x, R, C, &g);
+cudaError_t grid_for(bool grad, const void* a, const void* b, int64_t R,
+                     int C, SumGrid* g) {
+  return grad ? sums_grid<T, true>(a, b, R, C, g)
+              : sums_grid<T, false>(a, b, R, C, g);
+}
+
+// G: what moma_*_chunks gave the wrapper for these tensors
+template <typename T>
+cudaError_t launch_sums(bool grad, const void* a, const void* b,
+                        const float* mean, int64_t R, int C, int G,
+                        float* part_s, float* part_p, cudaStream_t st) {
+  SumGrid g;
+  cudaError_t err = grid_for<T>(grad, a, b, R, C, &g);
   if (err != cudaSuccess) return err;
   if (g.G != G) return cudaErrorInvalidValue;
-  const int64_t chunk = (R + G - 1) / G;
-  grad_sums_partial<T><<<dim3(g.gx, (unsigned)G), g.CB * g.RP, 0, st>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(x), mean, R, C,
-      (int)chunk, g.vec, g.CB, g.RP, part_s, part_p);
+  const int chunk = (int)((R + G - 1) / G);
+  const dim3 grid(g.gx, (unsigned)G), block(g.CB * g.RP);
+  const T* ta = static_cast<const T*>(a);
+  if (grad)
+    grad_sums_partial<T><<<grid, block, 0, st>>>(
+        ta, static_cast<const T*>(b), mean, R, C, chunk, g.vec, g.CB, g.RP,
+        part_s, part_p);
+  else
+    sums_partial<T><<<grid, block, 0, st>>>(ta, R, C, chunk, g.vec, g.CB,
+                                            g.RP, part_s, part_p);
   return cudaGetLastError();
+}
+
+int chunks(bool grad, const void* a, const void* b, int dtype, int64_t R,
+           int C, int* G) {
+  SumGrid g;
+  cudaError_t err = dtype == 1
+                        ? grid_for<__nv_bfloat16>(grad, a, b, R, C, &g)
+                        : grid_for<float>(grad, a, b, R, C, &g);
+  *G = err == cudaSuccess ? (int)g.G : 0;
+  return (int)err;
+}
+
+int sums(bool grad, const void* a, const void* b, int dtype,
+         const float* mean, int64_t R, int C, int G, float* part_s,
+         float* part_p, float* out_s, float* out_p, cudaStream_t st) {
+  cudaError_t err =
+      dtype == 1 ? launch_sums<__nv_bfloat16>(grad, a, b, mean, R, C, G,
+                                              part_s, part_p, st)
+                 : launch_sums<float>(grad, a, b, mean, R, C, G, part_s,
+                                      part_p, st);
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials<<<reduce_partials_grid(C), reduce_partials_block(), 0, st>>>(
+      part_s, part_p, G, C, out_s, out_p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  part_* hold G * C floats each.
+// dtype: 0 = float32, 1 = bfloat16.
+// *G: the number of chunks of rows channel_sums' first pass takes for x,
+// so the number of rows of partials it needs
+int moma_channel_sums_chunks(const void* x, int dtype, int64_t R, int C,
+                             int* G) {
+  return chunks(false, x, x, dtype, R, C, G);
+}
+
+// part_* hold G * C floats each, G from moma_channel_sums_chunks
 int moma_channel_sums(const void* x, int dtype, int64_t R, int C, int G,
                       float* part_s, float* part_q, float* out_s,
                       float* out_q, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 block(TX, TY);
-  dim3 grid((C + TX - 1) / TX, G);
-  if (dtype == 1) {
-    sums_partial<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), R, C, part_s, part_q);
-  } else {
-    sums_partial<float><<<grid, block, 0, st>>>(static_cast<const float*>(x),
-                                                R, C, part_s, part_q);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<reduce_partials_grid(C), reduce_partials_block(), 0, st>>>(
-      part_s, part_q, G, C, out_s, out_q);
-  return (int)cudaGetLastError();
+  return sums(false, x, x, dtype, nullptr, R, C, G, part_s, part_q, out_s,
+              out_q, static_cast<cudaStream_t>(stream));
 }
 
-// *G: the number of chunks of rows grad_channel_sums' first pass takes for
-// these tensors, so the number of rows of partials it needs
+// *G: as moma_channel_sums_chunks, for grad_channel_sums of dy and x
 int moma_grad_sums_chunks(const void* dy, const void* x, int dtype,
                           int64_t R, int C, int* G) {
-  GradGrid g;
-  cudaError_t err = dtype == 1 ? grad_grid<__nv_bfloat16>(dy, x, R, C, &g)
-                               : grad_grid<float>(dy, x, R, C, &g);
-  *G = err == cudaSuccess ? (int)g.G : 0;
-  return (int)err;
+  return chunks(true, dy, x, dtype, R, C, G);
 }
 
 // part_* hold G * C floats each, G from moma_grad_sums_chunks
@@ -315,16 +368,8 @@ int moma_grad_channel_sums(const void* dy, const void* x, int dtype,
                            const float* mean, int64_t R, int C, int G,
                            float* part_s, float* part_p, float* out_s,
                            float* out_p, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 1 ? launch_grad_sums<__nv_bfloat16>(dy, x, mean, R, C, G,
-                                                   part_s, part_p, st)
-                 : launch_grad_sums<float>(dy, x, mean, R, C, G, part_s,
-                                           part_p, st);
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<reduce_partials_grid(C), reduce_partials_block(), 0, st>>>(
-      part_s, part_p, G, C, out_s, out_p);
-  return (int)cudaGetLastError();
+  return sums(true, dy, x, dtype, mean, R, C, G, part_s, part_p, out_s,
+              out_p, static_cast<cudaStream_t>(stream));
 }
 
 const char* moma_error_string(int err) {

@@ -39,25 +39,33 @@
 // bn_sums.cu) adds the G rows in a fixed order.  No atomics: results repeat
 // bit for bit from run to run.
 //
-// K1 (a first version, kept): 256 threads own 64 pixels x 64 channels,
-// float32 FMA products over operand tiles staged as float32 in chunks of 32
-// along K.
-//
-// K2 and K4 run their products on the tensor cores (tensor_core.cuh):
+// K1, K2 and K4 run their products on the tensor cores (tensor_core.cuh):
 // mma.sync m16n8k16 bf16 with float32 sums, and for float32 operands three
 // TF32 products each (3xTF32, float32 accuracy), summed from zero over each
 // chunk of 32 channels and added with float32 adds.  8 warps a block, a
-// warp 16 rows; operand rows arrive by 16-byte cp.async (4-byte copies, or
-// plain loads, where a row's bytes or a base pointer are not a multiple of
-// 16), through a ring of RING stages; index math is per row, its
-// divisions by run-time sizes multiply-shifts (FastDiv); shared tiles hold
-// T; the silus of a thread are straight-line code (every value computed,
-// then masked), so they interleave.  Each grid is one wave of the blocks
-// the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
-// SMs, with all of the SM's unified memory as shared memory; asked once per
-// kernel instance and shared-memory size).  The launch policy (tiles,
-// channels a block, shared memory, grid) lives here alone: the wrapper
-// asks moma_fe_k2_rows / moma_fe_k4_rows for it.
+// warp 16 rows at a time; operand rows arrive by 16-byte cp.async (4-byte
+// copies, or plain loads, where a row's bytes or a base pointer are not a
+// multiple of 16), through a ring of RING stages (K1: K1_RING stages a
+// warp); index math is per row, its divisions by run-time sizes
+// multiply-shifts (FastDiv); shared tiles hold T; the silus of a thread are
+// straight-line code (every value computed, then masked), so they
+// interleave.  Each grid is one wave of the blocks the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, with all of the
+// SM's unified memory as shared memory; asked once per kernel instance and
+// shared-memory size: occupancy.cuh).  The launch policy (tiles, channels a block, shared
+// memory, grid) lives here alone: the wrapper asks moma_fe_k1_rows /
+// moma_fe_k2_rows / moma_fe_k4_rows for it.
+//   * K1: a block owns EB = 72, 80 or 96 expanded channels (bf16; 48 in
+//     float32), one of which divides each of effiB0's expanded widths, so
+//     no product is wasted, and at block 1 (E = 96) one block column reads
+//     y once.  Each warp walks its own slabs of 16 pixels (all EB
+//     channels) through its own cp.async ring, with no block barrier in
+//     the loop; bf16 fragments come by ldmatrix, and a slab's first chunk
+//     starts the tensor cores from zero.  The statistics come from the
+//     accumulator fragments: rounded to T, then v and v^2 added into
+//     per-thread column sums across the warp's slabs; a column's 8 lanes
+//     are added by shuffles once at the end, then the warps in order.  The
+//     expanded tensor is never written.
 //   * K2: a block owns 48 expanded channels (32 where E is 32: both divide
 //     effiB0's widths, so no channel is wasted) and walks the output tiles
 //     (16 x 16 at stride 1, 8 x 8 at stride 2: the expand is recomputed
@@ -81,142 +89,33 @@
 //   * Edges are masked by index: any N, H, W, C, E, Cout.
 // Every launch goes on the caller's stream, allocates nothing (the Python
 // wrapper passes outputs and the partial-sum scratch, sized by
-// moma_fe_k2_rows / moma_fe_k4_rows) and returns cudaGetLastError().
+// moma_fe_k1_rows / moma_fe_k2_rows / moma_fe_k4_rows) and returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
-#include <mutex>
-#include <vector>
 
+#include "occupancy.cuh"
 #include "reduce_partials.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int NT = 256;     // threads: 16 (ty) x 16 (tx)
-constexpr int TM = 64;      // pixels of a tile
-constexpr int TN = 64;      // channels of a tile
-constexpr int KC = 32;      // chunk of the reduction axis
-constexpr int LD = KC + 4;  // row stride of an operand tile
+constexpr int NT = 256;     // threads of a block
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// 64 rows x KC columns of a row-major (nrows, ncols) matrix, from (r0, c0),
-// into a shared tile; rows past nrows and columns past ncols are zero.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* s, const T* g, int64_t r0,
-                                          int64_t nrows, int ncols, int c0) {
-  for (int idx = threadIdx.x; idx < 64 * KC; idx += NT) {
-    const int r = idx / KC, c = idx % KC;
-    float v = 0.f;
-    if (r0 + r < nrows && c0 + c < ncols)
-      v = to_f32(g[(r0 + r) * ncols + c0 + c]);
-    s[r * LD + c] = v;
-  }
-}
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// s[x][y] += A[4*ty + x] . B[tx + 16*y] over the first kr columns
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
-                                         const float* B, int ty, int tx,
-                                         int kr) {
-  for (int kk = 0; kk < kr; kk += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      a[x] = *reinterpret_cast<const float4*>(&A[(ty * 4 + x) * LD + kk]);
-      b[x] = *reinterpret_cast<const float4*>(&B[(tx + 16 * x) * LD + kk]);
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) s[x][y] += dot4(a[x], b[y]);
-  }
-}
-
-// columns of this chunk that hold data, rounded up to the float4 step
-__device__ __forceinline__ int chunk_cols(int K, int c0) {
-  const int left = K - c0;
-  return left >= KC ? KC : (left + 3) & ~3;
-}
-
-// A thread holds sums for channels tx + 16*y over its pixels; add them over
-// the 16 ty in a fixed order and write row `g` of the partials.
-__device__ __forceinline__ void write_tile_partials(
-    float (*red)[TN], const float (&ss)[4], const float (&qq)[4], int ty,
-    int tx, int c0, int C, int g, float* __restrict__ part_s,
-    float* __restrict__ part_q) {
-  // red: [2 * 16][TN]
-#pragma unroll
-  for (int y = 0; y < 4; ++y) {
-    red[ty][tx + 16 * y] = ss[y];
-    red[16 + ty][tx + 16 * y] = qq[y];
-  }
-  __syncthreads();
-  if (threadIdx.x < TN && c0 + threadIdx.x < C) {
-    float s = 0.f, q = 0.f;
-    for (int i = 0; i < 16; ++i) {
-      s += red[i][threadIdx.x];
-      q += red[16 + i][threadIdx.x];
-    }
-    part_s[(int64_t)g * C + c0 + threadIdx.x] = s;
-    part_q[(int64_t)g * C + c0 + threadIdx.x] = q;
-  }
-}
-
-// ---------------------------------------------------------------------- K1
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-k1_kernel(const T* __restrict__ y, const T* __restrict__ w, int64_t P, int C,
-          int E, float* __restrict__ part_s, float* __restrict__ part_q) {
-  __shared__ __align__(16) float As[TM * LD];
-  __shared__ __align__(16) float Bs[TN * LD];
-  __shared__ float red[32][TN];
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int e0 = blockIdx.x * TN;
-  const bool one_chunk = C <= KC;   // the weight tile is loaded once
-  if (one_chunk) load_rows<T>(Bs, w, e0, E, C, 0);
-  float ss[4] = {}, qq[4] = {};
-  const int64_t tiles = (P + TM - 1) / TM;
-  for (int64_t t = blockIdx.y; t < tiles; t += gridDim.y) {
-    float s[4][4] = {};
-    for (int c0 = 0; c0 < C; c0 += KC) {
-      __syncthreads();   // the last chunk's readers are done
-      load_rows<T>(As, y, t * TM, P, C, c0);
-      if (!one_chunk) load_rows<T>(Bs, w, e0, E, C, c0);
-      __syncthreads();
-      tile_dot(s, As, Bs, ty, tx, chunk_cols(C, c0));
-    }
-    // pixels past P and channels past E are zero rows: they add nothing
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int yy = 0; yy < 4; ++yy) {
-        const float v = round_as<T>(s[x][yy]);
-        ss[yy] += v;
-        qq[yy] += v * v;
-      }
-  }
-  write_tile_partials(red, ss, qq, ty, tx, e0, E, blockIdx.y, part_s, part_q);
-}
-
-// ------------------------------------------------- K2 / K4: tensor cores
+// ---------------------------------------------- K1 / K2 / K4: tensor cores
 
 constexpr int MC = 32;         // columns of a streamed operand chunk
-constexpr int NW = NT / 32;    // warps of a K2 / K4 block
-constexpr int MT = 16 * NW;    // K2: window pixels of an expand product
+constexpr int NW = NT / 32;    // warps of a block
+constexpr int MT = 16 * NW;    // K1: pixels a block takes at a time (the
+                               // grid's cap); K2: window pixels of an
+                               // expand product
 constexpr int K4_NJ = 10;      // K4: most column tiles of 8 a warp owns
-constexpr int RING = 3;        // stages of the streamed operand chunks
+constexpr int RING = 3;        // K2, K4: stages of the streamed chunks
+constexpr int K1_RING = 4;     // K1: stages of a warp's streamed chunks
 
 // Row stride, in elements, of a shared tile of `cols` columns (a multiple
 // of 16 in bf16, of 8 in float32): rows start 16-byte aligned and the
@@ -251,19 +150,31 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// a and b rounded to T in place (bf16: one conversion for the pair)
+template <typename T>
+__device__ __forceinline__ void round_pair(float& a, float& b) {
+  if constexpr (sizeof(T) == 2) {
+    const float2 f = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+    a = f.x;
+    b = f.y;
+  }
+}
+
 // Columns c0 .. c0+COLS-1 of `rows` rows into a shared tile of stride lds:
 // row r is row(r) (its first element in device memory, or null for a zero
 // row); columns past ncols are zero, columns from nread on (which the
 // consumer never reads) are not written.  VEC is the copy width in bytes:
 // 16 or 4 by cp.async (a copy of 0 source bytes fills with zeros), or one
 // element by a plain load.  `any` is a valid address for the empty copies.
-template <typename T, int VEC, int COLS, typename Row>
+// The copies are spread over the STEP threads that call it together: the
+// block (NT), or one warp (32).
+template <typename T, int VEC, int COLS, int STEP, typename Row>
 __device__ __forceinline__ void copy_cols_w(T* s, int lds, int rows,
                                             const Row& row, int c0,
                                             int ncols, int nread,
                                             const T* any) {
   constexpr int EL = VEC / sizeof(T), CPR = COLS / EL;
-  for (int idx = threadIdx.x; idx < rows * CPR; idx += NT) {
+  for (int idx = threadIdx.x % STEP; idx < rows * CPR; idx += STEP) {
     const int r = idx / CPR, c = (idx % CPR) * EL;
     if (c0 + c >= nread) continue;
     const T* src = row(r);
@@ -277,17 +188,17 @@ __device__ __forceinline__ void copy_cols_w(T* s, int lds, int rows,
       *dst = live ? src[c0 + c] : T(0.f);
   }
 }
-template <typename T, int COLS, typename Row>
+template <typename T, int COLS, int STEP = NT, typename Row>
 __device__ __forceinline__ void copy_cols(T* s, int lds, int rows,
                                           const Row& row, int c0, int ncols,
                                           int nread, int vec, const T* any) {
   if (vec == 16)
-    copy_cols_w<T, 16, COLS>(s, lds, rows, row, c0, ncols, nread, any);
+    copy_cols_w<T, 16, COLS, STEP>(s, lds, rows, row, c0, ncols, nread, any);
   else if (vec == 4)
-    copy_cols_w<T, 4, COLS>(s, lds, rows, row, c0, ncols, nread, any);
+    copy_cols_w<T, 4, COLS, STEP>(s, lds, rows, row, c0, ncols, nread, any);
   else
-    copy_cols_w<T, sizeof(T), COLS>(s, lds, rows, row, c0, ncols, nread,
-                                    any);
+    copy_cols_w<T, sizeof(T), COLS, STEP>(s, lds, rows, row, c0, ncols,
+                                          nread, any);
 }
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
@@ -377,6 +288,200 @@ __device__ __forceinline__ float col_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// four (two) 8 x 8 bf16 matrices from shared memory, one row address a
+// lane (lanes 0-7 the first matrix's rows, 8-15 the second's, ...): lane l
+// receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of each, the
+// layout of an mma fragment register
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c = a * b for one m16n8k16 bf16 tile, from zero
+__device__ __forceinline__ void mma_bf16_zero(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// K1's product over the first kn columns of a chunk (kn <= MC, a multiple
+// of 16): acc[j] += A . B_j^T, or = with FIRST (the tile's first chunk:
+// the tensor cores start from zero, no accumulator is cleared).  A the
+// warp's 16 rows (stride lda), B_j the rows 8j .. 8j+7 of B (stride ldb);
+// every one of the NJ tiles is computed (B's rows past E are zeros).  bf16
+// fragments by ldmatrix: one x4 for A's 16 x 16, one x4 for two column
+// tiles of B; float32 as warp_mma (3xTF32, summed from zero a chunk).
+template <int NJ, bool FIRST>
+__device__ __forceinline__ void k1_mma(float (&acc)[NJ][4],
+                                       const __nv_bfloat16* A, int lda,
+                                       const __nv_bfloat16* B, int ldb,
+                                       int kn, int lane) {
+  const int ar = lane & 15, ak = (lane >> 4) * 8;
+  const int br = (lane & 7) + (lane >> 4) * 8, bk = ((lane >> 3) & 1) * 8;
+  auto mma = [&](float(&c)[4], const uint32_t(&a)[4], uint32_t b0,
+                 uint32_t b1, bool zero) {
+    if (FIRST && zero)
+      mma_bf16_zero(c, a, b0, b1);
+    else
+      mma_bf16(c, a, b0, b1);
+  };
+#pragma unroll
+  for (int k = 0; k < MC; k += 16) {
+    if (k < kn) {
+      uint32_t a[4];
+      ldsm_x4(a, A + ar * lda + k + ak);
+#pragma unroll
+      for (int j = 0; j + 1 < NJ; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, B + (8 * j + br) * ldb + k + bk);
+        mma(acc[j], a, b[0], b[1], k == 0);
+        mma(acc[j + 1], a, b[2], b[3], k == 0);
+      }
+      if constexpr (NJ % 2 == 1) {
+        uint32_t b[2];
+        ldsm_x2(b, B + (8 * (NJ - 1) + (lane & 7)) * ldb + k + bk);
+        mma(acc[NJ - 1], a, b[0], b[1], k == 0);
+      }
+    }
+  }
+}
+template <int NJ, bool FIRST>
+__device__ __forceinline__ void k1_mma(float (&acc)[NJ][4], const float* A,
+                                       int lda, const float* B, int ldb,
+                                       int kn, int lane) {
+  if constexpr (FIRST) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  warp_mma<NJ>(acc, A, lda, B, ldb, kn, NJ, (lane >> 2) & 7, lane & 3);
+}
+
+// ---------------------------------------------------------------------- K1
+
+// A block owns EB = 8 * NJ expanded channels (blockIdx.x); W_exp's EB rows
+// are staged once.  Each warp then walks slabs of 16 pixels on its own:
+// warp w of block y the slabs y * NW + w, that + G * NW, ...  A slab's y
+// rows stream in chunks of MC input channels through the warp's own ring
+// of K1_RING stages (cp.async by the warp's lanes, __syncwarp: no block
+// barrier in the loop, so the warps of an SM drift apart and one's loads
+// overlap another's products).  At a slab's last chunk each thread rounds
+// its accumulator fragments to T and adds v and v^2 into its column sums
+// (columns 2t, 2t+1 of each of the NJ tiles, over the rows g and g+8 of
+// every slab it met); pixels past P and channels past E are zero rows and
+// add nothing.  At the end a column's 8 lanes are added by shuffles and
+// the NW warps in order.  Shared memory: W_exp's rows [EB][LDW], then per
+// warp K1_RING stages of 16 y rows [16][LDY], as T.
+// (two blocks an SM: a thread of the bf16 instances holds 4 * NJ
+// accumulators and 4 * NJ column sums, up to 96 registers)
+template <typename T, int NJ>
+__global__ void __launch_bounds__(NT, 2)
+k1_kernel(const T* __restrict__ y, const T* __restrict__ w, int64_t P, int C,
+          int E, int vec_y, int vec_w, float* __restrict__ part_s,
+          float* __restrict__ part_q) {
+  constexpr int EB = 8 * NJ, LDY = tile_ld<T>(MC), SLAB = 16 * LDY;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[2][NW * EB];
+  const int C32 = (C + MC - 1) / MC * MC, LDW = tile_ld<T>(C32);
+  const int Cp = (C + k_step<T>() - 1) / k_step<T>() * k_step<T>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31,
+            g = lane >> 2, t = lane & 3;
+  T* Wx = reinterpret_cast<T*>(smem_raw);
+  T* Ys = Wx + EB * LDW + warp * K1_RING * SLAB;
+  const int e0 = blockIdx.x * EB, live_e = min(EB, E - e0);
+  const int64_t slabs = (P + 15) / 16;
+  const int64_t first = (int64_t)blockIdx.y * NW + warp;
+  const int64_t step = (int64_t)gridDim.y * NW;
+  const int mine = slabs > first ? (int)((slabs - 1 - first) / step + 1) : 0;
+  const int nc = C32 / MC, total = mine * nc;
+  const FastDiv by_nc(nc);
+
+  // W_exp's EB rows, by the whole block
+  for (int c0 = 0; c0 < C32; c0 += MC)
+    copy_cols<T, MC>(
+        Wx + c0, LDW, EB,
+        [&](int r) { return r < live_e ? w + (int64_t)(e0 + r) * C
+                                       : nullptr; },
+        c0, C, Cp, vec_w, w);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // item q of this warp: chunk q % nc of its slab q / nc
+  auto issue = [&](int q) {
+    const int it = by_nc(q), ci = q - it * nc;
+    const int64_t p0 = (first + it * step) * 16;
+    copy_cols<T, MC, 32>(
+        Ys + (q % K1_RING) * SLAB, LDY, 16,
+        [&](int r) { return p0 + r < P ? y + (p0 + r) * C : nullptr; },
+        ci * MC, C, Cp, vec_y, y);
+    cp_async_commit();
+  };
+  for (int q = 0; q < K1_RING - 1; ++q)
+    if (q < total) issue(q); else cp_async_commit();
+  // cs[j]: the sums of columns 8j + 2t, 8j + 2t + 1, then their squares'
+  float acc[NJ][4], cs[NJ][4] = {};
+  for (int q = 0; q < total; ++q) {
+    const int ci = q - by_nc(q) * nc;
+    cp_async_wait<K1_RING - 2>();
+    __syncwarp();  // chunk q is in; every lane is past item q - 1
+    if (q + K1_RING - 1 < total) issue(q + K1_RING - 1);
+    else cp_async_commit();
+    const T* A = Ys + (q % K1_RING) * SLAB;
+    const int kn = min(MC, Cp - ci * MC);
+    if (ci == 0)
+      k1_mma<NJ, true>(acc, A, LDY, Wx, LDW, kn, lane);
+    else
+      k1_mma<NJ, false>(acc, A, LDY, Wx + ci * MC, LDW, kn, lane);
+    if (ci != nc - 1) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      round_pair<T>(acc[j][0], acc[j][1]);
+      round_pair<T>(acc[j][2], acc[j][3]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v0 = acc[j][e], v1 = acc[j][e + 2];
+        cs[j][e] += v0;
+        cs[j][e] += v1;
+        cs[j][e + 2] = fmaf(v0, v0, cs[j][e + 2]);
+        cs[j][e + 2] = fmaf(v1, v1, cs[j][e + 2]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // a column's 8 lanes by shuffles into lane g = 0, then the NW warps in
+  // order
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = col_sum(cs[j][e]);
+      if (g == 0) red[e / 2][warp * EB + 8 * j + 2 * t + e % 2] = v;
+    }
+  __syncthreads();
+  for (int c = threadIdx.x; c < live_e; c += NT) {
+    float sv = 0.f, qv = 0.f;
+    for (int i = 0; i < NW; ++i) {
+      sv += red[0][i * EB + c];
+      qv += red[1][i * EB + c];
+    }
+    part_s[(int64_t)blockIdx.y * E + e0 + c] = sv;
+    part_q[(int64_t)blockIdx.y * E + e0 + c] = qv;
+  }
 }
 
 // ---------------------------------------------------------------------- K2
@@ -833,63 +938,54 @@ struct Plan {
   int64_t tiles;
 };
 
-// The blocks of one kernel instance an SM holds at a given dynamic shared
-// memory, asked once per (device, kernel, bytes).  The first ask for an
-// instance also sets its attributes: the default allows 48 KB of static and
-// dynamic shared memory together and splits the SM's unified memory between
-// L1 and shared memory as it sees fit, so the instance's limit is raised to
-// the most bytes asked of it so far, with the carveout all shared memory.
-struct Resident {
-  int dev;
-  const void* fn;
-  size_t smem;
-  int blocks;
-};
-
-cudaError_t resident_blocks(const Plan& p, int* blocks) {
-  static std::mutex mu;
-  static std::vector<Resident> seen;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  size_t most = p.smem;
-  bool first = true;
-  for (const Resident& r : seen) {
-    if (r.dev != dev || r.fn != p.fn) continue;
-    if (r.smem == p.smem) {
-      *blocks = r.blocks;
-      return cudaSuccess;
-    }
-    most = std::max(most, r.smem);
-    first = false;
-  }
-  err = cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)most);
-  if (err == cudaSuccess && first)
-    err = cudaFuncSetAttribute(p.fn,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, p.fn, NT,
-                                                        p.smem);
-  if (err != cudaSuccess) return err;
-  if (*blocks == 0) return cudaErrorInvalidConfiguration;
-  seen.push_back({dev, p.fn, p.smem, *blocks});
-  return cudaSuccess;
-}
-
 cudaError_t grid_rows(const Plan& p, int* G, int* resident) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = resident_blocks(p, resident);
+  if (err == cudaSuccess) err = resident_blocks(p.fn, NT, p.smem, resident);
   if (err != cudaSuccess) return err;
   int64_t g = (int64_t)*resident * sms / p.gx;
   g = std::min(g, p.tiles);
   *G = (int)std::max(g, (int64_t)1);
   return cudaSuccess;
+}
+
+// K1: the column tiles of 8 a warp owns, of the candidates the one that
+// wastes the fewest columns of E (the first of equals).  bf16 takes 12, 10
+// or 9: at effiB0's E / 8 = 12, 18, 30, 60, 84 and 144 one divides it, so
+// no product is wasted; float32 takes 6, since its 3xTF32 chunk sums hold
+// another 4 * NJ registers
+template <typename T>
+int k1_nj(int E) {
+  if (sizeof(T) == 4) return 6;
+  const int e8 = (E + 7) / 8, cand[3] = {12, 10, 9};
+  int best = cand[0], waste = 1 << 30;
+  for (int nj : cand) {
+    const int w = (e8 + nj - 1) / nj * nj - e8;
+    if (w < waste) {
+      best = nj;
+      waste = w;
+    }
+  }
+  return best;
+}
+
+template <typename T>
+Plan k1_plan(int64_t P, int C, int E) {
+  const int nj = k1_nj<T>(E), EB = 8 * nj;
+  const int C32 = (C + MC - 1) / MC * MC;
+  const void* fn;
+  if constexpr (sizeof(T) == 4)
+    fn = (const void*)k1_kernel<T, 6>;
+  else
+    fn = nj == 9    ? (const void*)k1_kernel<T, 9>
+         : nj == 10 ? (const void*)k1_kernel<T, 10>
+                    : (const void*)k1_kernel<T, 12>;
+  return {fn,
+          sizeof(T) * ((size_t)EB * tile_ld<T>(C32) +
+                       (size_t)NW * K1_RING * 16 * tile_ld<T>(MC)),
+          (E + EB - 1) / EB, (P + MT - 1) / MT};
 }
 
 // K2: EB = 48 channels a block where E is a multiple of 48 (effiB0's
@@ -963,7 +1059,7 @@ Plan k4_plan(int64_t P, int HW, int Cout, const K4Split& s) {
 
 cudaError_t launch(const Plan& p, int G, void** args, cudaStream_t st) {
   int blocks = 0;
-  cudaError_t err = resident_blocks(p, &blocks);
+  cudaError_t err = resident_blocks(p.fn, NT, p.smem, &blocks);
   if (err != cudaSuccess) return err;
   return cudaLaunchKernel(p.fn, dim3(p.gx, G), dim3(NT), args, p.smem, st);
 }
@@ -974,20 +1070,32 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  part_* hold G * channels floats each.
 
+// The launch plan moma_fe_k1 takes for these sizes: *G the rows of partial
+// sums (grid.y), *smem its dynamic shared memory a block (bytes),
+// *resident the blocks an SM holds at once, *EB the expanded channels a
+// block owns
+int moma_fe_k1_rows(int dtype, int64_t P, int C, int E, int* G, int* smem,
+                    int* resident, int* EB) {
+  const Plan p = dtype == 1 ? k1_plan<__nv_bfloat16>(P, C, E)
+                            : k1_plan<float>(P, C, E);
+  *smem = (int)p.smem;
+  *EB = 8 * (dtype == 1 ? k1_nj<__nv_bfloat16>(E) : k1_nj<float>(E));
+  return (int)grid_rows(p, G, resident);
+}
+
 int moma_fe_k1(const void* y, const void* w, int dtype, int64_t P, int C,
                int E, int G, float* part_s, float* part_q, float* out_s,
                float* out_q, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((E + TN - 1) / TN, G);
-  if (dtype == 1) {
-    k1_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(y),
-        static_cast<const __nv_bfloat16*>(w), P, C, E, part_s, part_q);
-  } else {
-    k1_kernel<float><<<grid, NT, 0, st>>>(static_cast<const float*>(y),
-                                          static_cast<const float*>(w), P, C,
-                                          E, part_s, part_q);
-  }
+  const Plan p = dtype == 1 ? k1_plan<__nv_bfloat16>(P, C, E)
+                            : k1_plan<float>(P, C, E);
+  int vec_y = dtype == 1 ? copy_width<__nv_bfloat16>(C, y)
+                         : copy_width<float>(C, y);
+  int vec_w = dtype == 1 ? copy_width<__nv_bfloat16>(C, w)
+                         : copy_width<float>(C, w);
+  void* args[] = {&y, &w, &P, &C, &E, &vec_y, &vec_w, &part_s, &part_q};
+  cudaError_t err = launch(p, G, args, st);
+  if (err != cudaSuccess) return (int)err;
   return finish(part_s, part_q, G, E, out_s, out_q, st);
 }
 

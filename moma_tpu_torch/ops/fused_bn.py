@@ -34,9 +34,6 @@ from moma_tpu_torch.ops import _build
 from moma_tpu_torch.runtime import count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TX = 32          # channels per block column (csrc/bn_sums.cu TX)
-_ROWS_PER_BLOCK_MIN = 8 * 64
-_TARGET_BLOCKS = 2 * 132 * 8   # two waves of 8 resident blocks on 132 SMs
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,6 +42,8 @@ def _lib() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.moma_channel_sums.argtypes = [p, i32, i64, i32, i32, p, p, p, p, p]
     lib.moma_channel_sums.restype = i32
+    lib.moma_channel_sums_chunks.argtypes = [p, i32, i64, i32, p]
+    lib.moma_channel_sums_chunks.restype = i32
     lib.moma_grad_channel_sums.argtypes = [
         p, p, i32, p, i64, i32, i32, p, p, p, p, p]
     lib.moma_grad_channel_sums.restype = i32
@@ -77,10 +76,13 @@ def _check_cuda_input(name: str, *ts: torch.Tensor) -> None:
         raise ValueError(f"{name}: empty input {tuple(x.shape)}")
 
 
-def _row_chunks(R: int, C: int) -> int:
-    """Number of row chunks G (grid.y) of channel_sums' first pass."""
-    gx = -(-C // _TX)
-    return max(1, min(-(-R // _ROWS_PER_BLOCK_MIN), _TARGET_BLOCKS // gx))
+def _chunks(lib: ctypes.CDLL, fn, name: str, *args) -> int:
+    """The chunks of rows (grid.y) the first pass of a reduction takes for
+    these tensors, as csrc/bn_sums.cu picks them from the card's occupancy:
+    the rows of partial sums the wrapper allocates."""
+    G = ctypes.c_int()
+    _build.check(lib, fn(*args, ctypes.byref(G)), name)
+    return G.value
 
 
 # --------------------------------------------------------------- plain
@@ -111,10 +113,11 @@ def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_input("channel_sums", x)
     C = x.shape[-1]
     R = x.numel() // C
-    G = _row_chunks(R, C)
+    lib = _lib()
+    G = _chunks(lib, lib.moma_channel_sums_chunks, "channel_sums",
+                x.data_ptr(), _DTYPE_CODES[x.dtype], R, C)
     part = torch.empty((2, G, C), dtype=torch.float32, device=x.device)
     out = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    lib = _lib()
     rc = lib.moma_channel_sums(
         x.data_ptr(), _DTYPE_CODES[x.dtype], R, C, G,
         part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(),
@@ -137,14 +140,8 @@ def grad_channel_sums(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor):
                          f"float32 ({C},) tensor on {x.device}")
     R = x.numel() // C
     lib = _lib()
-    # the launcher picks its row chunks (from the card's occupancy); the
-    # partial-sum scratch holds one row of C floats per chunk
-    G = ctypes.c_int()
-    rc = lib.moma_grad_sums_chunks(dy.data_ptr(), x.data_ptr(),
-                                   _DTYPE_CODES[x.dtype], R, C,
-                                   ctypes.byref(G))
-    _build.check(lib, rc, "grad_channel_sums")
-    G = G.value
+    G = _chunks(lib, lib.moma_grad_sums_chunks, "grad_channel_sums",
+                dy.data_ptr(), x.data_ptr(), _DTYPE_CODES[x.dtype], R, C)
     part = torch.empty((2, G, C), dtype=torch.float32, device=x.device)
     out = torch.empty((2, C), dtype=torch.float32, device=x.device)
     rc = lib.moma_grad_channel_sums(

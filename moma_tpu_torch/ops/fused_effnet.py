@@ -72,8 +72,6 @@ from moma_tpu_torch.runtime import count_launch
 
 Tensor = torch.Tensor
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64                    # K1: pixels and channels per tile (csrc TM, TN)
-_TARGET_BLOCKS = 8 * 132      # K1: blocks a launch aims at
 
 
 class BlockSpec(NamedTuple):
@@ -255,6 +253,8 @@ def _lib() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.moma_fe_k1.argtypes = [p, p, i32, i64, i32, i32, i32, p, p, p, p, p]
     lib.moma_fe_k1.restype = i32
+    lib.moma_fe_k1_rows.argtypes = [i32, i64, i32, i32] + [p] * 4
+    lib.moma_fe_k1_rows.restype = i32
     lib.moma_fe_k2.argtypes = [p, p, p, p, p, i32] + [i32] * 14 + [p] * 5
     lib.moma_fe_k2.restype = i32
     lib.moma_fe_k2_rows.argtypes = [i32] * 9 + [p] * 5
@@ -292,23 +292,25 @@ def _check_mat(name: str, what: str, t: Tensor, shape, dtype, dev) -> None:
             f"{t.stride()} on {t.device}")
 
 
-def _row_groups(tiles: int, col_tiles: int) -> int:
-    """K1's grid.y: how many blocks share the tiles of one channel tile."""
-    return max(1, min(tiles, _TARGET_BLOCKS // col_tiles))
+# per kernel: its C query of the launch plan and how many numbers it gives
+_PLANS = {"k1_expand_stats": ("moma_fe_k1_rows", 4),
+          "k2_depthwise": ("moma_fe_k2_rows", 5),
+          "k4_project": ("moma_fe_k4_rows", 3)}
 
 
 def launch_plan(name: str, *args) -> Tuple[int, ...]:
-    """The launch plan K2 (`name` "k2_depthwise") or K4 ("k4_project") takes
-    for these sizes, as csrc/fused_effnet.cu picks it from the card: grid.y
-    (one wave of resident blocks, and the rows of partial sums the wrapper
-    allocates), dynamic shared memory bytes, resident blocks an SM, and for
-    K2 its output tile's rows and columns.  args: those of moma_fe_k2_rows /
-    moma_fe_k4_rows before the outputs."""
+    """The launch plan K1 (`name` "k1_expand_stats"), K2 ("k2_depthwise")
+    or K4 ("k4_project") takes for these sizes, as csrc/fused_effnet.cu
+    picks it from the card: grid.y (one wave of resident blocks, and the
+    rows of partial sums the wrapper allocates), dynamic shared memory
+    bytes, resident blocks an SM, then for K1 the expanded channels a block
+    owns and for K2 its output tile's rows and columns.  args: those of
+    moma_fe_k1_rows / moma_fe_k2_rows / moma_fe_k4_rows before the
+    outputs."""
     lib = _lib()
-    k2 = name == "k2_depthwise"
-    fn = lib.moma_fe_k2_rows if k2 else lib.moma_fe_k4_rows
-    out = [ctypes.c_int(0) for _ in range(5 if k2 else 3)]
-    _build.check(lib, fn(*args, *map(ctypes.byref, out)), name)
+    fn, n = _PLANS[name]
+    out = [ctypes.c_int(0) for _ in range(n)]
+    _build.check(lib, getattr(lib, fn)(*args, *map(ctypes.byref, out)), name)
     return tuple(o.value for o in out)
 
 
@@ -333,7 +335,7 @@ def k1_expand_stats(y: Tensor, w_exp: Tensor):
     E = w_exp.shape[0]
     _check_mat("k1_expand_stats", "w_exp", w_exp, (E, C), y.dtype, y.device)
     P = N * H * W
-    G = _row_groups(-(-P // _TILE), -(-E // _TILE))
+    G = launch_plan("k1_expand_stats", _DTYPE_CODES[y.dtype], P, C, E)[0]
     part, out = _sum_buffers(G, E, y.device)
     lib = _lib()
     rc = lib.moma_fe_k1(

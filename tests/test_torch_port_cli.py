@@ -101,9 +101,21 @@ def test_memory_variants_heads_and_attention_modes_parse(extra, want):
     assert (m.mem, m.head, m.attn) == want
 
 
-def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu():
+def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu(monkeypatch):
     """--mem MoCoAtt --attn all over 2*4 + 2048 tokens: above the dense
-    limit, so the attention takes the flash wrappers' plain versions."""
+    limit, so the attention takes the flash wrappers' plain versions.  The
+    synthetic sets are cut to 16 training images (4 steps: the epoch's
+    eval-BN first step and three train-BN steps) and 8 val / test images."""
+    from moma_tpu_torch.data.pipeline import ArrayDataset
+    from moma_tpu_torch.train import moma as moma_train
+
+    full = moma_train.build_datasets
+
+    def cut(cfg, synthetic):
+        return tuple(ArrayDataset(ds.images[:n], ds.labels[:n])
+                     for ds, n in zip(full(cfg, synthetic), (16, 8, 8)))
+
+    monkeypatch.setattr(moma_train, "build_datasets", cut)
     reset_launch_counts()
     argv = [a if a != "64" else "32" for a in ARGS]   # 32^2 images, K below
     i = argv.index("--nce_k")
@@ -112,8 +124,8 @@ def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu():
         argv + ["--feat_dim", "16", "--mem", "MoCoAtt", "--attn", "all",
                 "-b", "1"])
     tr = result["train"]
-    assert tr["steps"] == 64 and math.isfinite(tr["loss"])
-    assert state.queue.ptr == (4 * 64) % 2048
+    assert tr["steps"] == 4 and math.isfinite(tr["loss"])
+    assert state.queue.ptr == (4 * tr["steps"]) % 2048 and state.step == 4
     assert list(state.heads.attn) == ["atts"]
     assert launch_counts() == {}
 

@@ -36,13 +36,21 @@ def _shifted(t):
     return out
 
 
-# grad_channel_sums loads 16 bytes a thread where C and the base pointers
-# allow it, else 4-byte (2 bf16 or 1 f32 channels) or, for bf16 of odd C,
-# 2-byte loads: odd C (7, 33), many rows at a vector-width C (2,64,64,96),
-# C = 1280 with few rows (3 and 2*4*4), and views off 16-byte alignment
+# channel_sums and grad_channel_sums load 16 bytes a thread where C and the
+# base pointers allow it, else 4-byte (2 bf16 or 1 f32 channels) or, for
+# bf16 of odd C, 2-byte loads: odd C (7, 33, 97), many rows at a
+# vector-width C (2,64,64,96), C = 1280 with few rows (3 and 2*4*4), every
+# effiB0 BatchNorm width (16 .. 1280) over 4551 rows, and views off 16-byte
+# alignment
+_EFFIB0_BN_WIDTHS = (16, 24, 32, 40, 80, 96, 112, 144, 192, 240, 320, 480,
+                     672, 1152, 1280)
+
+
 @pytest.mark.parametrize("shape", [(4, 8, 8, 24), (2, 5, 3, 7), (3, 1000),
                                    (2, 4, 4, 1280), (1, 1, 1, 33),
-                                   (2, 64, 64, 96), (3, 1280), (5, 9, 7, 40)])
+                                   (2, 64, 64, 96), (3, 1280), (5, 9, 7, 40),
+                                   (4, 33, 31, 97)]
+                         + [(3, 37, 41, C) for C in _EFFIB0_BN_WIDTHS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_bn_sums_match_plain(dev, shape, dtype, aligned):
@@ -74,6 +82,23 @@ def test_grad_channel_sums_repeats_bit_for_bit(dev, dtype):
     mean = x.float().mean((0, 1, 2))
     a = FB.grad_channel_sums(dy, x, mean)
     b = FB.grad_channel_sums(dy, x, mean)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 64, 96), (8, 64, 64, 16),
+                                   (4, 9, 9, 1280), (2, 33, 31, 97)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_sums_repeats_bit_for_bit(dev, shape, dtype):
+    """Per-block partials, a fixed tree inside a block and a fixed-order
+    second pass, no atomics: two launches on the same inputs give the same
+    bits."""
+    from moma_tpu_torch.ops import fused_bn as FB
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    a = FB.channel_sums(x)
+    b = FB.channel_sums(x)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
@@ -295,6 +320,11 @@ _FE_CASES += [(C, x, k, s, Co, 2, 10, 9) for C, x, k, s, Co in (
     (112, 6, 5, 2, 192), (192, 6, 5, 1, 192), (192, 6, 3, 1, 320))]
 _FE_CASES += [(12, 6, 3, 1, 320, 1, 5, 6), (41, 1, 5, 2, 8, 1, 7, 9),
               (41, 6, 3, 1, 20, 2, 7, 9)]
+# odd C and odd E (21, 165, 315: K1's last column tile part empty) over
+# pixel counts that are no multiple of K1's 128-pixel tile, and block 1's
+# widths over enough pixels (126500) that each K1 block walks several tiles
+_FE_CASES += [(7, 3, 3, 1, 12, 2, 9, 7), (33, 5, 5, 2, 24, 3, 15, 13),
+              (45, 7, 3, 1, 16, 1, 31, 29), (16, 6, 3, 2, 24, 2, 250, 253)]
 
 
 def _fe_inputs(dev, case, dtype, seed=5):
@@ -381,7 +411,7 @@ def test_fused_effnet_kernels_match_plain(dev, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_effnet_kernels_take_rows_off_16_byte_alignment(dev, case,
                                                               dtype):
-    """K2 and K4 read y, W_exp, dwout and W_proj from base pointers one
+    """K1, K2 and K4 read y, W_exp, dwout and W_proj from base pointers one
     element past 16-byte alignment (4-byte copies in f32, plain loads in
     bf16) and agree with the plain versions as the aligned cases do."""
     from moma_tpu_torch.ops import fused_effnet as FE
@@ -391,6 +421,10 @@ def test_fused_effnet_kernels_take_rows_off_16_byte_alignment(dev, case,
     tmp_p, s3_p, q3_p = FE.k4_project_plain(dw_p, ab2, se, w_proj)
     ys, dws = _shifted_map(y), _shifted_map(dw_p)
     assert ys.data_ptr() % 16 and dws.data_ptr() % 16
+    sums = []
+    if w_exp is not None:
+        sums.append((FE.k1_expand_stats(ys, _shifted(w_exp)),
+                     FE.k1_expand_stats_plain(y, w_exp), FE._pw(y, w_exp)))
     dw, s2, q2 = FE.k2_depthwise(
         ys, None if w_exp is None else _shifted(w_exp), ab1, w_dw, case[3])
     tmp, s3, q3 = FE.k4_project(dws, ab2, se, _shifted(w_proj))
@@ -399,8 +433,8 @@ def test_fused_effnet_kernels_take_rows_off_16_byte_alignment(dev, case,
     for got, want in ((dw, dw_p), (tmp, tmp_p)):
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol * float(want.float().abs().max()) + 1e-6
-    for got, want, x in (((s2, q2), (s2_p, q2_p), dw_p),
-                         ((s3, q3), (s3_p, q3_p), tmp_p)):
+    for got, want, x in sums + [((s2, q2), (s2_p, q2_p), dw_p),
+                                ((s3, q3), (s3_p, q3_p), tmp_p)]:
         xf = x.float()
         for gt, wt, bound in zip(got, want, (xf.abs().sum((0, 2, 3)),
                                              (xf * xf).sum((0, 2, 3)))):
@@ -411,7 +445,8 @@ def test_fused_effnet_kernels_take_rows_off_16_byte_alignment(dev, case,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_effnet_kernels_repeat_bit_for_bit(dev, dtype):
     """Per-block partials and a fixed-order second pass, no atomics: two
-    launches of K2 and of K4 on the same inputs give the same bits."""
+    launches of K1, of K2 and of K4 on the same inputs give the same
+    bits."""
     from moma_tpu_torch.ops import fused_effnet as FE
 
     case = (40, 6, 5, 1, 40, 4, 33, 30)
@@ -420,8 +455,10 @@ def test_fused_effnet_kernels_repeat_bit_for_bit(dev, dtype):
     b = FE.k2_depthwise(y, w_exp, ab1, w_dw, 1)
     c = FE.k4_project(a[0], ab2, se, w_proj)
     d = FE.k4_project(a[0], ab2, se, w_proj)
+    e = FE.k1_expand_stats(y, w_exp)
+    f = FE.k1_expand_stats(y, w_exp)
     torch.cuda.synchronize()
-    for u, v in zip(a + c, b + d):
+    for u, v in zip(a + c + e, b + d + f):
         assert torch.equal(u, v)
 
 
