@@ -33,7 +33,10 @@ Phases (each prints its own lines):
                  the 16 effiB0 block shapes of a 512^2 input, each launch
                  beside its bound (bytes, products, taps; the silu's
                  special-function work shown beside it) and its launch
-                 plan, and their sums over one forward
+                 plan, and their sums over one forward; the RandAugment
+                 layer per op class beside its bound, with its differing
+                 pixels and its kernel launches a layer, and the device
+                 operations of one main-path augment (a profiler trace)
   4 forward    : the fused EfficientNet forward against the module forward
                  on the card, same weights: f32 (TF32 off) at 64^2 and
                  512^2, train and eval mode, then bf16 at batch 64, 512^2
@@ -133,16 +136,17 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def cuda_time_ms(fn, iters: int = TIMING_ITERS) -> float:
+def cuda_time_ms(fn, iters: int = TIMING_ITERS, spin=None) -> float:
     """Median device time of fn() over `iters` calls, in ms.  Before each
-    call the device spins for SPIN_CYCLES, so the host has enqueued the
-    start event, fn's launches and the end event before the device reaches
-    them: the events time the device's work, not the wrappers' host-side
-    work (some 50 us a call, which a step hides behind earlier kernels).
-    With SPIN_CYCLES = 0 the events time the host's work too, as this
-    timer did before the spin was added."""
+    call the device spins for SPIN_CYCLES (or `spin`), so the host has
+    enqueued the start event, fn's launches and the end event before the
+    device reaches them: the events time the device's work, not the
+    wrappers' host-side work (some 50 us a call, which a step hides behind
+    earlier kernels).  With a spin of 0 the events time the host's work
+    too, as this timer did before the spin was added."""
     import torch
 
+    spin = SPIN_CYCLES if spin is None else spin
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -150,8 +154,8 @@ def cuda_time_ms(fn, iters: int = TIMING_ITERS) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        if SPIN_CYCLES:
-            torch.cuda._sleep(SPIN_CYCLES)
+        if spin:
+            torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -391,16 +395,33 @@ def phase_bn_forward(dev="cuda", image=512, batch=64):
 
 
 def phase_ra_kernel(results, dev="cuda", shape=RA_SHAPE):
+    """ra_layer against its plain version at the main path's shape, (64, 3,
+    512, 512) bf16: one op for every image (the 15 ops and the identity;
+    gate p 0.75, flip p 0.5), random ops under four gate and flip mixes, and
+    one case per op class (all gated off; all Invert, Equalize, Sharpness,
+    ShearX, Rotate), each with its count of differing pixels.  Times: the
+    random-ops case (gate p 0.5, the main path's mix) and each class case,
+    beside its bound, bytes at 3.35 TB/s (x read once and the output written
+    once; an image whose op needs a statistic reads x once more), and the
+    kernel launches one layer makes, from the wrapper's own count.  Scalar
+    vectors are built on the host and copied, as on the main path."""
     import torch
 
     from moma_tpu_torch.data import randaugment as RA
     from moma_tpu_torch.ops import randaugment as RK
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
 
     dev = torch.device(dev)
     B, _, H, W = shape
     g = torch.Generator().manual_seed(1)
     x = torch.randint(0, 256, shape, generator=g).to(dev, torch.bfloat16)
+    nbytes = x.numel() * x.element_size()
     worst = 0.0
+
+    def scalars(op, apply, flip_p, d):
+        flip = torch.rand(B, generator=g) < flip_p
+        return RK.layer_scalars(op, d["mag"], d["sign"], apply, H, RA_FILL,
+                                W=W, hflip=flip).to(dev)
 
     def check(label, scal):
         nonlocal worst
@@ -409,42 +430,123 @@ def phase_ra_kernel(results, dev="cuda", shape=RA_SHAPE):
         sync(dev)
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
-        share = float((diff > 0).float().mean())
         worst = max(worst, err)
-        log(f"[kernels] ra_layer {label}: max abs err {err:g}, "
-            f"differing pixels {share:.2e}")
+        log(f"[kernels] ra_layer {label}: max abs err {err:g}, differing "
+            f"pixels {int((diff > 0).sum())} of {diff.numel()}")
         if not err <= RA_ATOL:
             raise AssertionError(f"ra_layer {label}: max abs err {err} "
                                  f"> {RA_ATOL}")
 
+    def bound_ms(scal):
+        # x read once, out written once, and x read again for each gated
+        # image whose op needs a statistic (autocontrast, equalize, c != 0)
+        sc = scal.cpu()
+        stats = int(((sc[:, 11] > 0.5) & ((sc[:, 15] == 0) | (sc[:, 15] == 1)
+                                          | (sc[:, 2] != 0))).sum())
+        return (2 + stats / B) * nbytes / HBM_BYTES_PER_S * 1e3, stats
+
     for op in range(RA.N_OPS + 1):   # 15 ops + the identity op
         d = RA.draw_layer(B, g, 10.0, 0.5)
         apply = torch.rand(B, generator=g) < 0.75
-        flip = torch.rand(B, generator=g) < 0.5
-        scal = RK.layer_scalars(
-            torch.full((B,), op, device=dev), d["mag"].to(dev),
-            d["sign"].to(dev), apply.to(dev), H, RA_FILL, W=W,
-            hflip=flip.to(dev))
+        scal = scalars(torch.full((B,), op), apply, 0.5, d)
         check(f"op {op:2d} ({(RA.OP_NAMES + ('Identity',))[op]})", scal)
     for prob, flip_p in ((0.0, 0.0), (0.0, 1.0), (1.0, 0.5), (0.5, 0.5)):
         d = RA.draw_layer(B, g, 10.0, 0.5, prob=prob)
-        flip = torch.rand(B, generator=g) < flip_p
-        scal = RK.layer_scalars(d["op"].to(dev), d["mag"].to(dev),
-                                d["sign"].to(dev), d["apply"].to(dev), H,
-                                RA_FILL, W=W, hflip=flip.to(dev))
+        scal = scalars(d["op"], d["apply"], flip_p, d)
         check(f"random ops, gate p={prob}, flip p={flip_p}", scal)
     ms = cuda_time_ms(lambda: RK.ra_layer(x, scal))
     plain_ms = cuda_time_ms(lambda: RK.ra_layer_plain(x, scal))
-    log(f"[kernels] ra_layer {shape} bf16, random ops: kernel {ms:.3f} ms,"
-        f" plain {plain_ms:.3f} ms")
+    reset_launch_counts()
+    RK.ra_layer(x, scal)
+    sync(dev)
+    per_layer = launch_counts().get("ra_layer_kernels",
+                                    "not counted by this wrapper")
+    stats_bound, n_stats = bound_ms(scal)
+    log(f"[kernels] ra_layer {shape} bf16, random ops: kernel {ms:.4f} ms,"
+        f" plain {plain_ms:.3f} ms, bound {2 * nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" ms (read once, write once; {stats_bound:.4f} with the second "
+        f"read of the {n_stats} statistics images); kernel launches per "
+        f"layer {per_layer} (the wrapper's count)")
+    for label, op, prob in (("all gate off", None, 0.0),
+                            ("all Invert", 2, 1.0), ("all Equalize", 1, 1.0),
+                            ("all Sharpness", 10, 1.0),
+                            ("all ShearX", 11, 1.0), ("all Rotate", 3, 1.0)):
+        d = RA.draw_layer(B, g, 10.0, 0.5, prob=prob)
+        cls = scalars(d["op"] if op is None else torch.full((B,), op),
+                      d["apply"], 0.5, d)
+        check(label, cls)
+        t = cuda_time_ms(lambda: RK.ra_layer(x, cls))
+        bound = bound_ms(cls)[0]
+        log(f"[kernels] ra_layer class {label}: kernel {t:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound / t:.1%} of it)")
     results["ra_layer"] = {
         "source": "moma_tpu_torch/csrc/randaugment.cu",
         "replaces": "moma_tpu/ops/pallas_randaugment.py:214",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         # the image is read once and written once; no single PyTorch call
         # applies a per-image choice of 15 ops
-        "bound_ms": 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None}
+
+
+def phase_augment_launches(dev="cuda", batch=64, image=512):
+    """One augment of the main path (the histo stack of MAIN_ARGS:
+    RandAugment rand-n2-m10-mstd0.5 with the flip in layer 1, then
+    normalize) on a (64, 512, 512, 3) uint8 batch on the card.  The device
+    operations it runs are counted from a torch.profiler trace's device
+    events (CUDA kernels, copies, memsets), by name with their device time;
+    one augment's time is CUDA events around the call, host work in."""
+    import torch
+
+    from moma_tpu_torch.cli.profile_step import DEVICE_CATS
+    from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.train.teacher import augment_fns
+
+    dev = torch.device(dev)
+    # the CLI's data and epoch flags are not the config's
+    args, skip = [], 0
+    for a in MAIN_ARGS:
+        if skip or a == "--synthetic":
+            skip = 0
+        elif a in ("--print_freq", "--epochs"):
+            skip = 1
+        else:
+            args.append(a)
+    augment = augment_fns(parse_student_args(args))[0]
+    images = torch.randint(0, 256, (batch, image, image, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(8)).to(dev)
+    gen = torch.Generator().manual_seed(9)
+    augment(images, gen)
+    sync(dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        augment(images, gen)
+        sync(dev)
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "augment_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    os.unlink(trace)
+    by_cat = {c: sum(1 for e in events if e["cat"] == c) for c in DEVICE_CATS}
+    by_name = {}
+    for e in events:
+        n, us = by_name.get(e["name"][:80], (0, 0.0))
+        by_name[e["name"][:80]] = (n + 1, us + float(e.get("dur", 0.0)))
+    ms = cuda_time_ms(lambda: augment(images, gen), 5, spin=0)
+    log(f"[augment] one augment of the main path ({batch}x{image}^2 uint8, "
+        f"RandAugment n2 + normalize), counted from torch.profiler's device "
+        f"events: {by_cat['kernel']} kernel launches, {by_cat['gpu_memcpy']} "
+        f"copies, {by_cat['gpu_memset']} memsets; device time "
+        f"{sum(us for _, us in by_name.values()) / 1e3:.3f} ms; one augment "
+        f"{ms:.3f} ms (CUDA events, host work in)")
+    log("[augment] by name (launches, device ms): " + "; ".join(
+        f"{n} x{k} {us / 1e3:.4f}" for n, (k, us) in
+        sorted(by_name.items(), key=lambda kv: -kv[1][1])))
+    return by_cat
 
 
 def phase_flash_kernels(results, dev="cuda", shape=FLASH_SHAPE,
@@ -989,7 +1091,8 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
     # forwards and 2n teacher forwards in all
     want = {"channel_sums": n_bn * n + n_bn * (2 * n - 1),
             "grad_channel_sums": n_bn * n,
-            "ra_layer": 2 * n, "flash_fwd": flash_per_step * n,
+            "ra_layer": 2 * n, "ra_layer_kernels": 4 * n,
+            "flash_fwd": flash_per_step * n,
             "flash_dq": flash_per_step * n, "flash_dkv": flash_per_step * n,
             "k1_expand_stats": 0, "k2_depthwise": 0, "k4_project": 0}
     if fused:
@@ -1027,6 +1130,7 @@ def main() -> int:
     phase_bn_kernels(results)
     phase_bn_forward()
     phase_ra_kernel(results)
+    phase_augment_launches()
     phase_flash_kernels(results)
     phase_fe_kernels(results)
     phase_fe_forward()

@@ -11,18 +11,23 @@ library's), its BatchNorm phase (the two channel-sum kernels at
 chip_smoke.BN_SHAPES, with the library's time at the second shape), its
 fused-EfficientNet kernel phase (K1 / K2 / K4 at the 16 effiB0@512 block
 shapes, with their sums over one forward) and its fused-forward phase (the
-fused against the module teacher forward), this checkout's chip_smoke.py
-phase_bn_forward on that directory's kernels (channel_sums summed over the
-49 BatchNorm inputs of one effiB0@512 batch-64 forward); every directory's
-phases time with this checkout's chip_smoke.cuda_time_ms, so all turns'
-kernel times are measured the same way; after a `[timer]` line, the BN and
+fused against the module teacher forward); and this checkout's
+chip_smoke.py phases on that directory's code: phase_ra_kernel (the
+RandAugment layer at (64, 3, 512, 512) bf16, the random-ops case and one
+case per op class beside their bounds), phase_augment_launches (the device
+operations of one main-path augment, from a profiler trace) and
+phase_bn_forward (channel_sums summed over the 49 BatchNorm inputs of one
+effiB0@512 batch-64 forward).  Every directory's phases time with this
+checkout's chip_smoke.cuda_time_ms, so all turns' kernel times are
+measured the same way; after a `[timer]` line, the BN, RandAugment and
 fused-kernel phases again with the host's work in the times (SPIN_CYCLES =
-0, how the timer measured before its spin).  Then `cli/profile_step.py` with
-chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`, `--attn
-dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`.  Each run
+0, how the timer measured before its spin).  Then `cli/profile_step.py`
+with chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`,
+`--attn dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`.  Each run
 is a process of its own; the kernels are built once per directory.
-Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary
-without its trace table) and prints one line per run.  Needs a CUDA device.
+Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary,
+its augment phase time included) and prints one line per run.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,23 +42,29 @@ from pathlib import Path
 
 KERNELS = ("import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
            # this checkout's chip_smoke: its timer for every directory's
-           # phases, and its phase_bn_forward on the directory's kernels
+           # phases, and its RandAugment, augment and phase_bn_forward
+           # phases on the directory's code
            "import importlib.util as u; "
            "s = u.spec_from_file_location('smoke', sys.argv[1]); "
            "m = u.module_from_spec(s); s.loader.exec_module(m); "
            "c.cuda_time_ms = m.cuda_time_ms; "
            "print('[card]', c.phase_device()); c.phase_build(); "
            "c.phase_flash_kernels({}); c.phase_bn_kernels({}); "
+           "m.phase_ra_kernel({}); m.phase_augment_launches(); "
            "c.phase_fe_kernels({}); c.phase_fe_forward(); "
            "m.phase_bn_forward(); "
-           # the BN and fused kernels again, timed with the host's work in
-           # (how the timer measured before its spin), for numbers of that kind
+           # the BN, RandAugment and fused kernels again, timed with the
+           # host's work in (how the timer measured before its spin)
            "m.SPIN_CYCLES = 0; print('[timer] host work in', flush=True); "
-           "c.phase_bn_kernels({}); c.phase_fe_kernels({}); "
-           "m.phase_bn_forward()")
+           "c.phase_bn_kernels({}); m.phase_ra_kernel({}); "
+           "c.phase_fe_kernels({}); m.phase_bn_forward()")
 SMOKE = str(Path(__file__).resolve().parents[2] / "chip_smoke.py")
-# the kernels whose device time per step the trace reports
-TRACED = re.compile(r"flash_\w+_kernel|k[124]_kernel|(?:grad_)?sums_partial")
+# the kernels whose device time per step the trace reports; the RandAugment
+# layer's are ra_stats_kernel and ra_main_kernel, in the staged design it
+# replaced init_stats and the *_stage kernels
+TRACED = re.compile(r"flash_\w+_kernel|k[124]_kernel|(?:grad_)?sums_partial"
+                    r"|ra_\w+_kernel|init_stats"
+                    r"|(?:entry|lut|enhance|sharp|warp|final)_stage")
 
 
 def _configs():
@@ -107,6 +118,7 @@ def main(argv=None):
                                    "[kernels] k1_expand_stats",
                                    "[kernels] k2_depthwise",
                                    "[kernels] k4_project",
+                                   "[kernels] ra_layer", "[augment]",
                                    "[forward] bf16", "[device]", "[card]",
                                    "[timer]"))]
         run = {"dir": d, "turn": i, "kernels": lines, "steps": {}}
@@ -128,7 +140,8 @@ def main(argv=None):
             print(f"[ab] turn {i} {d}: {name} step "
                   f"{summary['step_ms']['median']:.2f} ms (min "
                   f"{summary['step_ms']['min']:.2f}, max "
-                  f"{summary['step_ms']['max']:.2f}), busy "
+                  f"{summary['step_ms']['max']:.2f}), augment "
+                  f"{summary['phase_ms']['augment']:.3f} ms, busy "
                   f"{summary['device_busy_ms_per_step']:.2f} ms, idle "
                   f"{summary['idle_share_vs_step']:.4f}, peak "
                   f"{summary['peak_mem_gib']:.2f} GiB; kernels per step "

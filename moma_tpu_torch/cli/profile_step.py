@@ -115,7 +115,7 @@ def _phase_ms(fn, device, iters=5):
     return statistics.median(times)
 
 
-def _trace_summary(path, top=40):
+def _trace_summary(path, top=100):
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     dev = [e for e in events if e.get("ph") == "X"

@@ -13,7 +13,13 @@ three shear/translate passes -> clip(round()).  Exactly one op is active
 per image, so for most images most stages are identities.
 
 `ra_layer` launches the CUDA kernel for a CUDA tensor (or raises) and runs
-`ra_layer_plain` for a CPU tensor.
+`ra_layer_plain` for a CPU tensor.  The kernel is two launches a layer (a
+statistics pass over the images whose op needs one, then one pass that
+reads each image once and writes it once) after one memset of its
+statistics scratch; the wrapper counts `ra_layer` once a call and the
+kernel launches the call made under `ra_layer_kernels`.
+`ra_layer_from_draws` builds the scalar vector on the draws' device (the
+host, on the training path) and moves it to the card in one copy.
 """
 
 from __future__ import annotations
@@ -85,10 +91,12 @@ def layer_scalars(op, mag, sign, apply, H: int, fill: Sequence[float],
 # --------------------------------------------------------------- plain
 
 def _div(v: float, like: torch.Tensor) -> torch.Tensor:
-    """A divisor as a 0-dim tensor on `like`'s device.  PyTorch's CUDA
-    division by a Python scalar multiplies by its reciprocal, which can
-    differ from a true division in the last bit and flip a later round();
-    the kernel (and the TPU kernel) divide."""
+    """A divisor (or dividend) as a 0-dim tensor on `like`'s device.
+    PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal, and a Python scalar divided by a tensor is the tensor's
+    reciprocal times the scalar on every device; either can differ from a
+    true division in the last bit and flip a later floor() or round().  The
+    kernel (and the TPU kernel) divide."""
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
@@ -179,7 +187,7 @@ def ra_layer_plain(x: torch.Tensor, scalars: torch.Tensor,
         torch.where(y < 128.0, torch.clamp(y + col(18), max=255.0), y), y)
     lo = y.amin((2, 3), keepdim=True)
     hi = y.amax((2, 3), keepdim=True)
-    scale = 255.0 / torch.clamp(hi - lo, min=1e-9)
+    scale = _div(255.0, y) / torch.clamp(hi - lo, min=1e-9)
     stretched = torch.floor(torch.clamp((y - lo) * scale, 0.0, 255.0))
     y = torch.where(op == 0.0, torch.where(hi > lo, stretched, y), y)
     y = torch.where(op == 1.0, _equalize_plain(y), y)
@@ -232,10 +240,18 @@ def ra_layer_plain(x: torch.Tensor, scalars: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("randaugment")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.moma_ra_layer.argtypes = [p, p, i32, p, i32, i32, i32, p, p, p, p, p,
-                                  p]
+    lib.moma_ra_layer.argtypes = [p, p, i32, p, i32, i32, i32, p, p,
+                                  ctypes.POINTER(i32)]
     lib.moma_ra_layer.restype = i32
+    lib.moma_ra_scratch_bytes.argtypes = [i32]
+    lib.moma_ra_scratch_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def scratch_bytes(B: int) -> int:
+    """Bytes of device scratch one layer over B images takes: per image
+    3x256 histogram bins, a luma sum, a ticket and a 3x256 LUT."""
+    return int(_lib().moma_ra_scratch_bytes(B))
 
 
 def _ra_layer_cuda(x: torch.Tensor, scalars: torch.Tensor,
@@ -248,25 +264,26 @@ def _ra_layer_cuda(x: torch.Tensor, scalars: torch.Tensor,
         raise ValueError("ra_layer: x must be a contiguous (B, 3, H, W) "
                          f"tensor, got {tuple(x.shape)} strides {x.stride()}")
     B, _, H, W = x.shape
+    if 3 * H * W >= 2 ** 31 or B > 65535:
+        raise ValueError(f"ra_layer: the kernel indexes an image in 32 bits "
+                         f"and takes at most 65535 images; got {tuple(x.shape)}")
     if (scalars.device != x.device or scalars.dtype != torch.float32
             or tuple(scalars.shape) != (B, N_SCALARS)
             or not scalars.is_contiguous()):
         raise ValueError(f"ra_layer: scalars must be contiguous float32 "
                          f"({B}, {N_SCALARS}) on {x.device}")
-    dev = x.device
     out = torch.empty_like(x)
-    bufs = torch.empty((2, B, 3, H, W), dtype=torch.float32, device=dev)
-    hist = torch.empty((B, 3, 256), dtype=torch.int32, device=dev)
-    minmax = torch.empty((B, 3, 2), dtype=torch.int32, device=dev)
-    luma_sum = torch.empty((B,), dtype=torch.int64, device=dev)
     lib = _lib()
+    scratch = torch.empty(scratch_bytes(B), dtype=torch.uint8, device=x.device)
+    launched = ctypes.c_int(0)
     rc = lib.moma_ra_layer(
         x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
-        scalars.data_ptr(), B, H, W, bufs[0].data_ptr(), bufs[1].data_ptr(),
-        hist.data_ptr(), minmax.data_ptr(), luma_sum.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        scalars.data_ptr(), B, H, W, scratch.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+        ctypes.byref(launched))
     _build.check(lib, rc, "ra_layer")
     count_launch("ra_layer")
+    count_launch("ra_layer_kernels", launched.value)
     return out
 
 
@@ -286,12 +303,19 @@ def ra_layer_from_draws(x: torch.Tensor, op, mag, sign, apply,
                         out_dtype: torch.dtype = torch.float32,
                         hflip=None) -> torch.Tensor:
     """Layer entry with the per-image (op, mag, sign, apply[, hflip]) draws
-    supplied by the caller (pallas_randaugment.py:402-439)."""
+    supplied by the caller (pallas_randaugment.py:402-439).  The (B, 24)
+    scalar vector is built where the draws are (the host, for
+    `ra_layer_random`) and reaches x's device in one copy."""
     B, C, H, W = x.shape
-    dev = x.device
-    scalars = layer_scalars(op.to(dev), mag.to(dev), sign.to(dev),
-                            apply.to(dev), H, fill, W=W,
+    dev = mag.device
+    scalars = layer_scalars(op.to(dev), mag, sign.to(dev), apply.to(dev), H,
+                            fill, W=W,
                             hflip=None if hflip is None else hflip.to(dev))
+    if scalars.device != x.device:
+        if x.device.type == "cuda":   # from pinned memory: no stream sync
+            scalars = scalars.pin_memory().to(x.device, non_blocking=True)
+        else:
+            scalars = scalars.to(x.device)
     return ra_layer(x, scalars, out_dtype)
 
 

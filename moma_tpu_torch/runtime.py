@@ -35,8 +35,8 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+def count_launch(name: str, n: int = 1) -> None:
+    _LAUNCHES[name] += n
 
 
 def reset_launch_counts() -> None:

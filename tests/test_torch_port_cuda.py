@@ -137,29 +137,158 @@ def test_fused_batchnorm_cuda_matches_cpu(dev, dtype):
         torch.testing.assert_close(b, a, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("hw", [(32, 32), (24, 40), (7, 5)])
-def test_ra_layer_matches_plain(dev, hw):
+# the RandAugment kernel against its plain version: no pixel may differ
+# (atol 1.0 is the ceiling chip_smoke.py holds; the count of differing
+# pixels must be 0).  Every op (and the identity) at square and non-square
+# sizes, Rotate and the other warps at H != W, a width of 8k + 3 (runs of 8
+# pixels with a ragged end, rows off 16 bytes), 7x5 (no whole run)
+def _ra_scalars(dev, op, H, W, g, apply_p=0.8, mag=None):
     from moma_tpu_torch.data import randaugment as RA
     from moma_tpu_torch.ops import randaugment as RK
 
-    B = 2 * (RA.N_OPS + 1)
+    B = op.shape[0]
+    d = RA.draw_layer(B, g, 10.0, 0.5)
+    apply = torch.rand(B, generator=g) < apply_p
+    flip = torch.rand(B, generator=g) < 0.5
+    return RK.layer_scalars(op, d["mag"] if mag is None else mag, d["sign"],
+                            apply, H, (124.0, 116.0, 104.0), W=W,
+                            hflip=flip).to(dev)
+
+
+def _ra_same(x, scal):
+    from moma_tpu_torch.ops import randaugment as RK
+
+    got = RK.ra_layer(x, scal)
+    want = RK.ra_layer_plain(x, scal)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1.0)
+    assert int((got.float() != want.float()).sum()) == 0
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (24, 40), (40, 24), (7, 5),
+                                (16, 43), (64, 64)])
+@pytest.mark.parametrize("B", [2 * 16, 1])
+def test_ra_layer_matches_plain(dev, hw, B):
+    from moma_tpu_torch.data import randaugment as RA
+
     H, W = hw
     g = torch.Generator().manual_seed(2)
-    op = torch.arange(B) % (RA.N_OPS + 1)
-    d = RA.draw_layer(B, g, 10.0, 0.5)
-    apply = torch.rand(B, generator=g) < 0.8
-    flip = torch.rand(B, generator=g) < 0.5
-    scal = RK.layer_scalars(op.to(dev), d["mag"].to(dev), d["sign"].to(dev),
-                            apply.to(dev), H, (124.0, 116.0, 104.0), W=W,
-                            hflip=flip.to(dev))
+    for dtype in (torch.float32, torch.bfloat16):
+        # B = 1 walks the 16 ops one launch each
+        for first in range(0, RA.N_OPS + 1, B):
+            op = (torch.arange(B) + first) % (RA.N_OPS + 1)
+            scal = _ra_scalars(dev, op, H, W, g)
+            x = torch.randint(0, 256, (B, 3, H, W), generator=g).to(dev,
+                                                                   dtype)
+            _ra_same(x, scal)
+
+
+@pytest.mark.parametrize("op", range(16))
+def test_ra_layer_every_op_at_magnitudes_0_and_10(dev, op):
+    """Each op gated on at 64^2, magnitudes 0 and 10, both signs, flip on
+    and off."""
+    H = W = 64
+    g = torch.Generator().manual_seed(3 + op)
+    mag = torch.tensor([0.0, 0.0, 10.0, 10.0])
+    scal = _ra_scalars(dev, torch.full((4,), op), H, W, g, apply_p=1.0,
+                       mag=mag)
+    scal[:, 19] = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randint(0, 256, (4, 3, H, W), generator=g).to(dev, dtype)
+        _ra_same(x, scal)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("hw", [(32, 32), (16, 43)])
+def test_ra_layer_gate_off_copies_or_flips(dev, flip, hw):
+    from moma_tpu_torch.ops import randaugment as RK
+
+    H, W = hw
+    g = torch.Generator().manual_seed(4)
+    scal = _ra_scalars(dev, torch.arange(16), H, W, g, apply_p=0.0)
+    scal[:, 19] = float(flip)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.rand(16, 3, H, W, generator=g) * 255).to(dev, dtype)
+        _ra_same(x, scal)
+        got = RK.ra_layer(x, scal)
+        torch.testing.assert_close(got, x.flip(3) if flip else x, rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("hw", [(24, 40), (40, 24), (16, 43)])
+def test_ra_layer_matches_plain_on_mixed_vectors(dev, hw):
+    """Scalar vectors no single draw gives: the op, enhance, sharpness and
+    pass columns each taken from another image, so LUT ops meet the
+    contrast mean, sharpness meets the warps."""
+    H, W = hw
+    g = torch.Generator().manual_seed(8)
+    B = 48
+    scal = _ra_scalars(dev, torch.arange(B) % 16, H, W, g, apply_p=1.0)
+    mixed = scal.clone()
+    for cols in ([0, 1, 2], [3], [4, 5, 6, 7, 8, 9, 10], [15, 16, 17, 18]):
+        mixed[:, cols] = scal[torch.randperm(B, generator=g).to(dev)][:, cols]
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randint(0, 256, (B, 3, H, W), generator=g).to(dev, dtype)
-        got = RK.ra_layer(x, scal)
-        want = RK.ra_layer_plain(x, scal)
-        torch.cuda.synchronize()
-        assert got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                   atol=1.0)
+        _ra_same(x, mixed)
+
+
+def test_ra_layer_from_cpu_draws_matches_cpu(dev):
+    """The training path's entry: draws on the host, images on the card."""
+    from moma_tpu_torch.data import randaugment as RA
+    from moma_tpu_torch.ops import randaugment as RK
+
+    B, H, W = 32, 48, 40
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (B, 3, H, W), generator=g).to(torch.bfloat16)
+    d = RA.draw_layer(B, g, 10.0, 0.5, prob=0.8)
+    flip = torch.rand(B, generator=g) < 0.5
+    args = (d["op"], d["mag"], d["sign"], d["apply"], (124.0, 116.0, 104.0))
+    want = RK.ra_layer_from_draws(x, *args, out_dtype=torch.bfloat16,
+                                  hflip=flip)
+    got = RK.ra_layer_from_draws(x.to(dev), *args, out_dtype=torch.bfloat16,
+                                 hflip=flip)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_ra_layer_launches_at_most_two_kernels(dev):
+    from moma_tpu_torch.ops import randaugment as RK
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(6)
+    scal = _ra_scalars(dev, torch.arange(16), 32, 32, g)
+    x = torch.randint(0, 256, (16, 3, 32, 32), generator=g).to(dev,
+                                                               torch.float32)
+    RK.ra_layer(x, scal)
+    reset_launch_counts()
+    RK.ra_layer(x, scal)
+    counts = launch_counts()
+    assert counts["ra_layer"] == 1 and 1 <= counts["ra_layer_kernels"] <= 2
+
+
+def test_ra_layer_makes_no_float32_scratch_image(dev):
+    """Peak memory of one call: the output and the statistics scratch, no
+    image-sized scratch (each allocation rounds up to 512 bytes)."""
+    from moma_tpu_torch.ops import randaugment as RK
+
+    B, H, W = 16, 128, 128
+    g = torch.Generator().manual_seed(7)
+    scal = _ra_scalars(dev, torch.arange(B), H, W, g)
+    x = torch.randint(0, 256, (B, 3, H, W), generator=g).to(dev,
+                                                           torch.bfloat16)
+    RK.ra_layer(x, scal)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = RK.ra_layer(x, scal)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+
+    def rounded(n):
+        return -(-n // 512) * 512
+
+    assert peak <= rounded(out.numel() * out.element_size()) + rounded(
+        RK.scratch_bytes(B))
 
 
 def test_ra_layer_refuses_bad_layout(dev):
