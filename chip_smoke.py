@@ -8,7 +8,8 @@ once with the MoCo memory (`--mem MoCo --attn self`), once with MoCoAtt
 with `--fused_teacher on` (both teacher forwards through the fused
 EfficientNet forward), and checks that every train-mode BatchNorm,
 RandAugment layer, many-token attention and fused MBConv block went through
-the hand-written kernels.
+the hand-written kernels; then the run around the step (checkpoints,
+--resume, preemption, test_eval, pretrained weights, the resized crop).
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -50,6 +51,21 @@ Phases (each prints its own lines):
                  MoCo, MoCoAtt, then MoCo with --fused_teacher on; finite
                  losses, queue pointer, launch counts (set to 0 just before
                  each path), step time, img/s, peak memory
+  7 persistence: the run around the step at the MoCo path's size, 2 steps
+                 an epoch: (a) 1 epoch + --resume against 2 straight epochs
+                 (step losses, step count, queue pointer, the best-metric
+                 thresholds, every tensor of the final state), with cuDNN's
+                 default algorithms and with torch.backends.cudnn.
+                 deterministic; (b) latest.pt restored onto the card bit for
+                 bit, a checkpoint's size and its save and load times; (c)
+                 SIGTERM after step 1, then --resume takes the 3 remaining
+                 steps; (d) cli.test_eval against the phase's own eval of
+                 best_acc.pt; (e) --std_pre / --tec_pre best_acc.pt; (f) 2
+                 steps with --image_resize (launch counts) and the crop's
+                 device time a batch beside the augment's; (g) --resume
+                 round trips with --fused_teacher on and MoCoAtt 'all'; then
+                 2 steps with --profile_dir and the trace's top 5.  Every run
+                 writes under a temporary --save_dir, removed at exit
 The last three lines of stdout are one JSON object with the per-kernel
 results, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -60,12 +76,15 @@ import faulthandler
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 WATCHDOG_S = 1140
+SAVE_ROOT = ""   # the runs' --save_dir: a temporary directory, removed at exit
 TIMING_ITERS = 20
 SPIN_CYCLES = 4_000_000   # about 2 ms of a timed call's lead (cuda_time_ms)
 MAIN_ARGS = [
@@ -498,8 +517,9 @@ def phase_augment_launches(dev="cuda", batch=64, image=512):
     one augment's time is CUDA events around the call, host work in."""
     import torch
 
-    from moma_tpu_torch.cli.profile_step import DEVICE_CATS
     from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.core.profiling import (DEVICE_CATS, device_events,
+                                               trace)
     from moma_tpu_torch.train.teacher import augment_fns
 
     dev = torch.device(dev)
@@ -518,19 +538,10 @@ def phase_augment_launches(dev="cuda", batch=64, image=512):
     gen = torch.Generator().manual_seed(9)
     augment(images, gen)
     sync(dev)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    logdir = os.path.join(SAVE_ROOT, "augment_trace")
+    with trace(logdir):
         augment(images, gen)
-        sync(dev)
-    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                         "augment_trace.json")
-    os.makedirs(os.path.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f).get("traceEvents", [])
-                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    os.unlink(trace)
+    events, _ = device_events(logdir)
     by_cat = {c: sum(1 for e in events if e["cat"] == c) for c in DEVICE_CATS}
     by_name = {}
     for e in events:
@@ -1052,38 +1063,9 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
         f"params max rel diff {worst:.2e}; queue max diff {qerr:.2e}")
 
 
-def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
-                    fused=False):
-    """Drive the CLI with `args`; `flash_per_step` launches of each
-    flash-attention kernel are expected per step (0 on the MoCo path, whose
-    attentions see 64 tokens and stay dense); `fused`: both teacher forwards
-    run the fused EfficientNet forward."""
-    import torch
-
-    from moma_tpu_torch.cli import train_student
-    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    state, result = train_student.main(list(args))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    tr = result["train"]
-    n = tr["steps"]
-    for k in ("loss", "acc1"):
-        if not math.isfinite(tr[k]):
-            raise AssertionError(f"main path: train {k} {tr[k]} not finite")
-    for k in ("loss", "acc", "f1"):
-        if not math.isfinite(result["val"][k]):
-            raise AssertionError(f"main path: val {k} not finite")
-    if n != 4:
-        raise AssertionError(f"main path ran {n} steps, expected 4")
-    if state.queue.ptr != (64 * n) % 16384:
-        raise AssertionError(f"queue_ptr {state.queue.ptr} != {64 * n}")
+def expected_launches(state, n, flash_per_step=0, fused=False):
+    """The kernel launches of an epoch of n steps of the 'exact' schedule
+    on the state's model (and the number of its student's BatchNorms)."""
     n_bn = sum(1 for m in state.student.modules()
                if type(m).__name__ == "FusedBatchNorm")
     # first batch: eval-BN KL forward ('exact'), so student + key forwards;
@@ -1104,6 +1086,43 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
                      "k1_expand_stats": n_exp * (2 * n - 1),
                      "k2_depthwise": len(blocks) * 2 * n,
                      "k4_project": len(blocks) * 2 * n})
+    return want, n_bn
+
+
+def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
+                    fused=False):
+    """Drive the CLI with `args`; `flash_per_step` launches of each
+    flash-attention kernel are expected per step (0 on the MoCo path, whose
+    attentions see 64 tokens and stay dense); `fused`: both teacher forwards
+    run the fused EfficientNet forward."""
+    import torch
+
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, result = train_student.main(list(args)
+                                       + ["--save_dir", SAVE_ROOT])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    tr = result["train"]
+    n = tr["steps"]
+    for k in ("loss", "acc1"):
+        if not math.isfinite(tr[k]):
+            raise AssertionError(f"main path: train {k} {tr[k]} not finite")
+    for k in ("loss", "acc", "f1"):
+        if not math.isfinite(result["val"][k]):
+            raise AssertionError(f"main path: val {k} not finite")
+    if n != 4:
+        raise AssertionError(f"main path ran {n} steps, expected 4")
+    if state.queue.ptr != (64 * n) % 16384:
+        raise AssertionError(f"queue_ptr {state.queue.ptr} != {64 * n}")
+    want, n_bn = expected_launches(state, n, flash_per_step, fused)
     log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} BNs)")
     for k, v in want.items():
         if counts.get(k, 0) != v:
@@ -1117,6 +1136,380 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
         f"peak memory {peak / 2 ** 30:.2f} GiB")
     return counts
 
+# phase_persistence: effiB0 at 512^2, batch 64, K 16384, bf16, the MoCo
+# main path's flags, synthetic sets cut to 2 training batches an epoch (1
+# for part g)
+PERSIST_SETS = (128, 64, 64)
+STEP_LOSS_RTOL = 1e-3     # PERF.md section 2: step losses
+# a resumed run against the straight one: the state restored bit for bit
+# (part b), so they differ only where the card's own sums are not
+# reproducible (cuDNN's backward algorithms by default); in bf16 such a
+# difference can flip an activation's rounding, one bf16 ulp (2^-8 of it).
+# Held per tensor to 1e-2 of its largest magnitude (floored at 1e-3 of its
+# group's), 2.5 bf16 ulps at that scale, over 4 steps
+STATE_RTOL = 1e-2
+
+
+def _args(base, epochs, *extra):
+    out = list(base)
+    out[out.index("--epochs") + 1] = str(epochs)
+    return out + ["--save_dir", SAVE_ROOT, *extra]
+
+
+def _tensors(tree, path=""):
+    """(path, tensor) over a nested dict / list of tensors and numbers."""
+    import torch
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{path}/{i}")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def _state_gap(got, want):
+    """max over tensors of max|got - want| / max(max|want|, group floor),
+    the groups being student, teacher, heads, queue, optimizer."""
+    worst, where = 0.0, ""
+    for group in ("student", "teacher", "heads", "queue", "optimizer"):
+        pairs = dict(_tensors(want[group]))
+        floor = 1e-3 * max((float(t.float().abs().max()) for t in
+                            pairs.values() if t.numel()), default=0.0)
+        got_t = dict(_tensors(got[group]))
+        if set(got_t) != set(pairs):
+            raise AssertionError(f"state {group}: tensors differ")
+        for k, w in pairs.items():
+            if not w.numel() or not w.is_floating_point():
+                if not torch_equal(got_t[k], w):
+                    raise AssertionError(f"state {group}{k} differs")
+                continue
+            d = float((got_t[k].float() - w.float()).abs().max())
+            rel = d / max(float(w.float().abs().max()), floor, 1e-30)
+            if rel > worst:
+                worst, where = rel, group + k
+    return worst, where
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def _step_losses(run_dir):
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        return [(r["step"], r["loss"]) for r in map(json.loads, f)]
+
+
+def _check_losses(got, want, label):
+    if [s for s, _ in got] != [s for s, _ in want]:
+        raise AssertionError(f"{label}: steps {[s for s, _ in got]} != "
+                             f"{[s for s, _ in want]}")
+    worst = max(abs(a - b) / max(abs(b), 1e-30)
+                for (_, a), (_, b) in zip(got, want))
+    if not worst <= STEP_LOSS_RTOL:
+        raise AssertionError(f"{label}: step loss rel gap {worst:.2e}")
+    return worst
+
+
+def _round_trip(base, label, sets):
+    """A straight 2-epoch run and 1 epoch + --resume to 2 epochs: the same
+    step losses and the same final state (to STATE_RTOL)."""
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.train.moma import full_state
+
+    with _cut_sets(sets):
+        root = SAVE_ROOT
+        _set_root(os.path.join(root, label, "straight"))
+        s_st, r_st = train_student.main(_args(base, 2))
+        _set_root(os.path.join(root, label, "resumed"))
+        _, r_1 = train_student.main(_args(base, 1))
+        s_re, r_re = train_student.main(_args(base, 2, "--resume"))
+        _set_root(root)
+    loss_gap = _check_losses(_step_losses(r_re["run_dir"]),
+                             _step_losses(r_st["run_dir"]), label)
+    if (s_re.step, s_re.queue.ptr) != (s_st.step, s_st.queue.ptr):
+        raise AssertionError(f"{label}: step / queue_ptr "
+                             f"{(s_re.step, s_re.queue.ptr)} != "
+                             f"{(s_st.step, s_st.queue.ptr)}")
+    gap, where = _state_gap(full_state(s_re), full_state(s_st))
+    if not gap <= STATE_RTOL:
+        raise AssertionError(f"{label}: resumed vs straight state gap "
+                             f"{gap:.2e} at {where}")
+    return s_re, r_1, r_re, loss_gap, gap, where
+
+
+class _cut_sets:
+    """Cut the synthetic train / val / test sets to (n_train, n_val,
+    n_test) images for the runs inside."""
+
+    def __init__(self, sizes):
+        self.sizes = sizes
+
+    def __enter__(self):
+        from moma_tpu_torch.data.pipeline import ArrayDataset
+        from moma_tpu_torch.train import moma as moma_train
+
+        self.full = full = moma_train.build_datasets
+        sizes = self.sizes
+        moma_train.build_datasets = lambda cfg, syn: tuple(
+            ArrayDataset(ds.images[:n], ds.labels[:n])
+            for ds, n in zip(full(cfg, syn), sizes))
+
+    def __exit__(self, *exc):
+        from moma_tpu_torch.train import moma as moma_train
+
+        moma_train.build_datasets = self.full
+        return False
+
+
+class _wrapped_steps:
+    """For the runs inside, make_moma_train_step's step programs call
+    `before(state, n)` before and `after(state, n)` after their n-th step
+    (counted over all of them)."""
+
+    def __init__(self, before=None, after=None):
+        self.before, self.after = before, after
+
+    def __enter__(self):
+        from moma_tpu_torch.train import moma as moma_train
+
+        self.make = make = moma_train.make_moma_train_step
+        before, after, done = self.before, self.after, [0]
+
+        def wrapped(*a, **kw):
+            step = make(*a, **kw)
+
+            def counted(state, *rest):
+                done[0] += 1
+                if before is not None:
+                    before(state, done[0])
+                out = step(state, *rest)
+                if after is not None:
+                    after(out[0], done[0])
+                return out
+            return counted
+
+        moma_train.make_moma_train_step = wrapped
+
+    def __exit__(self, *exc):
+        from moma_tpu_torch.train import moma as moma_train
+
+        moma_train.make_moma_train_step = self.make
+        return False
+
+
+def _set_root(path):
+    global SAVE_ROOT
+    SAVE_ROOT = path
+
+
+def phase_persistence(dev="cuda", image=512, batch=64):
+    """The run around the step on the card (parts a-g), then --profile_dir,
+    on MAIN_ARGS' model (`image` and `batch` are its size)."""
+    import signal
+
+    import torch
+
+    from moma_tpu_torch.cli import test_eval, train_student
+    from moma_tpu_torch.core.checkpoint import CheckpointManager
+    from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.core.profiling import summarize_trace
+    from moma_tpu_torch.data import augment as aug
+    from moma_tpu_torch.data.histo_augment import make_histo_augment
+    from moma_tpu_torch.data.pipeline import Loader, synthetic_dataset
+    from moma_tpu_torch.models import create_model
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+    from moma_tpu_torch.train.loop import evaluate
+    from moma_tpu_torch.train.moma import full_state
+    from moma_tpu_torch.train.steps import make_eval_step
+
+    t_phase = time.perf_counter()
+    root = SAVE_ROOT
+    # (a) resume equals straight, cuDNN's default algorithms, then with
+    # torch.backends.cudnn.deterministic
+    s_re, r_1, r_re, loss_gap, gap, where = _round_trip(
+        MAIN_ARGS, "a", PERSIST_SETS)
+    # the threshold carried over: the best of epoch 1 (the first run's)
+    # and epoch 2, and best_acc.pt rewritten only if epoch 2 beat epoch 1
+    ep2 = r_re["epochs"][-1]["val_acc"]
+    best_meta = CheckpointManager(os.path.join(r_re["run_dir"], "ckpt")).meta(
+        "best_acc")
+    if not (r_re["best_acc"] == max(r_1["best_acc"], ep2)
+            and best_meta["epoch"] == (2 if ep2 > r_1["best_acc"] else 1)):
+        raise AssertionError(f"(a) best_acc threshold not carried: epoch 1 "
+                             f"{r_1['best_acc']}, epoch 2 {ep2}, result "
+                             f"{r_re['best_acc']}, meta {best_meta}")
+    log(f"[persist] (a) 1 epoch + --resume vs 2 straight epochs (2 steps "
+        f"an epoch): steps {s_re.step}, queue_ptr {s_re.queue.ptr}, "
+        f"step losses max rel gap {loss_gap:.2e} (limit {STEP_LOSS_RTOL}), "
+        f"state max rel gap {gap:.2e} at {where} (limit {STATE_RTOL}); "
+        f"best_acc {r_re['best_acc']:.2f} carried over the resume")
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, _, d_loss, d_gap, d_where = _round_trip(MAIN_ARGS, "a_det",
+                                                      PERSIST_SETS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"[persist] (a) with torch.backends.cudnn.deterministic: step "
+        f"losses max rel gap {d_loss:.2e}, state max rel gap {d_gap:.2e}"
+        f"{' at ' + d_where if d_gap else ''}: "
+        + ("bit for bit" if d_gap == 0 and d_loss == 0
+           else "not bit for bit"))
+
+    # (b) latest onto the card, bit for bit; a save's and a load's time
+    ckpt = CheckpointManager(os.path.join(r_re["run_dir"], "ckpt"),
+                             map_location=torch.device(dev))
+    saved = full_state(s_re)
+    restored = ckpt.restore("latest")
+    got = dict(_tensors(restored))
+    for k, t in _tensors(saved):
+        if got[k].device != t.device or not torch.equal(got[k], t):
+            raise AssertionError(f"(b) restored {k} differs from the saved")
+    sync(dev)
+    t0 = time.perf_counter()
+    ckpt.save("probe", saved, {"epoch": 0})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.restore("probe")
+    sync(dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    mb = os.path.getsize(ckpt.path("probe")) / 1e6
+    log(f"[persist] (b) latest.pt restored onto the card: {len(got)} "
+        f"tensors equal bit for bit; a checkpoint {mb:.1f} MB, save "
+        f"{save_ms:.1f} ms, load onto the card {load_ms:.1f} ms (host clock)")
+
+    # (c) SIGTERM after the first step of a 2-epoch run, then --resume
+    def kill_after_first(state, n):
+        if n == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    _set_root(os.path.join(root, "c"))
+    with _cut_sets(PERSIST_SETS), _wrapped_steps(after=kill_after_first):
+        s_c, r_c = train_student.main(_args(MAIN_ARGS, 2))
+    meta = CheckpointManager(os.path.join(r_c["run_dir"], "ckpt")).meta(
+        "latest")
+    with _cut_sets(PERSIST_SETS):
+        s_c2, r_c2 = train_student.main(_args(MAIN_ARGS, 2, "--resume"))
+    _set_root(root)
+    if not (r_c.get("preempted") and s_c.step == 1 and meta == {
+            "epoch": 0, "preempted": True, "resume_step": 1}):
+        raise AssertionError(f"(c) run not preempted after its first step: "
+                             f"step {s_c.step}, meta {meta}")
+    steps_c = [s for s, _ in _step_losses(r_c2["run_dir"])]
+    if s_c2.step != 4 or steps_c != [1, 2, 3, 4]:
+        raise AssertionError(f"(c) resumed run: step {s_c2.step}, logged "
+                             f"steps {steps_c}")
+    log(f"[persist] (c) SIGTERM after step 1 of 4: latest.meta.json "
+        f"{meta}; the --resume run took the 3 remaining steps (logged steps "
+        f"{steps_c}, step {s_c2.step})")
+
+    # (d) cli.test_eval over the run dir against an eval computed here
+    out = os.path.join(root, "test_stat.json")
+    got = test_eval.main([
+        "--runs", r_re["run_dir"], "--synthetic", "--model", "effiB0",
+        "--n_cls", "4", "--image_size", str(image), "--batch_size",
+        str(batch), "--device", dev, "--out", out])
+    got = got[os.path.basename(r_re["run_dir"])]
+    model = create_model("effiB0", 4).to(dev,
+                                         memory_format=torch.channels_last)
+    model.load_state_dict(ckpt.restore("best_acc")["student"])
+    def norm(x):   # test_eval's --synthetic normalization
+        return aug.normalize(x, aug.CIFAR100_MEAN, aug.CIFAR100_STD)
+
+    want = evaluate(model, Loader(synthetic_dataset(max(batch, 128), image,
+                                                    4, 1), batch,
+                                  train=False),
+                    make_eval_step(4, normalize_fn=norm), torch.device(dev),
+                    4)
+    for k in ("acc", "f1", "conf_mat", "n"):
+        if got[k] != want[k]:
+            raise AssertionError(f"(d) test_eval {k} {got[k]} != {want[k]}")
+    log(f"[persist] (d) cli.test_eval --synthetic --device cuda: acc "
+        f"{got['acc']:.2f} f1 {got['f1']:.4f} conf_mat {got['conf_mat']}, "
+        f"equal to the phase's own eval of best_acc.pt")
+
+    # (e) one step with --std_pre / --tec_pre the run's best_acc.pt
+    best = ckpt.path("best_acc")
+    saved_student = ckpt.restore("best_acc")["student"]
+
+    def loaded_before_first(state, n):
+        if n != 1:
+            return
+        for name, net in (("student", state.student),
+                          ("teacher", state.teacher)):
+            for k, t in net.state_dict().items():
+                if not torch.equal(t, saved_student[k]):
+                    raise AssertionError(f"(e) {name} {k} is not the saved "
+                                         "student's")
+
+    _set_root(os.path.join(root, "e"))
+    with _cut_sets((batch,) * 3), _wrapped_steps(before=loaded_before_first):
+        s_e, r_e = train_student.main(_args(
+            MAIN_ARGS, 1, "--std_pre", best, "--tec_pre", best))
+    _set_root(root)
+    if not (s_e.step == 1 and math.isfinite(r_e["train"]["loss"])):
+        raise AssertionError(f"(e) step {s_e.step}, loss "
+                             f"{r_e['train']['loss']}")
+    log(f"[persist] (e) --std_pre / --tec_pre {os.path.basename(best)}: "
+        f"student and teacher equal the saved student before the step; 1 "
+        f"step, loss {r_e['train']['loss']:.4f}")
+
+    # (f) two steps with --image_resize: launches, and the crop's time
+    with _cut_sets(PERSIST_SETS):
+        reset_launch_counts()
+        s_f, r_f = train_student.main(_args(MAIN_ARGS, 1, "--image_resize",
+                                            "--crop", "0.2"))
+        counts = launch_counts()
+    want, _ = expected_launches(s_f, 2)
+    for k, v in want.items():
+        if counts.get(k, 0) != v:
+            raise AssertionError(f"(f) launch count {k}: {counts.get(k, 0)} "
+                                 f"!= {v}")
+    if not math.isfinite(r_f["train"]["loss"]):
+        raise AssertionError(f"(f) loss {r_f['train']['loss']}")
+    cfg_f = parse_student_args([a for a in _args(MAIN_ARGS, 1)
+                                if a != "--synthetic"] + ["--image_resize"])
+    images = torch.randint(0, 256, (batch, image, image, 3),
+                           dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(8)).to(dev)
+    g = torch.Generator().manual_seed(9)
+    xf = images.float()
+    crop_ms = cuda_time_ms(lambda: aug.random_resized_crop(xf, g, image))
+    with_crop = make_histo_augment(cfg_f)
+    cfg_f.data.image_resize = False
+    without = make_histo_augment(cfg_f)
+    aug_crop_ms = cuda_time_ms(lambda: with_crop(images, g))
+    aug_ms = cuda_time_ms(lambda: without(images, g))
+    log(f"[persist] (f) --image_resize, 2 steps: loss "
+        f"{r_f['train']['loss']:.4f}, launches as expected ({counts}); the "
+        f"crop ({batch}x{image}^2x3 f32) {crop_ms:.3f} ms a batch; the "
+        f"augment with it {aug_crop_ms:.3f} ms, without {aug_ms:.3f} ms "
+        f"(device time, median of {TIMING_ITERS})")
+
+    # (g) a --resume round trip of the fused teacher and of MoCoAtt 'all'
+    for base, label in ((FUSED_ARGS, "g_fused"), (MOCOATT_ARGS, "g_att")):
+        s_g, _, _, g_loss, g_gap, g_where = _round_trip(base, label,
+                                                        (batch,) * 3)
+        log(f"[persist] (g) {label[2:]}: 1 + 1 epochs (1 step each) vs 2 "
+            f"straight: step losses rel gap {g_loss:.2e}, state max rel gap "
+            f"{g_gap:.2e} at {g_where}; queue_ptr {s_g.queue.ptr}")
+
+    # --profile_dir: a torch.profiler trace of the first epoch (2 steps)
+    trace_dir = os.path.join(root, "trace")
+    with _cut_sets(PERSIST_SETS):
+        train_student.main(_args(MAIN_ARGS, 1, "--profile_dir", trace_dir))
+    top = summarize_trace(trace_dir, top=5)
+    if not top:
+        raise AssertionError("--profile_dir wrote a trace with no device work")
+    log("[persist] --profile_dir, 2 steps: top 5 by device time (ms, "
+        "launches): " + "; ".join(f"{n[:100]} {ms:.2f} x{c}"
+                                  for n, ms, c in top))
+    log(f"[persist] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -1125,6 +1518,17 @@ def main() -> int:
     import torch
 
     name_power = phase_device()
+    top = tempfile.mkdtemp(prefix="chip_smoke_")
+    _set_root(top)
+    try:
+        return _run(name_power)
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+
+
+def _run(name_power) -> int:
+    import torch
+
     phase_build()
     results = {}
     phase_bn_kernels(results)
@@ -1140,6 +1544,7 @@ def main() -> int:
     counts = phase_main_path()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
+    phase_persistence()
     # a kernel's launches: those of the first main path that runs it
     for later in (att_counts, fused_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})

@@ -5,22 +5,25 @@ kernels of its main path rewritten as hand-written CUDA C++ kernels for
 NVIDIA Hopper (sm_90a).  The module layout mirrors `moma_tpu`, so each
 module's counterpart sits at the same relative path there:
 
-    core/    config tree, LR schedule, metrics
-    models/  EfficientNet B0-B7 with the feature-list contract
+    core/    config tree, LR schedule, metrics, checkpoints and stat files,
+             TensorBoard writer, preemption guard, profiling
+    models/  EfficientNet B0-B7 with the feature-list contract, pretrained
+             weights (--std_pre / --tec_pre)
     losses/  CE / KD losses
     moma/    MoCo queue state machine (MoCo, MoCoAtt, MoCoST, MoCoSSTT),
              CMO heads, batch-token attention
-    data/    device-side augmentation (RandAugment layers, normalize),
-             host pipeline, histo manifests and packed cache
+    data/    device-side augmentation (resized crop, RandAugment layers,
+             normalize), host pipeline, histo manifests and packed cache
     ops/     kernel wrappers: CUDA kernel on a CUDA tensor, plain PyTorch
              version on a CPU tensor (csrc/ holds the CUDA sources)
-    train/   train state, MoMA step, epoch loop, evaluation
-    cli/     entry points
+    train/   train state, MoMA step, the run around it (checkpoints,
+             resume, preemption), epoch loop, evaluation
+    cli/     entry points (train_student, test_eval, profile_step)
 
 The package imports torch, never jax and nothing of `moma_tpu`: where it
-needs one of that package's numpy-only modules (the histo dataset reader,
-the checkpoint converter behind `interop`) it keeps its own copy under the
-same name.
+needs one of that package's modules without JAX (the histo dataset reader,
+the checkpoint converter behind `interop`, the TensorBoard writer, the
+preemption guard) it keeps its own copy under the same name.
 """
 
 __version__ = "0.1.0"

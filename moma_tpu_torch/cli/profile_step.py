@@ -19,8 +19,8 @@ builds the run's state with random weights, fixes one synthetic batch
                   sync; median, min, max on the host clock
   2 phases      : augmentation, one teacher forward and the student
                   forward + backward, each timed alone (CUDA events,
-                  median of 5); the rest of the step is heads, queue,
-                  losses, EMA and SGD
+                  median of PHASE_ITERS = 5); the rest of the step is
+                  heads, queue, losses, EMA and SGD
   3 trace       : torch.profiler over PROFILE_STEPS steps; the device
                   idle share is 1 - (union of kernel, memcpy and memset
                   intervals) / (first start to last end), and the top
@@ -44,12 +44,12 @@ import os
 import statistics
 import sys
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
 
 from moma_tpu_torch.core.config import parse_student_args
+from moma_tpu_torch.core.profiling import trace_summary
 from moma_tpu_torch.data.pipeline import synthetic_dataset
 from moma_tpu_torch.losses.functional import cross_entropy
 from moma_tpu_torch.runtime import resolve_device
@@ -59,34 +59,7 @@ from moma_tpu_torch.train.moma import (build_state, make_moma_train_step,
 from moma_tpu_torch.train.teacher import augment_fns
 
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 2
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-GAP_US = 10.0
-
-
-def device_busy(intervals):
-    """(start_us, dur_us) pairs -> {'busy_us', 'span_us', 'idle_share',
-    'largest_gap_us', 'gaps_over_10us'} over the union of the intervals;
-    idle_share is None when there is no interval."""
-    iv = sorted((float(s), float(s) + float(d)) for s, d in intervals)
-    if not iv:
-        return {"busy_us": 0.0, "span_us": 0.0, "idle_share": None,
-                "largest_gap_us": 0.0, "gaps_over_10us": 0}
-    busy, largest, n_gaps = 0.0, 0.0, 0
-    cur_s, cur_e = iv[0]
-    for s, e in iv[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            gap = s - cur_e
-            largest = max(largest, gap)
-            n_gaps += gap > GAP_US
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = cur_e - iv[0][0]
-    return {"busy_us": busy, "span_us": span,
-            "idle_share": 1.0 - busy / span if span > 0 else 0.0,
-            "largest_gap_us": largest, "gaps_over_10us": n_gaps}
+PHASE_ITERS = 5   # timed calls of each phase, after one warm-up call
 
 
 def _sync(device):
@@ -94,12 +67,12 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _phase_ms(fn, device, iters=5):
+def _phase_ms(fn, device):
     """Median time of fn(): CUDA events on a card, host clock on the CPU."""
     fn()
     _sync(device)
     times = []
-    for _ in range(iters):
+    for _ in range(PHASE_ITERS):
         if device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -113,21 +86,6 @@ def _phase_ms(fn, device, iters=5):
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def _trace_summary(path, top=100):
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in DEVICE_CATS]
-    by_name = defaultdict(float)
-    for e in dev:
-        by_name[e.get("name", "?")] += float(e.get("dur", 0.0))
-    kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    out = device_busy((e["ts"], e.get("dur", 0.0)) for e in dev)
-    out["device_intervals"] = len(dev)
-    out["top_kernels_ms"] = [[n[:120], us / 1e3] for n, us in kernels]
-    return out
 
 
 def main(argv=None):
@@ -197,7 +155,7 @@ def main(argv=None):
         f.write(avgs.table(sort_by=sort, row_limit=40))
 
     step_ms = statistics.median(times)
-    tr = _trace_summary(trace)
+    tr = trace_summary(trace)
     busy_ms = tr["busy_us"] / 1e3 / PROFILE_STEPS
     summary = {
         "batch": B, "image_size": S, "device": str(device),

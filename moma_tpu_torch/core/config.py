@@ -2,19 +2,24 @@
 
 Counterpart of moma_tpu/core/config.py: the same dataclasses, field names
 and defaults (without the TPU-only `scoped_vmem_kib` and `donate`; with an
-explicit `RunConfig.device`), and `parse_student_args` for the flags of
-scripts/run_moma.sh plus --fp32, --synthetic and --device.
+explicit `RunConfig.device`), `Config.run_name` (the run directory's
+name), and `parse_student_args` for the flags of scripts/run_moma.sh plus
+--fp32, --synthetic and --device.
 
 The port runs these slices of moma_tpu so far: MoMA distillation with a
 same-arch teacher and global-batch BN on one device, every memory variant
-(MoCo, MoCoAtt, MoCoST, MoCoSSTT), attention mode and projection head.
-`check_slice` rejects every other choice with NotImplementedError rather
-than training something else than asked.
+(MoCo, MoCoAtt, MoCoST, MoCoSSTT), attention mode and projection head,
+with the run around the step (checkpoints, --resume, pretrained weights,
+the resized crop, folds, the optimizer's options).  `check_slice` rejects
+every other choice with NotImplementedError rather than training something
+else than asked.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -163,12 +168,42 @@ class Config:
             self.moma.nce_t = 0.15
         if self.data.eval_batch_size == 0:
             self.data.eval_batch_size = self.data.batch_size
+        if self.data.fold_idx >= 0:
+            if self.data.n_folds < 2:
+                raise ValueError(
+                    f"--n_folds must be >= 2 (got {self.data.n_folds})")
+            if self.data.fold_idx >= self.data.n_folds:
+                raise ValueError(
+                    f"--fold_idx {self.data.fold_idx} out of range for "
+                    f"--n_folds {self.data.n_folds}")
         return self
+
+    @property
+    def run_name(self) -> str:
+        """The run directory's name under --save_dir (config.py:273-288)."""
+        d = self.distill
+        parts = [
+            d.distill,
+            self.data.dataset,
+            self.model_s.name,
+            f"bs{self.data.batch_size}",
+            f"lr{self.optim.learning_rate}",
+            f"c{d.cls}_d{d.div}_b{d.beta}",
+            f"trial{self.run.trial}",
+        ]
+        if self.data.fold_idx >= 0:
+            parts.insert(-1, f"fold{self.data.fold_idx}of{self.data.n_folds}")
+        if self.model_t is not None:
+            parts.insert(1, f"T-{self.model_t.name}")
+        return "_".join(parts)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
 
 
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for any choice outside the ported slice."""
-    m, r, o = cfg.moma, cfg.run, cfg.optim
+    m, r = cfg.moma, cfg.run
     bad = []
     if cfg.distill.distill != "moma":
         bad.append(f"--distill {cfg.distill.distill} (KD zoo, Queue 1 item 7)")
@@ -189,22 +224,9 @@ def check_slice(cfg: Config) -> None:
                    "--pp_microbatch (Queue 1 items 9-10)")
     if m.teacher_quant != "none":
         bad.append("--teacher_quant (Queue 1 item 10)")
-    if m.fast_teacher:
-        bad.append("--fast_teacher")
     if r.remat:
-        bad.append("--remat")
-    if r.resume or r.profile_dir or r.preflight_eval:
-        bad.append("--resume / --profile_dir / --skip_validation "
-                   "(checkpoints and tracing, Queue 1 item 4)")
-    if cfg.model_s.pretrain or (cfg.model_t and cfg.model_t.pretrain):
-        bad.append("--std_pre / --tec_pre (pretrained loading, Queue 1 "
-                   "item 6)")
-    if o.grad_clip > 0 or o.trust_ratio > 0 or o.nesterov:
-        bad.append("--grad_clip / --trust_ratio / nesterov")
-    if cfg.data.image_resize:
-        bad.append("--image_resize (random_resized_crop, Queue 1 item 4)")
-    if cfg.data.fold_idx >= 0:
-        bad.append("--fold_idx")
+        bad.append("--remat (BN running statistics under recompute need "
+                   "their own design)")
     if bad:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): "
@@ -216,9 +238,8 @@ def student_parser() -> argparse.ArgumentParser:
     port's --fp32 / --device and the switches check_slice rejects (so a
     reference command line fails loudly, not silently).  Flags of
     moma_tpu that the port would accept and ignore (--num_workers,
-    --save_dir, --nce_m, --crop, --n_folds) are left out, so argparse
-    refuses them.  --synthetic is taken by the CLI (cli/train_student.py),
-    as in moma_tpu."""
+    --nce_m) are left out, so argparse refuses them.  --synthetic is taken
+    by the CLI (cli/train_student.py), as in moma_tpu."""
     p = argparse.ArgumentParser("moma_tpu_torch train_student")
     p.add_argument("--print_freq", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=64)
@@ -240,12 +261,25 @@ def student_parser() -> argparse.ArgumentParser:
     p.add_argument("--ra_config", type=str, default="rand-n2-m10-mstd0.5")
     p.add_argument("--use_cmc", action="store_true")
     p.add_argument("--image_size", type=int, default=32)
+    p.add_argument("--crop", type=float, default=0.2,
+                   help="lower area bound of the random resized crop "
+                        "(--image_resize)")
     p.add_argument("--image_resize", action="store_true")
-    p.add_argument("--fold_idx", type=int, default=-1)
+    p.add_argument("--fold_idx", type=int, default=-1,
+                   help="stratified k-fold CV: validation fold index over "
+                        "the train+val pool (histo datasets; -1 = the "
+                        "dataset's native splits)")
+    p.add_argument("--n_folds", type=int, default=5)
     p.add_argument("--trial", type=str, default="0",
-                   help="run label, printed in the final summary line")
+                   help="run label, part of the run directory's name")
+    p.add_argument("--save_dir", type=str, default="./save",
+                   help="root of the run directories "
+                        "(<save_dir>/moma_<run name>)")
     p.add_argument("--skip_test", action="store_true")
-    p.add_argument("--skip_validation", action="store_true")
+    p.add_argument("--skip_validation", action="store_true",
+                   help="run a pre-flight eval of the teacher on the test "
+                        "split before training (the reference's inverted "
+                        "store_false flag: passing it RUNS the validation)")
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default; an error if absent) "
@@ -255,14 +289,18 @@ def student_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--grad_accum", type=int, default=1)
     p.add_argument("--remat", action="store_true")
-    p.add_argument("--resume", action="store_true")
-    p.add_argument("--profile_dir", type=str, default="")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from <run dir>/ckpt/latest.pt")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace of the first epoch")
     p.add_argument("--n_cls", type=int, default=0)
     p.add_argument("--model_s", type=str, default="resnet8x4")
     p.add_argument("--model_t", type=str, default="resnet32x4")
     p.add_argument("--path_t", type=str, default=None)
     p.add_argument("--std_pre", type=str, default=None)
+    p.add_argument("--std_strict", action="store_false", dest="std_strict")
     p.add_argument("--tec_pre", type=str, default=None)
+    p.add_argument("--tec_strict", action="store_false", dest="tec_strict")
     p.add_argument("--distill", type=str, default="kd")
     p.add_argument("--kd_T", type=float, default=4.0)
     p.add_argument("-c", "--cls", type=float, default=1.0)
@@ -295,9 +333,9 @@ def parse_student_args(argv=None) -> Config:
     cfg = Config()
     cfg.data = DataConfig(
         dataset=a.dataset, data_dir=a.data_dir, batch_size=a.batch_size,
-        image_size=a.image_size, image_resize=a.image_resize,
+        image_size=a.image_size, image_resize=a.image_resize, crop=a.crop,
         aug_train=a.aug_train, ra_config=a.ra_config, use_cmc=a.use_cmc,
-        fold_idx=a.fold_idx)
+        fold_idx=a.fold_idx, n_folds=a.n_folds)
     cfg.optim = OptimConfig(
         learning_rate=a.learning_rate, momentum=a.momentum,
         weight_decay=a.weight_decay, cosine=a.cosine,
@@ -307,13 +345,15 @@ def parse_student_args(argv=None) -> Config:
         warmup_epochs=a.warmup_epochs)
     cfg.run = RunConfig(
         epochs=a.epochs, seed=a.seed, print_freq=a.print_freq,
-        trial=a.trial, skip_test=a.skip_test,
+        save_dir=a.save_dir, trial=a.trial, skip_test=a.skip_test,
         preflight_eval=a.skip_validation, half_precision=not a.fp32,
         bn=a.bn, model_parallel=a.model_parallel, grad_accum=a.grad_accum,
         remat=a.remat, resume=a.resume, profile_dir=a.profile_dir,
         device=a.device)
-    cfg.model_s = ModelConfig(name=a.model_s, pretrain=a.std_pre)
-    cfg.model_t = ModelConfig(name=a.model_t, pretrain=a.path_t or a.tec_pre)
+    cfg.model_s = ModelConfig(name=a.model_s, pretrain=a.std_pre,
+                              strict=a.std_strict)
+    cfg.model_t = ModelConfig(name=a.model_t, pretrain=a.path_t or a.tec_pre,
+                              strict=a.tec_strict)
     cfg.distill = DistillConfig(distill=a.distill, kd_T=a.kd_T, cls=a.cls,
                                 div=a.div, beta=a.beta)
     cfg.moma = MomaConfig(

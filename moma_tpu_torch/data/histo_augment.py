@@ -1,10 +1,12 @@
 """Histopathology train/eval augmentation stacks (device-side).
 
 Counterpart of moma_tpu/data/histo_augment.py:
-  train: hflip + RandAugment(rand-n2-m10-mstd0.5, fill=255*imagenet_mean)
-         + normalize(imagenet stats); the flip rides RandAugment layer 1
+  train: [RandomResizedCrop(scale=(crop, 1)) if --image_resize] + hflip +
+         RandAugment(rand-n2-m10-mstd0.5, fill=255*imagenet_mean) +
+         normalize(imagenet stats); the flip rides RandAugment layer 1
   eval:  normalize
-RandomResizedCrop (--image_resize) is not ported yet and raises.
+The crop's four draws come from the step's generator before
+RandAugment's.
 """
 
 from __future__ import annotations
@@ -12,17 +14,17 @@ from __future__ import annotations
 import torch
 
 from moma_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
-                                         normalize, random_hflip)
+                                         normalize, random_hflip,
+                                         random_resized_crop)
 from moma_tpu_torch.data.randaugment import parse_ra_config, rand_augment
 
 RA_FILL = tuple(min(255, round(255 * m)) for m in IMAGENET_MEAN)
 
 
 def make_histo_augment(cfg):
-    if cfg.data.image_resize:
-        raise NotImplementedError(
-            "--image_resize (random_resized_crop) is not ported to "
-            "moma_tpu_torch yet (ROADMAP Queue 1)")
+    image_size = cfg.data.image_size
+    use_rrc = bool(cfg.data.image_resize)
+    crop_lo = cfg.data.crop
     use_ra = cfg.data.aug_train == "RA"
     if use_ra:
         n_layers, magnitude, mstd, weights = parse_ra_config(
@@ -31,6 +33,9 @@ def make_histo_augment(cfg):
 
     def augment(images: torch.Tensor, generator: torch.Generator):
         x = images.float()
+        if use_rrc:
+            x = random_resized_crop(x, generator, image_size,
+                                    scale=(crop_lo, 1.0))
         if use_ra:
             x = rand_augment(x, generator, num_layers=n_layers,
                              magnitude=magnitude, magnitude_std=mstd,

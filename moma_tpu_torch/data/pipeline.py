@@ -41,9 +41,10 @@ def synthetic_dataset(n: int, image_size: int, n_cls: int,
 
 
 class Loader:
-    """Epoch iterator: train=True reshuffles per epoch (seeded) and drops
-    the ragged tail; train=False is sequential, pads the last batch and
-    marks valid rows in 'mask'."""
+    """Epoch iterator: train=True reshuffles per epoch (seeded), drops
+    the ragged tail and can start mid-epoch (`set_start_batch`);
+    train=False is sequential, pads the last batch and marks valid rows in
+    'mask'."""
 
     def __init__(self, dataset, batch_size: int, train: bool, seed: int = 0):
         self.ds = dataset
@@ -51,9 +52,17 @@ class Loader:
         self.train = train
         self.seed = seed
         self.epoch = 0
+        self.start_batch = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+
+    def set_start_batch(self, start: int):
+        """Mid-epoch resume (train only): the next iteration starts at
+        batch `start` of this epoch's seeded shuffle order; the skipped
+        batches are index math, nothing is gathered.  Persistent until
+        changed; train_one_epoch sets it every epoch (0 by default)."""
+        self.start_batch = start
 
     def __len__(self):
         n = len(self.ds)
@@ -67,7 +76,7 @@ class Loader:
         if self.train:
             order = np.random.RandomState(
                 (self.seed * 100003 + self.epoch) % (2 ** 31)).permutation(n)
-            for i in range(n // bs):
+            for i in range(self.start_batch, n // bs):
                 idx = order[i * bs:(i + 1) * bs]
                 yield {"image": self.ds.images[idx],
                        "label": self.ds.labels[idx]}

@@ -3,13 +3,15 @@
 Counterpart of moma_tpu/train/loop.py (`train_one_epoch` :34-129,
 `evaluate` :132-157).  Host batches (numpy uint8 from
 moma_tpu_torch.data.pipeline.Loader) move to the run's device; step metrics stay
-on the device and are fetched at print points and once at epoch end.
+on the device and are fetched at print points and once at epoch end.  An
+epoch can start mid-way (`start_step`, for a resume from a preemption
+save) and stops between steps when its `stop` guard is set.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -34,12 +36,23 @@ def step_generator(base_seed: int, epoch: int, i: int) -> torch.Generator:
 
 
 def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
-                    epoch: int, base_seed: int, print_freq: int = 100):
+                    epoch: int, base_seed: int, print_freq: int = 100,
+                    log_fn: Optional[Callable] = None, stop=None,
+                    start_step: int = 0):
     """Runs one epoch; returns (state, {'loss','acc1','acc5','ips',
     'batch_times', 'steps', ...}).  batch_times are host seconds per step;
     a step's device work is only waited for at print points, so use
-    print_freq=1 for per-step times that include it."""
+    print_freq=1 for per-step times that include it.
+
+    `stop` (core.preempt.GracefulStop) ends the epoch between steps when
+    set; 'steps' counts the epoch's batches run in total, so the runner
+    can save an exact resume point.  `start_step` resumes mid-epoch: the
+    loader skips the first `start_step` batches of its seeded order and
+    the per-step generators continue at the same indices, so the finished
+    epoch equals the uninterrupted one.  `log_fn(step=, loss=, acc1=)` is
+    called at print points (StatsWriter.scalar)."""
     loader.set_epoch(epoch)
+    loader.set_start_batch(start_step)
     meters = {k: Meter() for k in ("loss", "acc1", "acc5", "batch_time",
                                    "data_time")}
     bs = loader.batch_size
@@ -47,7 +60,9 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
     n_steps = 0
     batch_times = []
     t0 = time.perf_counter()
-    for i, batch in enumerate(loader):
+    for i, batch in enumerate(loader, start=start_step):
+        if stop is not None and stop.stopping:
+            break
         t1 = time.perf_counter()
         meters["data_time"].update(t1 - t0)
         b = to_device(batch, device)
@@ -65,6 +80,9 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
                 raise NonFiniteLossError(
                     f"non-finite loss {meters['loss'].val} at epoch {epoch} "
                     f"step {i + 1}")
+            if log_fn is not None:
+                log_fn(step=state.step, loss=meters["loss"].val,
+                       acc1=meters["acc1"].val)
         t0 = time.perf_counter()
         meters["batch_time"].update(t0 - t1)
         batch_times.append(t0 - t1)
@@ -78,7 +96,7 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
         "data_time": meters["data_time"].avg,
         "ips": bs / max(meters["batch_time"].avg, 1e-9),
         "batch_times": batch_times,
-        "steps": n_steps,
+        "steps": start_step + n_steps,
     }
 
 

@@ -39,26 +39,43 @@ both gradient-free teacher forwards (steps 1 and 3) run the recompute-style
 fused forward of ops/fused_effnet.py and its three kernels in place of the
 module forward: the same function by another route
 (train/moma.py:206-212, :321-339, :428-445), in the teacher's compute dtype.
+With `--fast_teacher` the KL logits are the key forward's (unshuffled), so
+a step runs one teacher forward (train/moma.py:192-197, :475-480).
 
-Not ported yet (ROADMAP.md): the cross-arch CMO_EmaTec mode, checkpoints,
-resume, preemption, the TensorBoard writer and --profile_dir; `run_moma`
-writes no files.
+`run_moma` is the run around the step (train/moma.py:1163-1640): the run
+directory `<save_dir>/moma_<run_name>` with `ckpt/{latest,best_acc,
+best_f1}.pt` (core/checkpoint.py; `latest` every epoch, the best ones on a
+new best), `stat.json`, `scalars.jsonl`, TensorBoard events and
+`parameters.json`; `--resume` from `latest` (mid-epoch after a preemption
+save, with the best-metric thresholds read back from their meta files);
+SIGTERM / Ctrl-C checkpoint and exit (core/preempt.py); a non-finite loss
+stops the run with `latest` kept; `--std_pre` / `--tec_pre`
+(models/pretrained.py); the teacher pre-flight eval (`--skip_validation`)
+and a torch.profiler trace of the first epoch (`--profile_dir`).
+
+Not ported yet (ROADMAP.md): the cross-arch CMO_EmaTec mode and --remat.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 import warnings
 from typing import Callable, Optional
 
 import torch
 from torch import nn
 
+from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_slice
+from moma_tpu_torch.core.preempt import GracefulStop
+from moma_tpu_torch.core.profiling import trace
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.data.pipeline import Loader
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
+from moma_tpu_torch.models.pretrained import load_pretrained
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        random_memory, step_moco,
@@ -66,7 +83,8 @@ from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        step_moco_st)
 from moma_tpu_torch.ops import fused_effnet
 from moma_tpu_torch.runtime import resolve_device
-from moma_tpu_torch.train.loop import evaluate, train_one_epoch
+from moma_tpu_torch.train.loop import (NonFiniteLossError, evaluate,
+                                       train_one_epoch)
 from moma_tpu_torch.train.state import MomaState, make_sgd
 from moma_tpu_torch.train.steps import make_eval_step
 from moma_tpu_torch.train.teacher import augment_fns, build_datasets
@@ -151,6 +169,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     # embed_t is EMA-tracked for the mlp heads only (train/moma.py:382-389)
     ema_head = cfg.moma.head in ("mlp", "mlp_byol")
     shuffle_bn = cfg.moma.shuffle_bn
+    fast_teacher = cfg.moma.fast_teacher
     teacher_forward = make_teacher_forward(cfg)
     kl_bn_mode = cfg.moma.kl_teacher_bn
     if kl_bn_mode not in ("train", "eval", "exact"):
@@ -175,9 +194,11 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         labels = batch["label"].long()
         B = images.shape[0]
 
-        # 1. KL forward, pre-EMA teacher
-        with torch.no_grad():
-            _, logit_t = teacher_forward(teacher, images, kl_train_bn)
+        # 1. KL forward, pre-EMA teacher (none with fast_teacher: step 3's
+        # logits stand in)
+        if not fast_teacher:
+            with torch.no_grad():
+                _, logit_t = teacher_forward(teacher, images, kl_train_bn)
 
         # 2. EMA from the pre-step student
         ema_update(teacher, student, alpha)
@@ -196,11 +217,16 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 key_images = images[perm]
             else:
                 key_images = images
-            pooled_key, _ = teacher_forward(teacher, key_images, True)
+            pooled_key, logit_key = teacher_forward(teacher, key_images,
+                                                    True)
             heads.embed_t.eval()  # the momentum head runs in eval mode
             k_emb = heads.embed_t(pooled_key)
             if shuffle_bn:
                 k_emb = k_emb[inv]
+                logit_key = logit_key[inv]
+            if fast_teacher:
+                # post-EMA teacher, train-mode BN: a documented deviation
+                logit_t = logit_key
         # MoCoSSTT's second view, drawn after the permutation as in JAX
         images2 = None
         if mem == "MoCoSSTT":
@@ -288,8 +314,9 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
 
 def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
                 seed: int) -> MomaState:
-    """Student, teacher, CMO heads, queue and SGD from seeded generators
-    (random weights; pretrained loading is not ported yet)."""
+    """Student, teacher, CMO heads, queue and SGD from seeded generators;
+    the student and teacher then take --std_pre / --tec_pre weights where
+    given (load_pretrained; an unresolvable tag raises)."""
     dtype = torch.bfloat16 if cfg.run.half_precision else None
     n_cls = cfg.model_s.n_cls
 
@@ -298,6 +325,9 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
 
     student = create_model(cfg.model_s.name, n_cls, dtype, generator=gen(0))
     teacher = create_model(cfg.model_t.name, n_cls, dtype, generator=gen(1))
+    for model, mc in ((student, cfg.model_s), (teacher, cfg.model_t)):
+        if mc.pretrain:
+            load_pretrained(model, mc.pretrain, strict=mc.strict)
     # the 'None' head passes the pooled features through
     feat_dim = (cfg.moma.feat_dim if cfg.moma.head != "None"
                 else student.feat_dim)
@@ -330,11 +360,48 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
     return state
 
 
-def run_moma(cfg: Config, synthetic: bool = False):
+def full_state(state: MomaState) -> dict:
+    """The checkpointable state: both backbones with their BN buffers, the
+    heads, every queue bank and its pointer, the optimizer's buffers and
+    the step."""
+    return {"student": state.student.state_dict(),
+            "teacher": state.teacher.state_dict(),
+            "heads": state.heads.state_dict(),
+            "queue": {"memory": dict(state.queue.memory),
+                      "ptr": state.queue.ptr},
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step}
+
+
+def load_full_state(state: MomaState, saved: dict) -> MomaState:
+    """Copy a `full_state` dict into `state` in place (the modules keep
+    their storage, so views taken of them stay valid)."""
+    state.student.load_state_dict(saved["student"])
+    state.teacher.load_state_dict(saved["teacher"])
+    state.heads.load_state_dict(saved["heads"])
+    mem = saved["queue"]["memory"]
+    if set(mem) != set(state.queue.memory):
+        raise ValueError(f"checkpoint queue banks {sorted(mem)} differ from "
+                         f"the run's {sorted(state.queue.memory)}")
+    state.queue = QueueState(dict(mem), int(saved["queue"]["ptr"]))
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    return state
+
+
+def run_moma(cfg: Config, synthetic: bool = False, stop=None):
     """MoMA student training run (train/moma.py:1163-1535); returns
-    (state, {'best_acc', 'best_f1', 'train', 'val', 'epochs'})."""
+    (state, {'best_acc', 'best_f1', 'train', 'val', 'epochs', 'run_dir'},
+    plus 'preempted' or 'nan_aborted' when the run stopped early).
+
+    `stop` is a GracefulStop-like guard to use in place of the one that
+    run_moma installs for SIGTERM / SIGINT."""
     check_slice(cfg)
     device = resolve_device(cfg.run.device)
+    run_dir = os.path.join(cfg.run.save_dir, f"moma_{cfg.run_name}")
+    os.makedirs(run_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
+                             map_location=device)
     n_cls = cfg.model_s.n_cls
     train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
     train_loader = Loader(train_ds, cfg.data.batch_size, train=True,
@@ -352,21 +419,73 @@ def run_moma(cfg: Config, synthetic: bool = False):
     else:
         step_fn = make_moma_train_step(cfg, train_aug)
     eval_step = make_eval_step(n_cls, normalize_fn=eval_norm)
-    return _epoch_loop_moma(cfg, state, step_fn, eval_step, train_loader,
-                            val_loader, test_loader, device, n_cls)
 
+    if cfg.run.preflight_eval:
+        # reference --skip_validation (inverted store_false flag): the
+        # loaded teacher on the test split before training
+        pre = evaluate(state.teacher, test_loader, eval_step, device, n_cls)
+        print(f"[pre-flight] teacher test acc {pre['acc']:.2f} "
+              f"f1 {pre['f1']:.4f}", flush=True)
 
-def _epoch_loop_moma(cfg, state, step_fn, eval_step, train_loader,
-                     val_loader, test_loader, device, n_cls):
     best_acc, best_f1 = -1.0, -1.0
+    start_epoch, resume_step = 1, 0
+    if cfg.run.resume and ckpt.exists("latest"):
+        load_full_state(state, ckpt.restore("latest"))
+        meta = ckpt.meta("latest") or {}
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        # exact mid-epoch resume point of a preemption save
+        resume_step = int(meta.get("resume_step", 0))
+        # the best-metric thresholds survive the restart (else the first
+        # epoch after it would overwrite the real best checkpoints)
+        m = ckpt.meta("best_acc")
+        if m is not None:
+            best_acc = float(m.get("val_acc", -1.0))
+        m = ckpt.meta("best_f1")
+        if m is not None:
+            best_f1 = float(m.get("val_f1", -1.0))
+        print(f"[resume] from epoch {start_epoch}"
+              + (f" step {resume_step}" if resume_step else "")
+              + f" (best_acc={best_acc:.2f}, best_f1={best_f1:.4f})",
+              flush=True)
+
+    stats = StatsWriter(run_dir)
+    guard = stop if stop is not None else GracefulStop()
+    try:
+        if stop is None:
+            guard.__enter__()
+        return _epoch_loop_moma(
+            cfg, state, stats, ckpt, guard, step_fn, eval_step,
+            train_loader, val_loader, test_loader, device, n_cls,
+            start_epoch, resume_step, best_acc, best_f1, run_dir)
+    finally:
+        # the prior handlers come back, so a later SIGTERM in this process
+        # is not swallowed by a dead flag
+        if stop is None:
+            guard.__exit__()
+        stats.close()
+
+
+def _epoch_loop_moma(cfg, state, stats, ckpt, stop, step_fn, eval_step,
+                     train_loader, val_loader, test_loader, device, n_cls,
+                     start_epoch, resume_step, best_acc, best_f1, run_dir):
+    t_start = time.time()
     history = []
     tr = val = None
-    for epoch in range(1, cfg.run.epochs + 1):
+
+    def result(**extra):
+        return state, {"best_acc": best_acc, "best_f1": best_f1, "train": tr,
+                       "val": val, "epochs": history, "run_dir": run_dir,
+                       **extra}
+
+    for epoch in range(start_epoch, cfg.run.epochs + 1):
+        ep_start = resume_step if epoch == start_epoch else 0
         if isinstance(step_fn, tuple):
-            # 'exact': eval-BN KL forward on the epoch's first batch
-            # (the per-epoch model_t.eval() reset), train-BN after
+            # 'exact': eval-BN KL forward on the epoch's first batch (the
+            # per-epoch model_t.eval() reset), train-BN after.  A mid-epoch
+            # resume already ran the epoch's first batch before the
+            # preemption, so it takes the train-BN step throughout.
             first_fn, rest_fn = step_fn
-            seen = [0]
+            seen = [0 if ep_start == 0 else 1]
 
             def epoch_step(s, b, g):
                 fn = first_fn if seen[0] == 0 else rest_fn
@@ -374,23 +493,57 @@ def _epoch_loop_moma(cfg, state, step_fn, eval_step, train_loader,
                 return fn(s, b, g)
         else:
             epoch_step = step_fn
-        state, tr = train_one_epoch(state, train_loader, epoch_step, device,
-                                    epoch, cfg.run.seed,
-                                    print_freq=cfg.run.print_freq)
+        ctx = (trace(cfg.run.profile_dir)
+               if cfg.run.profile_dir and epoch == start_epoch
+               else contextlib.nullcontext())
+        try:
+            with ctx:
+                state, tr = train_one_epoch(
+                    state, train_loader, epoch_step, device, epoch,
+                    cfg.run.seed, print_freq=cfg.run.print_freq,
+                    log_fn=stats.scalar, stop=stop, start_step=ep_start)
+        except NonFiniteLossError as e:
+            # 'latest' (the end of the last finite epoch) is the resume point
+            print(f"[nan-guard] {e}; stopping — resume from the last "
+                  f"epoch-end checkpoint (epoch {epoch - 1})", flush=True)
+            stats.update_epoch(epoch, {"nan_aborted": True})
+            return result(nan_aborted=True)
+        if stop.stopping:
+            # preemption: the full state and the exact batch index, so
+            # --resume continues this epoch where it stopped
+            ckpt.save("latest", full_state(state),
+                      {"epoch": epoch - 1, "preempted": True,
+                       "resume_step": tr["steps"]})
+            print(f"[preempt] checkpointed at epoch {epoch} step "
+                  f"{tr['steps']}/{len(train_loader)}; exiting", flush=True)
+            return result(preempted=True)
         val = evaluate(state.student, val_loader, eval_step, device, n_cls)
-        row = {"epoch": epoch, "train_loss": tr["loss"],
-               "train_acc": tr["acc1"], "ips": tr["ips"],
-               "val_loss": val["loss"], "val_acc": val["acc"],
-               "val_f1": val["f1"]}
+        row = {"train_loss": tr["loss"], "train_acc": tr["acc1"],
+               "ips": tr["ips"], "val_loss": val["loss"],
+               "val_acc": val["acc"], "val_f1": val["f1"]}
+        if ep_start:
+            # resumed epoch: train stats cover only the tail batches
+            row["train_partial_from"] = ep_start
         if not cfg.run.skip_test:
             test = evaluate(state.student, test_loader, eval_step, device,
                             n_cls)
             row.update(test_acc=test["acc"], test_f1=test["f1"])
-        history.append(row)
+        stats.update_epoch(epoch, row)
+        history.append({"epoch": epoch, **row})
         print(f"epoch {epoch}: loss {tr['loss']:.4f} acc {tr['acc1']:.2f} | "
               f"val acc {val['acc']:.2f} f1 {val['f1']:.4f} | "
               f"{tr['ips']:.1f} img/s", flush=True)
-        best_acc = max(best_acc, val["acc"])
-        best_f1 = max(best_f1, val["f1"])
-    return state, {"best_acc": best_acc, "best_f1": best_f1, "train": tr,
-                   "val": val, "epochs": history}
+        saved = full_state(state)
+        meta = {"epoch": epoch, **row}
+        ckpt.save("latest", saved, meta)
+        if val["acc"] > best_acc:
+            best_acc = val["acc"]
+            ckpt.save("best_acc", saved, meta)
+        if val["f1"] > best_f1:
+            best_f1 = val["f1"]
+            ckpt.save("best_f1", saved, meta)
+
+    stats.write_params_json(run_dir, {
+        "config": cfg.to_json(), "best_val_acc": best_acc,
+        "best_val_f1": best_f1, "hours": (time.time() - t_start) / 3600.0})
+    return result()

@@ -2,18 +2,27 @@
 
 The whole slice at a small size: synthetic prostate_hv images through the
 RandAugment layers, effiB0 student and teacher, the MoMA step with the
-'exact' KL-BN schedule, the epoch loop and the evaluation — every kernel
-wrapper taking its plain version because the tensors are on the CPU.
+'exact' KL-BN schedule, the epoch loop, the evaluation and the run
+directory — every kernel wrapper taking its plain version because the
+tensors are on the CPU.  The CLI runs train on synthetic sets cut to 16
+training images (4 steps: the epoch's eval-BN first step and three
+train-BN steps) and 8 val / test images, and write under pytest's
+tmp_path (--save_dir).
 """
 
+import dataclasses
 import math
+import os
 
 import pytest
 import torch
 
+from moma_tpu.core.config import parse_student_args as j_parse_student_args
 from moma_tpu_torch.cli import train_student
 from moma_tpu_torch.core.config import parse_student_args
+from moma_tpu_torch.data.pipeline import ArrayDataset
 from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+from moma_tpu_torch.train import moma as moma_train
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 
@@ -25,29 +34,60 @@ ARGS = ["--device", "cpu", "--dataset", "prostate_hv", "--model_s", "effiB0",
         "--batch_size", "4", "--nce_k", "64", "--epochs", "1", "--fp32"]
 
 
-def test_cli_trains_one_epoch_on_cpu(capsys):
+@pytest.fixture
+def small_sets(monkeypatch):
+    full = moma_train.build_datasets
+
+    def cut(cfg, synthetic):
+        return tuple(ArrayDataset(ds.images[:n], ds.labels[:n])
+                     for ds, n in zip(full(cfg, synthetic), (16, 8, 8)))
+
+    monkeypatch.setattr(moma_train, "build_datasets", cut)
+
+
+def test_cli_trains_one_epoch_on_cpu(capsys, small_sets, tmp_path):
     reset_launch_counts()
-    state, result = train_student.main(ARGS + ["--feat_dim", "32"])
+    state, result = train_student.main(
+        ARGS + ["--feat_dim", "32", "--save_dir", str(tmp_path)])
     tr = result["train"]
-    assert tr["steps"] == 64  # max(4 * 4, 256) synthetic images / batch 4
+    assert tr["steps"] == 4  # 16 synthetic images / batch 4
     assert math.isfinite(tr["loss"]) and math.isfinite(result["val"]["loss"])
     assert 0.0 <= result["best_acc"] <= 100.0
-    assert state.queue.ptr == (4 * 64) % 64
-    assert state.step == 64
+    assert state.queue.ptr == (4 * 4) % 64
+    assert state.step == 4
     assert state.queue.memory["memory"].shape == (64, 32)
     # CPU tensors never reach a CUDA kernel
     assert launch_counts() == {}
     out = capsys.readouterr().out
     assert "epoch 1: loss" in out and "done: best val acc" in out
-    assert "(trial 0)" in out
+    assert "(trial 0)" in out and f"run_dir {result['run_dir']}" in out
+
+
+def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
+                                            monkeypatch):
+    cwd, save = tmp_path / "cwd", tmp_path / "save"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    argv = [a if a != "64" else "32" for a in ARGS]   # 32^2 images, K below
+    argv[argv.index("--nce_k") + 1] = "64"
+    _, result = train_student.main(argv + ["--feat_dim", "16",
+                                           "--save_dir", str(save)])
+    assert os.listdir(cwd) == [] and os.listdir(tmp_path) == ["cwd", "save"]
+    run = os.path.basename(result["run_dir"])
+    assert os.listdir(save) == [run]
+    files = sorted(os.path.relpath(os.path.join(d, f), save / run)
+                   for d, _, fs in os.walk(save / run) for f in fs)
+    assert [f for f in files if not f.startswith("tb")] == [
+        "ckpt/best_acc.meta.json", "ckpt/best_acc.pt",
+        "ckpt/best_f1.meta.json", "ckpt/best_f1.pt",
+        "ckpt/latest.meta.json", "ckpt/latest.pt", "parameters.json",
+        "scalars.jsonl", "stat.json"]
 
 
 @pytest.mark.parametrize("extra", [
-    ["--distill", "kd"], ["--remat"], ["--fast_teacher"],
-    ["--fold_idx", "0"], ["--std_pre", "imagenet"], ["--attn", "selff"],
+    ["--distill", "kd"], ["--remat"], ["--attn", "selff"],
     ["--bn", "local"], ["--grad_accum", "2"], ["--teacher_quant", "int8"],
-    ["--model_parallel", "2"], ["--model_t", "effiB1"], ["--resume"],
-    ["--image_resize"],
+    ["--model_parallel", "2"], ["--model_t", "effiB1"],
 ])
 def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag
@@ -69,18 +109,19 @@ def test_fused_teacher_keeps_the_reference_refusals(extra):
         parse_student_args(argv + ["--fused_teacher", "on"] + extra)
 
 
-def test_cli_trains_with_the_fused_teacher_on_cpu():
+def test_cli_trains_with_the_fused_teacher_on_cpu(small_sets, tmp_path):
     """--fused_teacher on: both teacher forwards through the fused forward,
     on the CPU through the plain versions of its three kernels."""
     reset_launch_counts()
     argv = [a if a != "64" else "32" for a in ARGS]   # 32^2 images, K below
     argv[argv.index("--nce_k") + 1] = "64"
     state, result = train_student.main(
-        argv + ["--feat_dim", "16", "--fused_teacher", "on"])
+        argv + ["--feat_dim", "16", "--fused_teacher", "on",
+                "--save_dir", str(tmp_path)])
     tr = result["train"]
-    assert tr["steps"] == 64 and math.isfinite(tr["loss"])
+    assert tr["steps"] == 4 and math.isfinite(tr["loss"])
     assert math.isfinite(result["val"]["loss"])
-    assert state.queue.ptr == (4 * 64) % 64 and state.step == 64
+    assert state.queue.ptr == (4 * 4) % 64 and state.step == 4
     assert launch_counts() == {}
     # the fused forward updated the teacher's running statistics in place
     assert float(state.teacher.bn1.running_mean.abs().max()) > 0
@@ -101,28 +142,17 @@ def test_memory_variants_heads_and_attention_modes_parse(extra, want):
     assert (m.mem, m.head, m.attn) == want
 
 
-def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu(monkeypatch):
+def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu(small_sets,
+                                                              tmp_path):
     """--mem MoCoAtt --attn all over 2*4 + 2048 tokens: above the dense
-    limit, so the attention takes the flash wrappers' plain versions.  The
-    synthetic sets are cut to 16 training images (4 steps: the epoch's
-    eval-BN first step and three train-BN steps) and 8 val / test images."""
-    from moma_tpu_torch.data.pipeline import ArrayDataset
-    from moma_tpu_torch.train import moma as moma_train
-
-    full = moma_train.build_datasets
-
-    def cut(cfg, synthetic):
-        return tuple(ArrayDataset(ds.images[:n], ds.labels[:n])
-                     for ds, n in zip(full(cfg, synthetic), (16, 8, 8)))
-
-    monkeypatch.setattr(moma_train, "build_datasets", cut)
+    limit, so the attention takes the flash wrappers' plain versions."""
     reset_launch_counts()
     argv = [a if a != "64" else "32" for a in ARGS]   # 32^2 images, K below
     i = argv.index("--nce_k")
     argv[i + 1] = "2048"
     state, result = train_student.main(
         argv + ["--feat_dim", "16", "--mem", "MoCoAtt", "--attn", "all",
-                "-b", "1"])
+                "-b", "1", "--save_dir", str(tmp_path)])
     tr = result["train"]
     assert tr["steps"] == 4 and math.isfinite(tr["loss"])
     assert state.queue.ptr == (4 * tr["steps"]) % 2048 and state.step == 4
@@ -131,14 +161,69 @@ def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--save_dir", "/nonexistent"], ["--num_workers", "4"],
-    ["--nce_m", "0.9"], ["--crop", "0.5"], ["--n_folds", "3"],
+    ["--num_workers", "4"], ["--nce_m", "0.9"],
 ])
 def test_flags_the_port_would_ignore_are_refused(extra, capsys):
     argv = [a for a in ARGS if a != "--synthetic"]
     with pytest.raises(SystemExit):
         parse_student_args(argv + extra)
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def _fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if f.name not in ("scoped_vmem_kib", "donate", "device")}
+
+
+@pytest.mark.parametrize("extra", [
+    ["--save_dir", "/tmp/runs"], ["--crop", "0.5", "--image_resize"],
+    ["--fold_idx", "1", "--n_folds", "3"], ["--resume"], ["--fast_teacher"],
+    ["--profile_dir", "/tmp/trace"], ["--skip_validation"],
+    ["--std_pre", "PRE", "--std_strict"],
+    ["--tec_pre", "PRE", "--tec_strict"], ["--grad_clip", "1"],
+    ["--trust_ratio", "1e-3"],
+], ids=lambda e: " ".join(e))
+def test_reference_flags_parse_alike(extra, tmp_path):
+    """Each flag set parses to the same fields in both packages, and the
+    port's slice takes it."""
+    pre = tmp_path / "student.pth"
+    pre.write_bytes(b"")
+    extra = [str(pre) if a == "PRE" else a for a in extra]
+    argv = [a for a in ARGS if a != "--synthetic"]
+    got = parse_student_args(argv + extra)
+    want = j_parse_student_args(
+        [a for a in argv if a not in ("--device", "cpu")] + extra)
+    for part in ("data", "model_s", "model_t", "optim", "distill", "moma",
+                 "run"):
+        assert _fields(getattr(got, part)) == _fields(getattr(want, part)), \
+            part
+    assert got.run_name == want.run_name
+
+
+@pytest.mark.parametrize("bad", [["--fold_idx", "3", "--n_folds", "3"],
+                                 ["--fold_idx", "0", "--n_folds", "1"]])
+def test_fold_choices_are_checked_alike(bad):
+    argv = [a for a in ARGS if a != "--synthetic"]
+    with pytest.raises(ValueError):
+        parse_student_args(argv + bad)
+    with pytest.raises(ValueError):
+        j_parse_student_args([a for a in argv if a not in ("--device",
+                                                           "cpu")] + bad)
+
+
+def test_an_unresolvable_pretrain_tag_raises_at_run_moma(tmp_path,
+                                                         monkeypatch):
+    """--std_pre imagenet parses, and the run raises on the tag, as the
+    JAX package does: it would otherwise train another model."""
+    from moma_tpu_torch.models.pretrained import PretrainResolutionError
+
+    monkeypatch.delenv("MOMA_PRETRAIN_REGISTRY", raising=False)
+    monkeypatch.setenv("MOMA_PRETRAIN_DIR", str(tmp_path / "none"))
+    argv = [a for a in ARGS if a != "--synthetic"]
+    cfg = parse_student_args(argv + ["--std_pre", "imagenet",
+                                     "--save_dir", str(tmp_path)])
+    with pytest.raises(PretrainResolutionError, match="imagenet"):
+        moma_train.run_moma(cfg, synthetic=True)
 
 
 @pytest.mark.parametrize("intervals,want", [
@@ -148,7 +233,7 @@ def test_flags_the_port_would_ignore_are_refused(extra, capsys):
                                               1)),  # a 10 us gap is no gap
 ], ids=["none", "overlap-and-gap", "unsorted"])
 def test_device_busy_takes_the_union_of_intervals(intervals, want):
-    from moma_tpu_torch.cli.profile_step import device_busy
+    from moma_tpu_torch.core.profiling import device_busy
 
     got = device_busy(intervals)
     keys = ("busy_us", "span_us", "idle_share", "largest_gap_us",
@@ -163,7 +248,7 @@ def test_device_busy_takes_the_union_of_intervals(intervals, want):
 def test_profile_step_runs_on_cpu(tmp_path, monkeypatch, extra):
     from moma_tpu_torch.cli import profile_step
 
-    for name in ("WARMUP", "STEPS", "PROFILE_STEPS"):
+    for name in ("WARMUP", "STEPS", "PROFILE_STEPS", "PHASE_ITERS"):
         monkeypatch.setattr(profile_step, name, 1)
     s = profile_step.main([
         "--out", str(tmp_path), "--device", "cpu", "--distill", "moma",

@@ -635,3 +635,99 @@ def test_fused_effnet_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="se"):
         FE.k4_project(yc, torch.zeros(2, 8, device=dev),
                       torch.zeros(3, 8, device=dev), w[:4].contiguous())
+
+
+# the run around the step: checkpoints restore onto the card bit for bit,
+# and the crop computes on the card what it computes on the CPU
+def _small_moma_cfg(save_dir, device):
+    from moma_tpu_torch.core.config import parse_student_args
+
+    return parse_student_args([
+        "--distill", "moma", "--dataset", "prostate_hv", "--model_s",
+        "effiB0", "--model_t", "effiB0", "--image_size", "32",
+        "--batch_size", "4", "--nce_k", "64", "--feat_dim", "16", "--head",
+        "mlp", "--attn", "self", "-b", "1", "--fp32", "--epochs", "1",
+        "--device", device, "--save_dir", str(save_dir)])
+
+
+def _assert_same(saved, restored, path="state"):
+    if isinstance(saved, dict):
+        assert set(saved) == set(restored), path
+        for k in saved:
+            _assert_same(saved[k], restored[k], f"{path}/{k}")
+    elif isinstance(saved, (list, tuple)):
+        for i, (a, b) in enumerate(zip(saved, restored)):
+            _assert_same(a, b, f"{path}/{i}")
+    elif isinstance(saved, torch.Tensor):
+        assert restored.device.type == "cuda", path
+        assert restored.dtype == saved.dtype, path
+        assert torch.equal(restored.cpu(), saved.cpu()), path
+    else:
+        assert saved == restored, path
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A trained state saved from the card and restored onto it: every
+    tensor on the card, equal bit for bit."""
+    from moma_tpu_torch.core.checkpoint import CheckpointManager
+    from moma_tpu_torch.data.pipeline import synthetic_dataset
+    from moma_tpu_torch.train.loop import to_device
+    from moma_tpu_torch.train.moma import (build_state, full_state,
+                                           load_full_state,
+                                           make_moma_train_step)
+    from moma_tpu_torch.train.teacher import augment_fns
+
+    cfg = _small_moma_cfg(tmp_path, "cuda")
+    state = build_state(cfg, dev, steps_per_epoch=2, seed=0)
+    step = make_moma_train_step(cfg, augment_fns(cfg)[0],
+                                kl_train_bn_override=True)
+    ds = synthetic_dataset(4, 32, 4, seed=0)
+    batch = to_device({"image": ds.images, "label": ds.labels}, dev)
+    for i in range(2):
+        state, _ = step(state, batch, torch.Generator().manual_seed(i))
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"), map_location=dev)
+    saved = full_state(state)
+    ckpt.save("latest", saved, {"epoch": 1})
+    restored = ckpt.restore("latest")
+    _assert_same(saved, restored)
+    fresh = build_state(cfg, dev, steps_per_epoch=2, seed=1)
+    load_full_state(fresh, restored)
+    _assert_same(saved, full_state(fresh))
+
+
+def test_cpu_checkpoint_restores_onto_the_card(dev, tmp_path):
+    """map_location follows --device: a checkpoint written by a CPU run
+    loads onto the card, never onto the CPU."""
+    from moma_tpu_torch.core.checkpoint import CheckpointManager
+    from moma_tpu_torch.train.moma import (build_state, full_state,
+                                           load_full_state)
+
+    cpu_state = build_state(_small_moma_cfg(tmp_path, "cpu"),
+                            torch.device("cpu"), steps_per_epoch=2, seed=0)
+    CheckpointManager(str(tmp_path / "ckpt")).save(
+        "latest", full_state(cpu_state), {"epoch": 1})
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"), map_location=dev)
+    restored = ckpt.restore("latest")
+    state = build_state(_small_moma_cfg(tmp_path, "cuda"), dev,
+                        steps_per_epoch=2, seed=1)
+    _assert_same(full_state(cpu_state), restored)
+    load_full_state(state, restored)
+    _assert_same(full_state(cpu_state), full_state(state))
+
+
+@pytest.mark.parametrize("shape,out", [((8, 96, 96, 3), 64),
+                                       ((4, 120, 80, 3), 96)])
+def test_random_resized_crop_cuda_matches_cpu(dev, shape, out):
+    """The crop's float32 products on the card against the CPU's, 1e-4 of
+    the largest value (TF32 off: the dev fixture)."""
+    from moma_tpu_torch.data.augment import random_resized_crop
+
+    x = torch.randint(0, 256, shape, dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(3)).float()
+    want = random_resized_crop(x, torch.Generator().manual_seed(4), out,
+                               scale=(0.2, 1.0))
+    got = random_resized_crop(x.to(dev), torch.Generator().manual_seed(4),
+                              out, scale=(0.2, 1.0))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

@@ -24,7 +24,7 @@ from moma_tpu_torch.models.efficientnet import EfficientNet
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, walk_pairs)
+                                make_init_ordered, quick_jit, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -70,7 +70,7 @@ def test_feature_contract(pair):
 
 def test_eval_forward_matches_jax(pair):
     jm, v, tm, x, _ = pair
-    jf, jl = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+    jf, jl = quick_jit(lambda v, x: jm.apply(v, x, train=False))(
         v, jnp.asarray(x))
     tm.eval()
     with torch.no_grad():
@@ -90,7 +90,7 @@ def test_train_forward_backward_stats_match_jax(pair):
         return (jnp.sum(logits * w) + jnp.sum(feats[-1]) * 1e-2,
                 (feats, logits, mut["batch_stats"]))
 
-    (_, (jf, jl, jbs)), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+    (_, (jf, jl, jbs)), jg = quick_jit(jax.value_and_grad(loss, has_aux=True))(
         v["params"], jnp.asarray(x))
 
     load_jax_variables(tm, v)  # fresh running statistics

@@ -29,7 +29,7 @@ from moma_tpu_torch.moma import cmo as tcmo
 from moma_tpu_torch.ops import flash_attention as FA
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
-from torch_port_helpers import ordered_numpy
+from torch_port_helpers import ordered_numpy, quick_jit
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -59,16 +59,20 @@ def _interpret_run(q, k, v, w, dtype=jnp.float32):
     bq = 16 if N % 16 == 0 else 20
     bk = 16
     npad = -(-N // bk) * bk
-    q, k, v, w = (jnp.asarray(a, dtype) for a in (q, k, v, w))
-    kp = jnp.pad(k, ((0, 0), (0, npad - N), (0, 0)))
-    vp = jnp.pad(v, ((0, 0), (0, npad - N), (0, 0)))
     n_real = N if npad != N else None
-    o, m, l = JFA._flash_forward(q, kp, vp, scale, bq, bk, n_real=n_real,
-                                 interpret=True)
-    dq, dk, dv = JFA._flash_backward(q, kp, vp, o, m, l, w, scale, bq, bk,
+
+    # one program (eagerly, every op and kernel call compiles alone)
+    def run(q, k, v, w):
+        kp = jnp.pad(k, ((0, 0), (0, npad - N), (0, 0)))
+        vp = jnp.pad(v, ((0, 0), (0, npad - N), (0, 0)))
+        o, m, l = JFA._flash_forward(q, kp, vp, scale, bq, bk,
                                      n_real=n_real, interpret=True)
-    return [np.asarray(a, np.float32) for a in
-            (o, m, l, dq, dk[:, :N], dv[:, :N])]
+        dq, dk, dv = JFA._flash_backward(q, kp, vp, o, m, l, w, scale, bq,
+                                         bk, n_real=n_real, interpret=True)
+        return o, m, l, dq, dk[:, :N], dv[:, :N]
+
+    out = quick_jit(run)(*(jnp.asarray(a, dtype) for a in (q, k, v, w)))
+    return [np.asarray(a, np.float32) for a in out]
 
 
 def _chunked_run(q, k, v, w, dtype=jnp.float32, chunk=48):
@@ -79,7 +83,8 @@ def _chunked_run(q, k, v, w, dtype=jnp.float32, chunk=48):
         o = JFA.streaming_attention(q, k, v, scale, False, chunk)
         return jnp.sum(o.astype(jnp.float32) * w), o
 
-    grads, o = jax.grad(loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    grads, o = quick_jit(jax.grad(loss, argnums=(0, 1, 2), has_aux=True))(
+        q, k, v)
     return [np.asarray(o, np.float32)] + [np.asarray(g, np.float32)
                                           for g in grads]
 
@@ -154,8 +159,10 @@ def test_batch_token_attention_big_matches_dense(N, monkeypatch):
             y = jmod.apply({"params": p}, x)
         return jnp.sum(y * w), y
 
-    (jg_dense, jy_dense) = jax.grad(jloss, has_aux=True)(params, False)
-    (jg_big, jy_big) = jax.grad(jloss, has_aux=True)(params, True)
+    (jg_dense, jy_dense) = quick_jit(jax.grad(
+        lambda p: jloss(p, False), has_aux=True))(params)
+    (jg_big, jy_big) = quick_jit(jax.grad(
+        lambda p: jloss(p, True), has_aux=True))(params)
 
     tmod = tcmo.BatchTokenAttention(C, num_heads=H)
     load_jax_variables(tmod, {"params": params})

@@ -19,6 +19,8 @@ from flax import linen as nn
 from moma_tpu.ops import fused_bn as JFB
 from moma_tpu_torch.ops import fused_bn as FB
 
+from torch_port_helpers import quick_jit
+
 SHAPES = [
     ((8, 16, 16, 24), "float32"),
     ((8, 16, 16, 32), "bfloat16"),
@@ -75,8 +77,8 @@ def _jax_bn(x, scale, bias, w, dtype, ra_mean, ra_var):
         y, mut = mod.apply(v, x, mutable=["batch_stats"])
         return jnp.sum(y.astype(jnp.float32) * w), (y, mut["batch_stats"])
 
-    (_, (y, bs)), g = jax.value_and_grad(loss, argnums=(0, 1, 2),
-                                         has_aux=True)(x, scale, bias)
+    (_, (y, bs)), g = quick_jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(x, scale, bias)
     return y, bs, g
 
 

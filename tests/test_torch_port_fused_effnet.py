@@ -43,7 +43,7 @@ from moma_tpu_torch.train.moma import ema_update
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, walk_pairs)
+                                make_init_ordered, quick_jit, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -261,14 +261,14 @@ def test_fused_forward_matches_pallas_path_and_flax(pair, train):
     jm, v, x = pair
     jparams, jspecs = JFE.extract_params(v)
     # jitted: eager dispatch of a whole forward costs several times as much
-    jp, jl, jc = jax.jit(lambda p, xx: JFEP.fused_forward(
+    jp, jl, jc = quick_jit(lambda p, xx: JFEP.fused_forward(
         p, jspecs, xx, train=train, interpret=True,
         compute_dtype=jnp.float32))(jparams, jnp.asarray(x))
     if train:
-        (ff, fl), _ = jax.jit(lambda vv, xx: jm.apply(
+        (ff, fl), _ = quick_jit(lambda vv, xx: jm.apply(
             vv, xx, train=True, mutable=["batch_stats"]))(v, jnp.asarray(x))
     else:
-        ff, fl = jax.jit(lambda vv, xx: jm.apply(vv, xx, train=False))(
+        ff, fl = quick_jit(lambda vv, xx: jm.apply(vv, xx, train=False))(
             v, jnp.asarray(x))
 
     params, specs = FE.extract_params(_port_model(v))
@@ -288,7 +288,7 @@ def test_fused_forward_matches_pallas_path_and_flax(pair, train):
 def test_reference_forward_matches_jax_reference(pair):
     _, v, x = pair
     jparams, jspecs = JFE.extract_params(v)
-    jp, jl, jc = jax.jit(lambda p, xx: JFE.reference_forward(
+    jp, jl, jc = quick_jit(lambda p, xx: JFE.reference_forward(
         p, jspecs, xx, train=True, compute_dtype=jnp.float32))(
         jparams, jnp.transpose(jnp.asarray(x), (0, 3, 1, 2)))
     params, specs = FE.extract_params(_port_model(v))
@@ -303,7 +303,7 @@ def test_reference_forward_matches_jax_reference(pair):
 
 def test_updated_batch_stats_match_flax(pair):
     jm, v, x = pair
-    _, mut = jax.jit(lambda vv, xx: jm.apply(
+    _, mut = quick_jit(lambda vv, xx: jm.apply(
         vv, xx, train=True, mutable=["batch_stats"]))(v, jnp.asarray(x))
     tm = _port_model(v)
     params, specs = FE.extract_params(tm)

@@ -60,7 +60,8 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy, walk_pairs)
+                                make_init_ordered, ordered_numpy, quick_jit,
+                                walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -161,6 +162,15 @@ def test_step_moco_att_matches_jax(attn):
     ts = TQ.QueueState({"memory": _t(mem.copy())})
     js = JQ.QueueState(memory={"memory": jnp.asarray(mem)},
                        ptr=jnp.zeros((), jnp.int32))
+
+    def jloss(qq, params, k, all_k, state):
+        lg, new = JQ.step_moco_att(state, qq, k, all_k, TEMP, attn,
+                                   jh.attn_fns(params))
+        return JQ.contrast_ce(lg), (lg, new)
+
+    # one program for the three steps (eagerly, every op compiles alone)
+    jgrad = quick_jit(jax.value_and_grad(jloss, argnums=(0, 1),
+                                         has_aux=True))
     for step in range(3):   # the pointer wraps at 10 on the third step
         q, k, all_k = (rs.randn(B_Q, feat).astype(np.float32)
                        for _ in range(3))
@@ -169,16 +179,9 @@ def test_step_moco_att_matches_jax(attn):
         t_logits, ts = TQ.step_moco_att(ts, tq, _t(k), _t(all_k), TEMP, attn,
                                         th.attn_fns())
         TQ.contrast_ce(t_logits).backward()
-
-        def jloss(qq, params, state=js):
-            lg, new = JQ.step_moco_att(state, qq, jnp.asarray(k),
-                                       jnp.asarray(all_k), TEMP, attn,
-                                       jh.attn_fns(params))
-            return JQ.contrast_ce(lg), (lg, new)
-
-        (_, (j_logits, js)), (j_dq, j_dp) = jax.value_and_grad(
-            jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(q),
-                                                 variables["params"])
+        (_, (j_logits, js)), (j_dq, j_dp) = jgrad(
+            jnp.asarray(q), variables["params"], jnp.asarray(k),
+            jnp.asarray(all_k), js)
         # the attention parameters' gradients, in the JAX layout
         t_dp = convert_state_dict(
             {n: (np.zeros(p.shape, np.float32) if p.grad is None
@@ -321,6 +324,8 @@ def _jax_run(backbones, setup, cfg, programs, batches, augment):
     if "tx" not in _JAX_PROGRAMS:
         _JAX_PROGRAMS["tx"] = j_make_sgd(
             j_lr_schedule(LR, EPOCHS, STEPS_PER_EPOCH, cosine=True), 0.9, 5e-4)
+        # one jitted init: eagerly, its zeros compile one program per shape
+        _JAX_PROGRAMS["tx_init"] = jax.jit(_JAX_PROGRAMS["tx"].init)
     tx = _JAX_PROGRAMS["tx"]
     params = {"student": vs["params"], "cmo": cmo["params"]}
     state = JState(
@@ -330,7 +335,8 @@ def _jax_run(backbones, setup, cfg, programs, batches, augment):
         queue=JQ.QueueState(
             memory={n: jnp.asarray(m) for n, m in mems.items()},
             ptr=jnp.zeros((), jnp.int32)),
-        opt_state=tx.init(params), tx=tx, apply_fn=model.apply,
+        opt_state=_JAX_PROGRAMS["tx_init"](params), tx=tx,
+        apply_fn=model.apply,
         teacher_apply_fn=model.apply)
     steps = {}
     for flag in set(programs):

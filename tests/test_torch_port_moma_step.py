@@ -27,6 +27,9 @@ port's channel sums vs flax's mean), so:
   step and 1.9e-3 after three; a KL gradient 10% off gives 1.1e-2 and
   0.42 (measured on the CPU with a deliberately wrong copy of the step).
 
+With `fast_teacher` (one step) the KL logits are the key forward's, in
+both packages, held to the one-step tolerances.
+
 The same runs with `fused_teacher='on'` (both teacher forwards through the
 fused EfficientNet forward of each package) are held to the same
 tolerances, with the teacher's running statistics compared after every
@@ -79,19 +82,20 @@ B, HW, N_CLS, K, FEAT = 4, 64, 4, 64, 32
 ALPHA, LR, EPOCHS, STEPS_PER_EPOCH = 0.99, 0.05, 5, 4
 
 
-def _cfgs(fused="off"):
+def _cfgs(fused="off", fast=False):
     jc = JConfig()
     jc.model_t = JModel(name="effiB0", n_cls=N_CLS)
     jc.distill = JDistill(distill="moma", cls=1.0, div=1.0, beta=1.0)
     jc.moma = JMoma(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
-                    mem="MoCo", head="mlp", attn="self", fused_teacher=fused)
+                    mem="MoCo", head="mlp", attn="self", fused_teacher=fused,
+                    fast_teacher=fast)
     tc = Config()
     tc.model_s = ModelConfig(name="effiB0", n_cls=N_CLS)
     tc.model_t = ModelConfig(name="effiB0", n_cls=N_CLS)
     tc.distill = DistillConfig(distill="moma", cls=1.0, div=1.0, beta=1.0)
     tc.moma = MomaConfig(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
                          mem="MoCo", head="mlp", attn="self",
-                         fused_teacher=fused)
+                         fused_teacher=fused, fast_teacher=fast)
     return jc, tc
 
 
@@ -126,10 +130,10 @@ def _batches(n):
 _JAX_PROGRAMS = {}
 
 
-def _jax_run(init_vars, programs, batches, fused="off"):
+def _jax_run(init_vars, programs, batches, fused="off", fast=False):
     """Returns (state, metrics per step, teacher batch_stats per step)."""
     model, jheads, vs, vt, cmo, mem = init_vars
-    jc, _ = _cfgs(fused)
+    jc, _ = _cfgs(fused, fast)
     # one optimizer and one jitted step per (route, BN mode) for the whole
     # module: a later test on the same process reuses the compiled program
     # (the optimizer is a static field of the state, so it must be the same
@@ -137,6 +141,8 @@ def _jax_run(init_vars, programs, batches, fused="off"):
     if "tx" not in _JAX_PROGRAMS:
         _JAX_PROGRAMS["tx"] = j_make_sgd(
             j_lr_schedule(LR, EPOCHS, STEPS_PER_EPOCH, cosine=True), 0.9, 5e-4)
+        # one jitted init: eagerly, its zeros compile one program per shape
+        _JAX_PROGRAMS["tx_init"] = jax.jit(_JAX_PROGRAMS["tx"].init)
     tx = _JAX_PROGRAMS["tx"]
     params = {"student": vs["params"], "cmo": cmo["params"]}
     state = JState(
@@ -145,11 +151,12 @@ def _jax_run(init_vars, programs, batches, fused="off"):
         teacher_params=vt["params"], teacher_batch_stats=vt["batch_stats"],
         queue=JQueue(memory={"memory": jnp.asarray(mem)},
                      ptr=jnp.zeros((), jnp.int32)),
-        opt_state=tx.init(params), tx=tx, apply_fn=model.apply,
+        opt_state=_JAX_PROGRAMS["tx_init"](params), tx=tx,
+        apply_fn=model.apply,
         teacher_apply_fn=model.apply)
     steps = {}
     for flag in set(programs):
-        key = (id(jheads), fused, flag)
+        key = (id(jheads), fused, fast, flag)
         if key not in _JAX_PROGRAMS:
             _JAX_PROGRAMS[key] = j_make_step(
                 jc, jheads, augment_fn=None, donate=False,
@@ -164,9 +171,9 @@ def _jax_run(init_vars, programs, batches, fused="off"):
     return state, metrics, teacher_bs
 
 
-def _torch_run(init_vars, programs, batches, fused="off"):
+def _torch_run(init_vars, programs, batches, fused="off", fast=False):
     _, _, vs, vt, cmo, mem = init_vars
-    _, tc = _cfgs(fused)
+    _, tc = _cfgs(fused, fast)
     student = EfficientNet("b0", num_classes=N_CLS)
     teacher = EfficientNet("b0", num_classes=N_CLS)
     heads = CMOHeads("mlp", "self", FEAT, s_dim=1280, t_dim=1280)
@@ -195,14 +202,16 @@ def _torch_run(init_vars, programs, batches, fused="off"):
     return state, metrics, teacher_bs
 
 
-@pytest.mark.parametrize("programs,rtol,div_rtol,upd_rtol", [
-    ((False,), 1e-4, 5e-4, 2e-3),
-    ((True,), 1e-4, 5e-4, 2e-3),
-    ((False, True, True), 1e-3, 3e-3, 1e-2),
-], ids=["1step-evalbn", "1step-trainbn", "3step-exact"])
+@pytest.mark.parametrize("programs,rtol,div_rtol,upd_rtol,fast", [
+    ((False,), 1e-4, 5e-4, 2e-3, False),
+    ((True,), 1e-4, 5e-4, 2e-3, False),
+    ((False, True, True), 1e-3, 3e-3, 1e-2, False),
+    ((True,), 1e-4, 5e-4, 2e-3, True),
+], ids=["1step-evalbn", "1step-trainbn", "3step-exact", "1step-fast_teacher"])
 def test_moma_step_matches_jax(init_vars, programs, rtol, div_rtol,
-                               upd_rtol):
-    _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, "off")
+                               upd_rtol, fast):
+    _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, "off",
+                       fast)
 
 
 @pytest.mark.parametrize("programs,rtol,div_rtol,upd_rtol", [
@@ -245,10 +254,11 @@ def test_fused_teacher_needs_an_efficientnet_teacher():
         make_teacher_forward(tc)
 
 
-def _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, fused):
+def _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, fused,
+                       fast=False):
     batches = _batches(len(programs))
-    js, jm, jbs = _jax_run(init_vars, programs, batches, fused)
-    ts, tm, tbs = _torch_run(init_vars, programs, batches, fused)
+    js, jm, jbs = _jax_run(init_vars, programs, batches, fused, fast)
+    ts, tm, tbs = _torch_run(init_vars, programs, batches, fused, fast)
     _, _, vs, vt, cmo, _ = init_vars
 
     for step, (got, ref) in enumerate(zip(tbs, jbs)):

@@ -3,7 +3,8 @@
 The port keeps its own numpy copy of the host pipeline so that its training
 path imports nothing of the JAX package; these tests hold the copy to the
 original: the same synthetic images and labels for a seed, the same train
-batch order per epoch, and the same padded last eval batch and mask.
+batch order per epoch (also from a mid-epoch start), and the same padded
+last eval batch and mask.
 """
 
 import numpy as np
@@ -37,6 +38,28 @@ def test_train_loader_order_matches(seed, epochs):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g["image"], w["image"])
             np.testing.assert_array_equal(g["label"], w["label"])
+
+
+@pytest.mark.parametrize("start", [1, 3, 4])
+def test_train_loader_starts_mid_epoch_alike(start):
+    """set_start_batch (a resume from a preemption save) skips the first
+    batches of the epoch's order; the setting persists until changed."""
+    data = JP.synthetic_dataset(37, 8, 5, seed=1)
+    got_l = TP.Loader(TP.ArrayDataset(data.images, data.labels), 8,
+                      train=True, seed=3)
+    want_l = JP.Loader(data, 8, train=True, seed=3)
+    full = [b["label"] for b in got_l]
+    for loader in (got_l, want_l):
+        loader.set_epoch(2)
+        loader.set_start_batch(start)
+    got, want = list(got_l), list(want_l)
+    assert len(got) == len(want) == 4 - start
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["image"], w["image"])
+        np.testing.assert_array_equal(g["label"], w["label"])
+    got_l.set_epoch(0)
+    assert [b["label"].tolist() for b in got_l] == [
+        x.tolist() for x in full[start:]]
 
 
 @pytest.mark.parametrize("n", [32, 37])

@@ -20,6 +20,8 @@ from moma_tpu.ops import pallas_randaugment as JPR
 from moma_tpu_torch.data import randaugment as RA
 from moma_tpu_torch.ops import randaugment as RK
 
+from torch_port_helpers import quick_jit
+
 FILL = (124.0, 116.0, 104.0)
 EXACT_OPS = (0, 1, 2, 4, 5, 6, RA.IDENTITY_OP)
 
@@ -36,11 +38,17 @@ def _draws(seed, B, op=None, prob=1.0, flip_p=0.5):
     }
 
 
+def _jax_layer(x, op, mag, sign, apply, hflip):
+    return JPR.ra_layer_from_draws(x, op, mag, sign, apply, FILL,
+                                   interpret=True, hflip=hflip)
+
+
 def _both(x, d):
-    want = JPR.ra_layer_from_draws(
+    # one program (eagerly, every op and kernel call compiles alone)
+    want = quick_jit(_jax_layer)(
         jnp.asarray(x), jnp.asarray(d["op"]), jnp.asarray(d["mag"]),
-        jnp.asarray(d["sign"]), jnp.asarray(d["apply"]), FILL,
-        interpret=True, hflip=jnp.asarray(d["hflip"]))
+        jnp.asarray(d["sign"]), jnp.asarray(d["apply"]),
+        jnp.asarray(d["hflip"]))
     got = RK.ra_layer_from_draws(
         torch.from_numpy(x), torch.from_numpy(d["op"]).long(),
         torch.from_numpy(d["mag"]), torch.from_numpy(d["sign"]),
@@ -138,11 +146,14 @@ def test_rand_augment_matches_chained_kernel_layers():
     x = x.astype(jnp.bfloat16)
     for i in range(2):
         d = RA.draw_layer(B, g, 10.0, 0.5)
-        x = JPR.ra_layer_from_draws(
-            x, jnp.asarray(d["op"].numpy()), jnp.asarray(d["mag"].numpy()),
-            jnp.asarray(d["sign"].numpy()), jnp.asarray(d["apply"].numpy()),
-            FILL, interpret=True, out_dtype=jnp.bfloat16,
-            hflip=jnp.asarray(flips) if i == 0 else None)
+        layer = quick_jit(lambda x, op, mag, sign, apply, *flip:
+                          JPR.ra_layer_from_draws(
+                              x, op, mag, sign, apply, FILL, interpret=True,
+                              out_dtype=jnp.bfloat16,
+                              hflip=flip[0] if flip else None))
+        x = layer(x, *(jnp.asarray(d[k].numpy()) for k in
+                       ("op", "mag", "sign", "apply")),
+                  *((jnp.asarray(flips),) if i == 0 else ()))
     want = np.asarray(jnp.transpose(x.astype(jnp.float32), (0, 2, 3, 1)))
     assert got.shape == (B, S, S, 3) and got.dtype == np.float32
     print(f"{int((got != want).sum())} differing pixels")
