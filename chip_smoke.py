@@ -9,7 +9,9 @@ with `--fused_teacher on` (both teacher forwards through the fused
 EfficientNet forward), and checks that every train-mode BatchNorm,
 RandAugment layer, many-token attention and fused MBConv block went through
 the hand-written kernels; then the run around the step (checkpoints,
---resume, preemption, test_eval, pretrained weights, the resized crop).
+--resume, preemption, test_eval, pretrained weights, the resized crop);
+then config #5, cross-arch MoMA: a ViT-S/16 teacher and an effiB0 student
+at 224^2 in EmaTec mode (CROSS_ARGS).
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -28,16 +30,18 @@ Phases (each prints its own lines):
                  function, that call's time (library; used nowhere in the
                  package; for dq and dk/dv also their share of the
                  library's backward by operations); the BN sums' achieved
-                 GB/s, and channel_sums at the 49 BatchNorm inputs of one
-                 effiB0@512^2 batch-64 forward, summed beside the summed
-                 bound; the three fused-EfficientNet kernels at each of
-                 the 16 effiB0 block shapes of a 512^2 input, each launch
+                 GB/s at the effiB0@512 and @224 shapes, and channel_sums
+                 at the 49 BatchNorm inputs of one effiB0 batch-64 forward
+                 at 512^2 and at 224^2, summed beside the summed bound;
+                 the three fused-EfficientNet kernels at each of the 16
+                 effiB0 block shapes of a 512^2 input, each launch
                  beside its bound (bytes, products, taps; the silu's
                  special-function work shown beside it) and its launch
                  plan, and their sums over one forward; the RandAugment
                  layer per op class beside its bound, with its differing
-                 pixels and its kernel launches a layer, and the device
-                 operations of one main-path augment (a profiler trace)
+                 pixels and its kernel launches a layer, at 512^2 and at
+                 224^2, and the device operations of one main-path augment
+                 (a profiler trace)
   4 forward    : the fused EfficientNet forward against the module forward
                  on the card, same weights: f32 (TF32 off) at 64^2 and
                  512^2, train and eval mode, then bf16 at batch 64, 512^2
@@ -45,8 +49,9 @@ Phases (each prints its own lines):
   5 step parity: one MoMA step at 64^2, batch 4, f32 on the CPU (plain
                  versions) and on the card (kernels), same weights and
                  draws; MoCo at K=64, MoCoAtt 'all' at K=2048 (2056 tokens,
-                 the streaming route on both devices), then MoCo with
-                 --fused_teacher on
+                 the streaming route on both devices), MoCo with
+                 --fused_teacher on, then cross-arch MoCo with a ViT-S/16
+                 teacher (the student and the EMA copy compared)
   6 main paths : `python -m moma_tpu_torch.cli.train_student ...` in-process,
                  MoCo, MoCoAtt, then MoCo with --fused_teacher on; finite
                  losses, queue pointer, launch counts (set to 0 just before
@@ -64,8 +69,15 @@ Phases (each prints its own lines):
                  steps with --image_resize (launch counts) and the crop's
                  device time a batch beside the augment's; (g) --resume
                  round trips with --fused_teacher on and MoCoAtt 'all'; then
-                 2 steps with --profile_dir and the trace's top 5.  Every run
-                 writes under a temporary --save_dir, removed at exit
+                 2 steps with --profile_dir and the trace's top 5
+  8 cross-arch : CROSS_ARGS through the CLI, 4 steps: launch counts (the
+                 student's and the EMA copy's train-mode BatchNorms, no
+                 flash or fused kernel), the fixed teacher bit for bit
+                 unchanged, the EMA copy after one step, step time, img/s,
+                 peak memory; a --resume round trip at 1 step an epoch
+                 (every tensor, the EMA copy's too); one --mem MoCoST step
+                 (memory_s and memory_t rows differ).  Every run writes
+                 under a temporary --save_dir, removed at exit
 The last three lines of stdout are one JSON object with the per-kernel
 results, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -96,6 +108,21 @@ MAIN_ARGS = [
 ]
 MOCOATT_ARGS = [
     {"MoCo": "MoCoAtt", "self": "all"}.get(a, a) for a in MAIN_ARGS]
+
+
+def with_flags(args, **flags):
+    """A copy of `args` with the given --flag values replaced."""
+    out = list(args)
+    for k, v in flags.items():
+        out[out.index(f"--{k}") + 1] = v
+    return out
+
+
+# config #5 (BASELINE.md:55, tests/test_moma_cross_arch.py): a ViT-S/16
+# teacher (dim 384, depth 12, 6 heads, 197 tokens) and an effiB0 student at
+# 224^2 in cross-arch EmaTec mode, otherwise the MoCo main path's flags
+CROSS_ARGS = with_flags(MAIN_ARGS, model_t="vit_small_patch16_224",
+                        image_size="224")
 # peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, the
 # float32 rate outside the tensor cores (for float32 operands), and the dense
 # bf16 tensor-core rate (for products of bf16 operands accumulated in float32)
@@ -119,9 +146,13 @@ FLASH_ITERS = 5
 # differ in the order of their float32 sums (16512 terms); in bf16 both
 # round p and ds to bf16, a few land on the other side of a rounding edge
 FLASH_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
-BN_SHAPES = [(64, 256, 256, 32), (64, 256, 256, 96), (64, 16, 16, 1280)]
+# effiB0 BatchNorm inputs: the largest and the head's at 512^2 (the main
+# paths), then at 224^2 (the cross-arch path: 64*7*7 = 3136 rows of 1280)
+BN_SHAPES = [(64, 256, 256, 32), (64, 256, 256, 96), (64, 16, 16, 1280),
+             (64, 112, 112, 32), (64, 112, 112, 96), (64, 7, 7, 1280)]
 BN_RTOL = 1e-4      # of sum|x| per channel: the bound of an f32 sum's error
 RA_SHAPE = (64, 3, 512, 512)
+RA_SHAPE_224 = (64, 3, 224, 224)   # the cross-arch path: 448-byte bf16 rows
 RA_ATOL = 1.0       # pixels are integers 0..255; the kernel should be exact
 RA_FILL = (124.0, 116.0, 104.0)
 FUSED_ARGS = MAIN_ARGS + ["--fused_teacher", "on"]
@@ -1033,7 +1064,8 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
         device = torch.device(dev)
         state = build_state(cfg, device, steps_per_epoch=4, seed=0)
         step = make_moma_train_step(cfg, augment_fns(cfg)[0],
-                                    kl_train_bn_override=True)
+                                    kl_train_bn_override=True,
+                                    cross_arch=state.ema is not None)
         state, m = step(state, to_device(batch, device),
                         torch.Generator().manual_seed(5))
         out[dev] = (m, state)
@@ -1043,24 +1075,32 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
         a, b = float(mc[k]), float(mg[k])
         if not abs(a - b) <= 1e-3 * abs(a) + 1e-5:
             raise AssertionError(f"step parity {k}: cpu {a} vs cuda {b}")
-    pairs = [(pc.detach(), pg.detach().cpu()) for pc, pg in
-             zip(sc.student.parameters(), sg.student.parameters())]
-    # per-tensor relative error; tensors that are zero up to float noise
-    # (a BN bias feeding the next train-mode BN has a zero gradient) are
-    # held to 1e-3 of the largest parameter instead of their own size
-    floor = 1e-3 * max(float(pc.abs().max()) for pc, _ in pairs)
-    worst = max(float((pc - pg).abs().max())
-                / max(float(pc.abs().max()), floor) for pc, pg in pairs)
+    # the student, and in cross-arch mode the EMA copy: per-tensor
+    # relative error; tensors that are zero up to float noise (a BN bias
+    # feeding the next train-mode BN has a zero gradient) are held to 1e-3
+    # of the largest parameter instead of their own size
+    worst = 0.0
+    for net in ("student", "ema"):
+        if getattr(sc, net) is None:
+            continue
+        pairs = [(pc.detach(), pg.detach().cpu()) for pc, pg in
+                 zip(getattr(sc, net).parameters(),
+                     getattr(sg, net).parameters())]
+        floor = 1e-3 * max(float(pc.abs().max()) for pc, _ in pairs)
+        worst = max([worst] + [float((pc - pg).abs().max())
+                               / max(float(pc.abs().max()), floor)
+                               for pc, pg in pairs])
     qerr = float((sc.queue.memory["memory"]
                   - sg.queue.memory["memory"].cpu()).abs().max())
     if not (worst <= 1e-3 and qerr <= 1e-3):
-        raise AssertionError(f"step parity: student params rel {worst:.2e}, "
-                             f"queue {qerr:.2e}")
+        raise AssertionError(f"step parity: student (and EMA copy) params "
+                             f"rel {worst:.2e}, queue {qerr:.2e}")
     log(f"[parity] {mem}/{attn} K={nce_k} {' '.join(extra)} 64^2 f32 step cpu "
         f"vs cuda: loss "
         f"{float(mc['loss']):.6f} vs {float(mg['loss']):.6f}; loss_kd "
         f"{float(mc['loss_kd']):.6f} vs {float(mg['loss_kd']):.6f}; student "
-        f"params max rel diff {worst:.2e}; queue max diff {qerr:.2e}")
+        f"{'and EMA copy ' if sc.ema is not None else ''}params max rel "
+        f"diff {worst:.2e}; queue max diff {qerr:.2e}")
 
 
 def expected_launches(state, n, flash_per_step=0, fused=False):
@@ -1070,8 +1110,10 @@ def expected_launches(state, n, flash_per_step=0, fused=False):
                if type(m).__name__ == "FusedBatchNorm")
     # first batch: eval-BN KL forward ('exact'), so student + key forwards;
     # later batches add the train-BN KL forward: 2n - 1 train-mode teacher
-    # forwards and 2n teacher forwards in all
-    want = {"channel_sums": n_bn * n + n_bn * (2 * n - 1),
+    # forwards and 2n teacher forwards in all.  Cross-arch: the student and
+    # the EMA copy's key forward a step, the fixed teacher in eval mode
+    teacher_train = n if state.ema is not None else 2 * n - 1
+    want = {"channel_sums": n_bn * n + n_bn * teacher_train,
             "grad_channel_sums": n_bn * n,
             "ra_layer": 2 * n, "ra_layer_kernels": 4 * n,
             "flash_fwd": flash_per_step * n,
@@ -1172,9 +1214,13 @@ def _tensors(tree, path=""):
 
 def _state_gap(got, want):
     """max over tensors of max|got - want| / max(max|want|, group floor),
-    the groups being student, teacher, heads, queue, optimizer."""
+    the groups being student, teacher, heads, queue, optimizer and, in
+    cross-arch runs, the EMA copy."""
     worst, where = 0.0, ""
-    for group in ("student", "teacher", "heads", "queue", "optimizer"):
+    if set(got) != set(want):
+        raise AssertionError(f"state groups {sorted(got)} != {sorted(want)}")
+    for group in [g for g in ("student", "teacher", "heads", "queue",
+                              "optimizer", "ema") if g in want]:
         pairs = dict(_tensors(want[group]))
         floor = 1e-3 * max((float(t.float().abs().max()) for t in
                             pairs.values() if t.numel()), default=0.0)
@@ -1511,29 +1557,110 @@ def phase_persistence(dev="cuda", image=512, batch=64):
     log(f"[persist] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase_cross_arch: the EMA copy after one step against alpha * ema + (1 -
+# alpha) * student(pre-step), computed here by the same float32 operations:
+# 1e-6 of each tensor's largest magnitude
+EMA_RTOL = 1e-6
+
+
+def phase_cross_arch(batch=64):
+    """Config #5 through the CLI: 4 steps of CROSS_ARGS (launch counts, the
+    fixed teacher bit for bit unchanged, the EMA copy after the first step,
+    step time, img/s, peak memory), then a --resume round trip at 1 step an
+    epoch (every tensor of the final state, the EMA copy's too) and one
+    --mem MoCoST step (memory_s and memory_t take other keys)."""
+    import torch
+
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.core.config import parse_student_args
+
+    t_phase = time.perf_counter()
+    alpha = parse_student_args(
+        [a for a in CROSS_ARGS if a != "--synthetic"]).moma.alpha
+    seen = {}
+
+    def before(state, n):
+        if n == 1:
+            seen["teacher"] = {k: v.clone() for k, v in
+                               state.teacher.state_dict().items()}
+            seen["want"] = [alpha * e.detach() + (1 - alpha) * p.detach()
+                            for e, p in zip(state.ema.parameters(),
+                                            state.student.parameters())]
+
+    def after(state, n):
+        if n == 1:
+            seen["ema_gap"] = max(
+                float((e - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for e, w in zip(state.ema.parameters(), seen["want"]))
+        for k, v in state.teacher.state_dict().items():
+            if not torch.equal(v, seen["teacher"][k]):
+                raise AssertionError(f"cross-arch step {n} changed the fixed "
+                                     f"teacher's {k}")
+        seen["steps"] = n
+
+    with _wrapped_steps(before, after):
+        counts = phase_main_path(CROSS_ARGS, "cross_arch")
+    if not seen["ema_gap"] <= EMA_RTOL:
+        raise AssertionError(f"EMA copy after one step: gap {seen['ema_gap']:.2e}"
+                             f" of max|want| > {EMA_RTOL}")
+    log(f"[cross_arch] fixed teacher bit for bit unchanged over "
+        f"{seen['steps']} steps; EMA copy after step 1 within "
+        f"{seen['ema_gap']:.2e} of alpha*ema + (1-alpha)*student "
+        f"(alpha {alpha}, limit {EMA_RTOL})")
+
+    s_re, _, _, loss_gap, gap, where = _round_trip(CROSS_ARGS, "x_resume",
+                                                   (batch,) * 3)
+    log(f"[cross_arch] 1 + 1 epochs (1 step each) with --resume vs 2 "
+        f"straight: step losses rel gap {loss_gap:.2e}, state max rel gap "
+        f"{gap:.2e}{' at ' + where if where else ''} (the EMA copy's "
+        f"tensors in it); queue_ptr {s_re.queue.ptr}")
+
+    root = SAVE_ROOT
+    _set_root(os.path.join(root, "x_mocost"))
+    with _cut_sets((batch,) * 3):
+        s_st, r_st = train_student.main(_args(
+            with_flags(CROSS_ARGS, mem="MoCoST"), 1))
+    _set_root(root)
+    ms = s_st.queue.memory["memory_s"][:batch].float()
+    mt = s_st.queue.memory["memory_t"][:batch].float()
+    diff = float((ms - mt).abs().sum())
+    if not (diff > 1e-3 and math.isfinite(r_st["train"]["loss"])):
+        raise AssertionError(f"cross-arch MoCoST: memory_s vs memory_t rows "
+                             f"differ by {diff}, loss {r_st['train']['loss']}")
+    log(f"[cross_arch] --mem MoCoST, 1 step: loss "
+        f"{r_st['train']['loss']:.4f}; memory_s and memory_t rows 0-{batch - 1}"
+        f" differ by {diff:.3f} (sum |.|: the EMA copy's keys against the "
+        f"fixed teacher's)")
+    log(f"[cross_arch] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
 
+    t0 = time.perf_counter()
     name_power = phase_device()
     top = tempfile.mkdtemp(prefix="chip_smoke_")
     _set_root(top)
     try:
-        return _run(name_power)
+        return _run(name_power, t0)
     finally:
         shutil.rmtree(top, ignore_errors=True)
 
 
-def _run(name_power) -> int:
+def _run(name_power, t0) -> int:
     import torch
 
     phase_build()
     results = {}
     phase_bn_kernels(results)
     phase_bn_forward()
+    phase_bn_forward(image=224)
     phase_ra_kernel(results)
+    phase_ra_kernel({}, shape=RA_SHAPE_224)
     phase_augment_launches()
     phase_flash_kernels(results)
     phase_fe_kernels(results)
@@ -1541,12 +1668,14 @@ def _run(name_power) -> int:
     phase_step_parity()
     phase_step_parity("MoCoAtt", "all", "2048")
     phase_step_parity(extra=("--fused_teacher", "on"))
+    phase_step_parity(extra=("--model_t", "vit_small_patch16_224"))
     counts = phase_main_path()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
     phase_persistence()
+    cross_counts = phase_cross_arch()
     # a kernel's launches: those of the first main path that runs it
-    for later in (att_counts, fused_counts):
+    for later in (att_counts, fused_counts, cross_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
@@ -1555,6 +1684,8 @@ def _run(name_power) -> int:
         raise AssertionError(f"imported JAX-side modules: {leaked[:5]}")
     kernels = [dict(name=k, route="cuda", launches=counts.get(k, 0), **v)
                for k, v in results.items()]
+    log(f"[smoke] wall time {time.perf_counter() - t0:.1f} s (limit "
+        f"{WATCHDOG_S} s)")
     print(json.dumps({"kernels": [
         {**{k: kk[k] for k in ("name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",

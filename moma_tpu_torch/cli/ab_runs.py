@@ -23,8 +23,12 @@ measured the same way; after a `[timer]` line, the BN, RandAugment and
 fused-kernel phases again with the host's work in the times (SPIN_CYCLES =
 0, how the timer measured before its spin).  Then `cli/profile_step.py`
 with chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`,
-`--attn dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`.  Each run
-is a process of its own; the kernels are built once per directory.
+`--attn dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`, and with
+its cross-arch flags (CROSS_ARGS: ViT-S/16 teacher, effiB0 student, 224^2,
+batch 64, `--mem MoCo`).  `--configs` picks the profiled configurations
+(a checkout older than the cross-arch port has no `cross_arch`), and
+`--steps_only` skips the kernel phases.  Each run is a process of its
+own; the kernels are built once per directory.
 Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary,
 its augment phase time included) and prints one line per run.
 Needs a CUDA device.
@@ -74,20 +78,26 @@ def _configs():
     # profile_step makes its own synthetic batch and runs a fixed number of
     # steps: the CLI's data and epoch flags are not its own
     drop = {"--print_freq": 1, "--epochs": 1, "--synthetic": 0}
-    base, skip = [], 0
-    for a in chip_smoke.MOCOATT_ARGS:
-        if skip:
-            skip -= 1
-        elif a in drop:
-            skip = drop[a]
-        else:
-            base.append(a)
+
+    def profile_args(args):
+        out, skip = [], 0
+        for a in args:
+            if skip:
+                skip -= 1
+            elif a in drop:
+                skip = drop[a]
+            else:
+                out.append(a)
+        return out
+
+    base = profile_args(chip_smoke.MOCOATT_ARGS)
     swap = {"all": "dual"}
     moco = [{"MoCoAtt": "MoCo", "all": "self"}.get(a, a) for a in base]
     return {"mocoatt_all": base,
             "mocoatt_dual": [swap.get(a, a) for a in base],
             "moco": moco,
-            "moco_fused": moco + ["--fused_teacher", "on"]}
+            "moco_fused": moco + ["--fused_teacher", "on"],
+            "cross_arch": profile_args(chip_smoke.CROSS_ARGS)}
 
 
 def _run(cmd, cwd, timeout):
@@ -103,14 +113,21 @@ def _run(cmd, cwd, timeout):
 def main(argv=None):
     p = argparse.ArgumentParser("moma_tpu_torch ab_runs")
     p.add_argument("--out", default="build/ab")
+    p.add_argument("--configs", default="mocoatt_all,mocoatt_dual,moco,"
+                   "moco_fused,cross_arch",
+                   help="comma-separated profile_step configurations")
+    p.add_argument("--steps_only", action="store_true",
+                   help="profile the steps only, no kernel phases")
     p.add_argument("dirs", nargs="+")
     a = p.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
-    configs = _configs()
+    known = _configs()
+    configs = {n: known[n] for n in a.configs.split(",")}
     runs = []
     for i, d in enumerate(a.dirs):
         d = os.path.abspath(d)
-        out = _run([sys.executable, "-c", KERNELS, SMOKE], d, 1500)
+        out = ("" if a.steps_only
+               else _run([sys.executable, "-c", KERNELS, SMOKE], d, 1500))
         lines = [ln for ln in out.splitlines()
                  if ln.startswith(("[kernels] flash", "[kernels] library",
                                    "[kernels] channel_sums",

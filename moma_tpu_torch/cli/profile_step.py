@@ -10,17 +10,22 @@ Takes train_student's flags (--device defaults to cuda) plus --out; with
 MoCoAtt step, whose attention over 2B+K tokens runs the flash-attention
 kernels (they show by name among the trace's top kernels), and with
 `--fused_teacher on` the step whose teacher forwards run the fused
-EfficientNet forward (its `teacher_forward` phase is then that forward).  It
+EfficientNet forward (its `teacher_forward` phase is then that forward).
+With a teacher of another architecture (`--model_t vit_small_patch16_224
+--image_size 224`, config #5) it profiles the cross-arch (EmaTec) step:
+`teacher_forward` is then the fixed teacher's eval-mode forward, and a
+`momentum_forward` phase times the EMA copy's train-mode forward.  It
 builds the run's state with random weights, fixes one synthetic batch
 (data loading is set-up, not step time) and runs the steady-state step
 (train-BN teacher KL forward):
 
   1 step time   : STEPS steps after WARMUP, each ending in a device
                   sync; median, min, max on the host clock
-  2 phases      : augmentation, one teacher forward and the student
-                  forward + backward, each timed alone (CUDA events,
-                  median of PHASE_ITERS = 5); the rest of the step is
-                  heads, queue, losses, EMA and SGD
+  2 phases      : augmentation, one teacher forward (cross-arch: also
+                  the momentum forward) and the student forward +
+                  backward, each timed alone (CUDA events, median of
+                  PHASE_ITERS = 5); the rest of the step is heads, queue,
+                  losses, EMA and SGD
   3 trace       : torch.profiler over PROFILE_STEPS steps; the device
                   idle share is 1 - (union of kernel, memcpy and memset
                   intervals) / (first start to last end), and the top
@@ -55,7 +60,7 @@ from moma_tpu_torch.losses.functional import cross_entropy
 from moma_tpu_torch.runtime import resolve_device
 from moma_tpu_torch.train.loop import to_device
 from moma_tpu_torch.train.moma import (build_state, make_moma_train_step,
-                                       make_teacher_forward)
+                                       make_teacher_forward, module_forward)
 from moma_tpu_torch.train.teacher import augment_fns
 
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 2
@@ -99,7 +104,9 @@ def main(argv=None):
     B, S = cfg.data.batch_size, cfg.data.image_size
     state = build_state(cfg, device, steps_per_epoch=100, seed=cfg.run.seed)
     augment = augment_fns(cfg)[0]
-    step = make_moma_train_step(cfg, augment, kl_train_bn_override=True)
+    cross_arch = state.ema is not None
+    step = make_moma_train_step(cfg, augment, kl_train_bn_override=True,
+                                cross_arch=cross_arch)
     data = synthetic_dataset(B, S, cfg.model_s.n_cls, seed=cfg.run.seed)
     batch = to_device({"image": data.images, "label": data.labels}, device)
     gen = torch.Generator().manual_seed(cfg.run.seed)
@@ -120,11 +127,17 @@ def main(argv=None):
     images = augment(batch["image"], gen)
     labels = batch["label"].long()
 
-    teacher_forward = make_teacher_forward(cfg)
+    teacher_forward = (module_forward if cross_arch
+                       else make_teacher_forward(cfg))
 
     def teacher_fwd():
+        # cross-arch: the fixed teacher's eval-mode forward
         with torch.no_grad():
-            teacher_forward(state.teacher, images, True)
+            teacher_forward(state.teacher, images, not cross_arch)
+
+    def momentum_fwd():
+        with torch.no_grad():
+            module_forward(state.ema, images, True)
 
     def student_fwd_bwd():
         state.student.train()
@@ -136,6 +149,8 @@ def main(argv=None):
                                    device),
               "teacher_forward": _phase_ms(teacher_fwd, device),
               "student_forward_backward": _phase_ms(student_fwd_bwd, device)}
+    if cross_arch:
+        phases["momentum_forward"] = _phase_ms(momentum_fwd, device)
     state.student.zero_grad(set_to_none=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -161,6 +176,8 @@ def main(argv=None):
         "batch": B, "image_size": S, "device": str(device),
         "mem": cfg.moma.mem, "attn": cfg.moma.attn,
         "fused_teacher": cfg.moma.fused_teacher,
+        "model_s": cfg.model_s.name, "model_t": cfg.model_t.name,
+        "cross_arch": cross_arch,
         "step_ms": {"median": step_ms, "min": min(times),
                     "max": max(times), "n": len(times)},
         "img_per_s": B / (step_ms / 1e3),

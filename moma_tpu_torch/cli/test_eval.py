@@ -13,6 +13,12 @@ confusion matrix under the JAX package's keys.
     python -m moma_tpu_torch.cli.test_eval --runs '/tmp/save/moma_*' \\
         --synthetic --model effiB0 --n_cls 4 --image_size 64 --device cpu
 
+`--num_per_class N` evaluates a per-class subset of N test images
+(data/manifests.viz_subset, the reference's viz loader), and `--dump_attn
+DIR` writes each run's CMO attention maps over the first batch to
+`DIR/<run>_attn.npz` (moma/viz.py).  A ViT `--model` is built at
+`--image_size`.
+
 --device cuda (default) evaluates on the GPU and fails when there is none.
 """
 
@@ -25,13 +31,17 @@ import json
 import os
 import sys
 
+import numpy as np
 import torch
 
 from moma_tpu_torch.core.config import DATASET_NUM_CLASSES
 from moma_tpu_torch.data import augment as aug
-from moma_tpu_torch.data.pipeline import Loader, synthetic_dataset
+from moma_tpu_torch.data.manifests import viz_subset
+from moma_tpu_torch.data.pipeline import (ArrayDataset, Loader,
+                                          synthetic_dataset)
 from moma_tpu_torch.models import create_model
 from moma_tpu_torch.models.pretrained import load_pretrained
+from moma_tpu_torch.moma.viz import dump_attention_maps
 from moma_tpu_torch.runtime import resolve_device
 from moma_tpu_torch.train.loop import evaluate
 from moma_tpu_torch.train.steps import make_eval_step
@@ -65,6 +75,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference-compat (test.py:62 'where to save'): "
                         "directory for the stat JSON; maps to "
                         "{model_path}/test_stat.json unless --out is given")
+    p.add_argument("--num_per_class", type=int, default=None,
+                   help="evaluate a per-class subset of N samples/class — "
+                        "the reference's viz loader "
+                        "(get_histo_dataloader_viz, histo_dataset.py:784-"
+                        "842); combine with --dump_attn")
+    p.add_argument("--dump_attn", type=str, default=None,
+                   help="directory for attention-map .npz dumps (one per "
+                        "MoMA run: atts_q/atts_k maps over one batch + "
+                        "atts_queue over the saved queue rows — the "
+                        "attn='self_viz' capability, "
+                        "criterion_moco_att.py:171-197)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default; an error if absent) "
                         "or cpu")
@@ -154,14 +175,21 @@ def main(argv=None):
         def norm(images):
             return aug.normalize(images, aug.IMAGENET_MEAN, aug.IMAGENET_STD)
 
+    if a.num_per_class:
+        picked = viz_subset(list(enumerate(test_ds.labels.tolist())),
+                            per_class=a.num_per_class)
+        idx = np.asarray(sorted(i for i, _ in picked))
+        test_ds = ArrayDataset(test_ds.images[idx], test_ds.labels[idx])
+        print(f"[viz] per-class subset: {len(test_ds)} samples "
+              f"({a.num_per_class}/class)")
     run_dirs = _run_dirs(a)
     if not run_dirs:
         print("need --runs, --csv or --models_dir matching a run",
               file=sys.stderr)
         return {}
     loader = Loader(test_ds, a.batch_size, train=False)
-    model = create_model(a.model, n_cls).to(device,
-                                            memory_format=torch.channels_last)
+    model = create_model(a.model, n_cls, image_size=a.image_size).to(
+        device, memory_format=torch.channels_last)
     eval_step = make_eval_step(n_cls, normalize_fn=norm)
     results = {}
     for run_dir in run_dirs:
@@ -176,6 +204,13 @@ def main(argv=None):
             "n": stats["n"], "conf_mat": stats["conf_mat"],
         }
         print(f"{name}: acc {stats['acc']:.2f} f1 {stats['f1']:.4f}")
+        if a.dump_attn:
+            # the run dir owning parameters.json: <run>/ckpt/<tag>.pt
+            owner = os.path.dirname(os.path.dirname(path))
+            first = next(iter(loader))
+            images = norm(torch.from_numpy(first["image"]).to(device))
+            dump_attention_maps(path, owner, images, first["label"],
+                                os.path.join(a.dump_attn, f"{name}_attn.npz"))
     with open(a.out, "w") as f:
         json.dump(results, f, indent=2)
     print(f"wrote {a.out}")

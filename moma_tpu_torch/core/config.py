@@ -6,8 +6,9 @@ explicit `RunConfig.device`), `Config.run_name` (the run directory's
 name), and `parse_student_args` for the flags of scripts/run_moma.sh plus
 --fp32, --synthetic and --device.
 
-The port runs these slices of moma_tpu so far: MoMA distillation with a
-same-arch teacher and global-batch BN on one device, every memory variant
+The port runs these slices of moma_tpu so far: MoMA distillation with
+global-batch BN on one device, a same-arch teacher or (cross-arch EmaTec
+mode) any other backbone of the port's registry, every memory variant
 (MoCo, MoCoAtt, MoCoST, MoCoSSTT), attention mode and projection head,
 with the run around the step (checkpoints, --resume, pretrained weights,
 the resized crop, folds, the optimizer's options).  `check_slice` rejects
@@ -203,27 +204,32 @@ class Config:
 
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for any choice outside the ported slice."""
+    from moma_tpu_torch.models import available_models
+
     m, r = cfg.moma, cfg.run
     bad = []
     if cfg.distill.distill != "moma":
-        bad.append(f"--distill {cfg.distill.distill} (KD zoo, Queue 1 item 7)")
+        bad.append(f"--distill {cfg.distill.distill} (KD zoo, Queue 1 item 4)")
     if m.mem not in MEMS:
         bad.append(f"--mem {m.mem} (known: {MEMS})")
     if m.head not in HEADS:
         bad.append(f"--head {m.head} (known: {HEADS})")
     if m.attn not in ATTN_MODES:
         bad.append(f"--attn {m.attn} (known: {ATTN_MODES})")
-    if cfg.model_t is None or cfg.model_t.name != cfg.model_s.name:
-        bad.append("cross-arch teacher/student (EmaTec, Queue 1 item 5)")
+    if cfg.model_t is None:
+        bad.append("MoMA without a teacher")
+    for mc in (cfg.model_s, cfg.model_t):
+        if mc is not None and mc.name not in available_models():
+            bad.append(f"model {mc.name} (the model zoo, Queue 1 item 3)")
     if r.bn != "global":
-        bad.append(f"--bn {r.bn} (multi-GPU, Queue 1 item 9)")
+        bad.append(f"--bn {r.bn} (multi-GPU, Queue 1 item 5)")
     if r.grad_accum > 1:
-        bad.append("--grad_accum > 1 (Queue 1 item 9)")
+        bad.append("--grad_accum > 1 (Queue 1 item 5)")
     if r.model_parallel > 1 or r.sequence_parallel or r.pp_microbatch:
         bad.append("--model_parallel / --sequence_parallel / "
-                   "--pp_microbatch (Queue 1 items 9-10)")
+                   "--pp_microbatch (Queue 1 items 5-6)")
     if m.teacher_quant != "none":
-        bad.append("--teacher_quant (Queue 1 item 10)")
+        bad.append("--teacher_quant (Queue 1 item 6)")
     if r.remat:
         bad.append("--remat (BN running statistics under recompute need "
                    "their own design)")

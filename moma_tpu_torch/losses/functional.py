@@ -2,7 +2,7 @@
 
 Counterpart of moma_tpu/losses/functional.py: `cross_entropy` (:21),
 `kd_kl` (:31) and `l2_normalize` (:88).  The rest of the KD loss zoo is
-not ported yet (ROADMAP Queue 1 item 7).
+not ported yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ Shapes merge strictly; `strict=False` keeps the module's own classifier
 (the reference's cross-task transfer, --std_strict / --tec_strict).  An
 orbax checkpoint directory of the JAX package is refused with the command
 that exports it to a torch file: the port imports no orbax.
+
+A ViT (models/vit.py) takes the port's own checkpoint like any backbone;
+it has no BN statistics to restore (moma_tpu/cli/test_eval.py:212).  A
+torch state-dict file for a ViT is refused, as in the JAX package: the
+stream converter cannot align its cls token and position embedding.
+Augreg .npz weights load through models/vit_npz.load_vit_npz.
 """
 
 from __future__ import annotations
@@ -167,6 +173,15 @@ def load_pretrained(module: torch.nn.Module, path: Optional[str],
         # a checkpoint of this package: the run's student
         _load_port_state(module, obj["student"], strict)
         return module
+    from moma_tpu_torch.models.vit import VisionTransformer
+
+    if isinstance(module, VisionTransformer):
+        raise ValueError(
+            f"{path}: a torch state dict cannot be aligned to a ViT (the "
+            "stream converter has no slot for cls_token / pos_embed, in the "
+            "JAX package too); pass a checkpoint of this package, or load "
+            "augreg .npz weights with moma_tpu_torch.models.vit_npz."
+            "load_vit_npz")
     loaded = convert_torch_checkpoint(path, _flax_view(module),
                                       drop_classifier=not strict)
     sd = export_state_dict(loaded, {k: v.detach().cpu().float().numpy()

@@ -1,10 +1,11 @@
 """MoMA student training — the paper's method, one step at a time.
 
-Counterpart of moma_tpu/train/moma.py for a same-arch teacher (the
-momentum encoder) with global-batch BN on one device, every memory variant
-(`--mem MoCo | MoCoAtt | MoCoST | MoCoSSTT`), attention mode and head.  The
-step keeps the JAX step's order (train/moma.py:1-28), with the state
-updated in place:
+Counterpart of moma_tpu/train/moma.py with global-batch BN on one device,
+every memory variant (`--mem MoCo | MoCoAtt | MoCoST | MoCoSSTT`),
+attention mode and head, for a same-arch teacher (the momentum encoder)
+and, in cross-arch CMO_EmaTec mode, a teacher of another architecture (a
+ViT or another EfficientNet).  The same-arch step keeps the JAX step's
+order (train/moma.py:1-28), with the state updated in place:
 
   1. teacher KL forward on the PRE-EMA teacher; BN in train mode
      (kl_train_bn, its running statistics updated here first) or on
@@ -42,6 +43,19 @@ module forward: the same function by another route
 With `--fast_teacher` the KL logits are the key forward's (unshuffled), so
 a step runs one teacher forward (train/moma.py:192-197, :475-480).
 
+Cross-arch (`cross_arch=True`, train/moma.py:294-700; `build_state`
+detects it as run_moma does, :1209-1218: the two backbones' parameter
+names differ) changes three things.  The KL forward runs on the fixed
+teacher, always in eval mode (`kl_teacher_bn` does not apply, :340-348).
+The momentum encoder is `state.ema`, an EMA copy of the student with its
+own BN statistics: the EMA goes into it (:374-377), the key forward runs
+through it in train mode (:417-426; the step's second train-mode forward
+through the channel-sum kernels), and its key head is embed_ema, EMA'd
+from embed_s for the mlp heads.  For MoCoST / MoCoSSTT the teacher keys
+of `memory_t` are embed_t in eval mode over the fixed teacher's pooled
+features (:488-495, :559-561).  `--fast_teacher` and `--fused_teacher on`
+do nothing there (:197-198, :206-212), and build_state says so.
+
 `run_moma` is the run around the step (train/moma.py:1163-1640): the run
 directory `<save_dir>/moma_<run_name>` with `ckpt/{latest,best_acc,
 best_f1}.pt` (core/checkpoint.py; `latest` every epoch, the best ones on a
@@ -53,12 +67,13 @@ stops the run with `latest` kept; `--std_pre` / `--tec_pre`
 (models/pretrained.py); the teacher pre-flight eval (`--skip_validation`)
 and a torch.profiler trace of the first epoch (`--profile_dir`).
 
-Not ported yet (ROADMAP.md): the cross-arch CMO_EmaTec mode and --remat.
+Not ported yet (ROADMAP.md): --remat.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import time
 import warnings
@@ -115,6 +130,21 @@ def _buffers_restored(*modules: nn.Module):
                 b.copy_(old)
 
 
+def module_forward(model, images, train: bool):
+    """(pooled, logits) of a backbone's module forward in train or eval
+    mode; BN running statistics updated in place when `train`."""
+    model.train(train)
+    feats, logits = model(images)
+    return feats[-1], logits
+
+
+def is_cross_arch(student: nn.Module, teacher: nn.Module) -> bool:
+    """EmaTec mode: the backbones' parameter trees differ in names, not
+    only in shapes (train/moma.py:1209-1218)."""
+    return ([n for n, _ in student.named_parameters()]
+            != [n for n, _ in teacher.named_parameters()])
+
+
 def make_teacher_forward(cfg: Config):
     """forward(teacher, images, train) -> (pooled, logits) for the two
     gradient-free teacher passes, BN running statistics updated in place
@@ -144,20 +174,19 @@ def make_teacher_forward(cfg: Config):
                 fused_effnet.updated_batch_stats(params, specs, collected)
             return pooled, logits
     else:
-        def forward(teacher, images, train: bool):
-            teacher.train(train)
-            feats, logits = teacher(images)
-            return feats[-1], logits
+        forward = module_forward
     return forward
 
 
 def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
-                         kl_train_bn_override: Optional[bool] = None):
+                         kl_train_bn_override: Optional[bool] = None,
+                         cross_arch: bool = False):
     """step(state, batch, generator) -> (state, metrics).
 
     batch: {'image': NHWC on the run's device, 'label': (B,) int, optional
     'shuffle_perm': (B,) int}.  `generator` (CPU) drives the augmentation
-    and the Shuffle-BN permutation."""
+    and the Shuffle-BN permutation.  `cross_arch`: the EmaTec step, for a
+    state with its EMA copy (`state.ema`, build_state)."""
     check_slice(cfg)
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     kd_T = cfg.distill.kd_T
@@ -169,8 +198,15 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     # embed_t is EMA-tracked for the mlp heads only (train/moma.py:382-389)
     ema_head = cfg.moma.head in ("mlp", "mlp_byol")
     shuffle_bn = cfg.moma.shuffle_bn
-    fast_teacher = cfg.moma.fast_teacher
-    teacher_forward = make_teacher_forward(cfg)
+    if cross_arch:
+        # the KL teacher is not the momentum encoder: no forward to share,
+        # and the fused forward's EfficientNet teacher path is off
+        # (build_state says so)
+        fast_teacher = False
+        teacher_forward = module_forward
+    else:
+        fast_teacher = cfg.moma.fast_teacher
+        teacher_forward = make_teacher_forward(cfg)
     kl_bn_mode = cfg.moma.kl_teacher_bn
     if kl_bn_mode not in ("train", "eval", "exact"):
         raise ValueError(f"unknown kl_teacher_bn {kl_bn_mode!r}")
@@ -188,6 +224,13 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
 
     def step(state: MomaState, batch, generator: torch.Generator):
         student, teacher, heads = state.student, state.teacher, state.heads
+        if cross_arch != (state.ema is not None):
+            raise ValueError(
+                f"a {'cross' if cross_arch else 'same'}-arch step for a "
+                f"state {'without' if cross_arch else 'with'} an EMA copy")
+        # the momentum encoder and its key head
+        momentum = state.ema if cross_arch else teacher
+        key_head = heads.embed_ema if cross_arch else heads.embed_t
         images = batch["image"]
         if augment_fn is not None:
             images = augment_fn(images, generator)
@@ -195,15 +238,16 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         B = images.shape[0]
 
         # 1. KL forward, pre-EMA teacher (none with fast_teacher: step 3's
-        # logits stand in)
+        # logits stand in); cross-arch: the fixed teacher in eval mode
         if not fast_teacher:
             with torch.no_grad():
-                _, logit_t = teacher_forward(teacher, images, kl_train_bn)
+                pooled_t, logit_t = teacher_forward(
+                    teacher, images, kl_train_bn and not cross_arch)
 
         # 2. EMA from the pre-step student
-        ema_update(teacher, student, alpha)
+        ema_update(momentum, student, alpha)
         if ema_head:
-            ema_update(heads.embed_t, heads.embed_s, alpha)
+            ema_update(key_head, heads.embed_s, alpha)
 
         # 3. keys through the post-EMA teacher, BN in train mode
         with torch.no_grad():
@@ -217,16 +261,21 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 key_images = images[perm]
             else:
                 key_images = images
-            pooled_key, logit_key = teacher_forward(teacher, key_images,
+            pooled_key, logit_key = teacher_forward(momentum, key_images,
                                                     True)
-            heads.embed_t.eval()  # the momentum head runs in eval mode
-            k_emb = heads.embed_t(pooled_key)
+            key_head.eval()  # the momentum head runs in eval mode
+            k_emb = key_head(pooled_key)
             if shuffle_bn:
                 k_emb = k_emb[inv]
                 logit_key = logit_key[inv]
             if fast_teacher:
                 # post-EMA teacher, train-mode BN: a documented deviation
                 logit_t = logit_key
+            kt_emb = None
+            if cross_arch and mem in ("MoCoST", "MoCoSSTT"):
+                # the fixed teacher's keys for memory_t
+                heads.embed_t.eval()
+                kt_emb = heads.embed_t(pooled_t)
         # MoCoSSTT's second view, drawn after the permutation as in JAX
         images2 = None
         if mem == "MoCoSSTT":
@@ -247,9 +296,11 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                                               nce_t, attn, fns)
             logits_list = [logits]
         elif mem in ("MoCoST", "MoCoSSTT"):
-            # same-arch: the momentum encoder's keys fill both banks; the
+            # same-arch: the momentum encoder's keys fill both banks;
+            # cross-arch: the fixed teacher's fill memory_t.  The
             # teacher-side keys stay the raw ones (train/moma.py:560-561)
-            q_in, k_in, kt_in = q, k_emb, k_emb
+            q_in, k_in = q, k_emb
+            kt_in = kt_emb if kt_emb is not None else k_emb
             if self_attn:
                 q_in = fns["atts_q"](q_in)
                 with torch.no_grad():
@@ -316,29 +367,53 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
                 seed: int) -> MomaState:
     """Student, teacher, CMO heads, queue and SGD from seeded generators;
     the student and teacher then take --std_pre / --tec_pre weights where
-    given (load_pretrained; an unresolvable tag raises)."""
+    given (load_pretrained; an unresolvable tag raises).  Backbones whose
+    parameter names differ make a cross-arch (EmaTec) state: its momentum
+    encoder `ema` is a distinct copy of the student, its heads gain
+    embed_ema."""
     dtype = torch.bfloat16 if cfg.run.half_precision else None
     n_cls = cfg.model_s.n_cls
 
     def gen(i):
         return torch.Generator().manual_seed(seed * 5 + i)
 
-    student = create_model(cfg.model_s.name, n_cls, dtype, generator=gen(0))
-    teacher = create_model(cfg.model_t.name, n_cls, dtype, generator=gen(1))
+    student, teacher = (
+        create_model(mc.name, n_cls, dtype, generator=gen(i),
+                     image_size=cfg.data.image_size)
+        for i, mc in enumerate((cfg.model_s, cfg.model_t)))
     for model, mc in ((student, cfg.model_s), (teacher, cfg.model_t)):
         if mc.pretrain:
             load_pretrained(model, mc.pretrain, strict=mc.strict)
+    cross_arch = is_cross_arch(student, teacher)
+    if cross_arch:
+        print(f"[moma] cross-arch ({cfg.model_t.name} teacher -> "
+              f"{cfg.model_s.name} student): EmaTec momentum-encoder mode",
+              flush=True)
+        for flag, on in (("--fast_teacher", cfg.moma.fast_teacher),
+                         ("--fused_teacher on",
+                          cfg.moma.fused_teacher == "on")):
+            if on:
+                print(f"[moma] {flag} does nothing in EmaTec mode: the "
+                      "fixed teacher runs its own module forward",
+                      flush=True)
     # the 'None' head passes the pooled features through
     feat_dim = (cfg.moma.feat_dim if cfg.moma.head != "None"
                 else student.feat_dim)
     heads = CMOHeads(cfg.moma.head, cfg.moma.attn, feat_dim,
                      s_dim=student.feat_dim, t_dim=teacher.feat_dim,
-                     generator=gen(2))
+                     generator=gen(2), include_ema=cross_arch)
+    ema = copy.deepcopy(student) if cross_arch else None
     student = student.to(device, memory_format=torch.channels_last)
     teacher = teacher.to(device, memory_format=torch.channels_last)
     heads = heads.to(device)
     teacher.requires_grad_(False)
     heads.embed_t.requires_grad_(False)
+    if cross_arch:
+        # the fixed teacher never leaves eval mode
+        teacher.eval()
+        ema = ema.to(device, memory_format=torch.channels_last)
+        ema.requires_grad_(False)
+        heads.embed_ema.requires_grad_(False)
     banks = (("memory_s", "memory_t")
              if cfg.moma.mem in ("MoCoST", "MoCoSSTT") else ("memory",))
     g_queue = gen(3)
@@ -346,7 +421,7 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
                                             g_queue, device)
                         for name in banks})
     state = MomaState(student=student, teacher=teacher, heads=heads,
-                      queue=queue, optimizer=None,
+                      queue=queue, optimizer=None, ema=ema,
                       schedule=lr_schedule(
                           cfg.optim.learning_rate, cfg.run.epochs,
                           steps_per_epoch, cosine=cfg.optim.cosine,
@@ -361,21 +436,35 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
 
 
 def full_state(state: MomaState) -> dict:
-    """The checkpointable state: both backbones with their BN buffers, the
-    heads, every queue bank and its pointer, the optimizer's buffers and
-    the step."""
-    return {"student": state.student.state_dict(),
-            "teacher": state.teacher.state_dict(),
-            "heads": state.heads.state_dict(),
-            "queue": {"memory": dict(state.queue.memory),
-                      "ptr": state.queue.ptr},
-            "optimizer": state.optimizer.state_dict(),
-            "step": state.step}
+    """The checkpointable state: both backbones with their BN buffers, in
+    cross-arch runs the EMA copy with its own (train/moma.py:1468-1481),
+    the heads, every queue bank and its pointer, the optimizer's buffers
+    and the step."""
+    out = {"student": state.student.state_dict(),
+           "teacher": state.teacher.state_dict(),
+           "heads": state.heads.state_dict(),
+           "queue": {"memory": dict(state.queue.memory),
+                     "ptr": state.queue.ptr},
+           "optimizer": state.optimizer.state_dict(),
+           "step": state.step}
+    if state.ema is not None:
+        out["ema"] = state.ema.state_dict()
+    return out
 
 
 def load_full_state(state: MomaState, saved: dict) -> MomaState:
     """Copy a `full_state` dict into `state` in place (the modules keep
-    their storage, so views taken of them stay valid)."""
+    their storage, so views taken of them stay valid).  A cross-arch
+    checkpoint without the EMA copy restores the rest and warns: the
+    momentum encoder keeps the copy made at start (train/moma.py:
+    1485-1500)."""
+    if state.ema is not None:
+        if "ema" in saved:
+            state.ema.load_state_dict(saved["ema"])
+        else:
+            print("[resume] WARNING: old cross-arch checkpoint without the "
+                  "EMA copy — the EmaTec momentum encoder restarts from "
+                  "the copy of the student made at start", flush=True)
     state.student.load_state_dict(saved["student"])
     state.teacher.load_state_dict(saved["teacher"])
     state.heads.load_state_dict(saved["heads"])
@@ -411,13 +500,14 @@ def run_moma(cfg: Config, synthetic: bool = False, stop=None):
     state = build_state(cfg, device, len(train_loader), cfg.run.seed)
 
     train_aug, eval_norm = augment_fns(cfg)
+    cross_arch = state.ema is not None
     if cfg.moma.kl_teacher_bn == "exact":
-        step_fn = (make_moma_train_step(cfg, train_aug,
-                                        kl_train_bn_override=False),
-                   make_moma_train_step(cfg, train_aug,
-                                        kl_train_bn_override=True))
+        step_fn = tuple(
+            make_moma_train_step(cfg, train_aug, kl_train_bn_override=flag,
+                                 cross_arch=cross_arch)
+            for flag in (False, True))
     else:
-        step_fn = make_moma_train_step(cfg, train_aug)
+        step_fn = make_moma_train_step(cfg, train_aug, cross_arch=cross_arch)
     eval_step = make_eval_step(n_cls, normalize_fn=eval_norm)
 
     if cfg.run.preflight_eval:

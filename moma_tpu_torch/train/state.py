@@ -3,7 +3,9 @@
 Counterpart of moma_tpu/train/state.py: `MomaState` (:95-128) and
 `make_sgd` (:131-169).  JAX's immutable state becomes a container of live
 modules that the step updates in place: the student and teacher backbones,
-the CMO heads, the queue, the optimizer and the step count.
+in cross-arch (EmaTec) runs the EMA copy of the student (JAX's
+`ema_params` / `ema_batch_stats`, train/moma.py:1257-1267), the CMO heads,
+the queue, the optimizer and the step count.
 
 `make_sgd` applies the chain of the optax one (state.py:131-175): with
 neither `grad_clip` nor `trust_ratio` it is torch.optim.SGD, which does
@@ -13,15 +15,20 @@ then the learning rate.  With either, `ChainSGD` runs optax's full chain
 in its order: clip by the global norm, coupled decay, LARS trust-ratio
 scaling of the tensors with ndim > 1, the momentum trace (nesterov as
 optax's), the learning rate.  The learning rate is set before every step
-from `schedule(step)`.  `embed_t` stays out of the optimizer: it is
-EMA-tracked from embed_s, and the JAX step overwrites whatever SGD did to
-it (train/moma.py:668-690).
+from `schedule(step)`.
+
+The trainable set follows the JAX optimizer's tree, which holds all of
+`params['cmo']`.  The key head (same-arch embed_t, cross-arch embed_ema)
+stays out of the optimizer: it is EMA-tracked from embed_s, and the JAX
+step overwrites whatever SGD did to it (train/moma.py:667-690).  In
+cross-arch runs embed_t is no key head: it stays in the SGD chain with a
+zero gradient, so weight decay and momentum shrink it every step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 from torch import nn
@@ -108,15 +115,23 @@ class MomaState:
     """Everything a MoMA step reads and updates (in place)."""
 
     student: nn.Module
-    teacher: nn.Module        # the momentum encoder, EMA'd from the student
+    # same-arch: the momentum encoder, EMA'd from the student; cross-arch:
+    # the fixed KL teacher
+    teacher: nn.Module
     heads: CMOHeads
     queue: QueueState
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    # cross-arch only: the momentum encoder, an EMA copy of the student with
+    # its own BN running statistics
+    ema: Optional[nn.Module] = None
 
     def trainable_params(self):
-        """Parameters the optimizer updates: student, embed_s, attention."""
+        """Parameters the optimizer updates: student, embed_s, in cross-arch
+        runs embed_t (zero gradient), and the attention set."""
         yield from self.student.parameters()
         yield from self.heads.embed_s.parameters()
+        if self.ema is not None:
+            yield from self.heads.embed_t.parameters()
         yield from self.heads.attn.parameters()

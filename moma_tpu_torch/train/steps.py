@@ -4,7 +4,7 @@ Counterpart of moma_tpu/train/steps.py::make_eval_step (:126-148): the
 summed NLL over the valid rows of a (possibly padded) batch, the valid
 count and the confusion matrix, all left on the device so an epoch fetches
 once.  The vanilla supervised step is not ported yet (ROADMAP Queue 1
-item 6).
+item 3).
 """
 
 from __future__ import annotations

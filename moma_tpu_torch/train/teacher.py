@@ -2,7 +2,7 @@
 
 Counterpart of moma_tpu/train/teacher.py::build_datasets (:33-63) and
 ::augment_fns (:66-73).  Supervised teacher training (`run_teacher`) is not
-ported yet (ROADMAP Queue 1 item 6).
+ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -87,7 +87,7 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
 @pytest.mark.parametrize("extra", [
     ["--distill", "kd"], ["--remat"], ["--attn", "selff"],
     ["--bn", "local"], ["--grad_accum", "2"], ["--teacher_quant", "int8"],
-    ["--model_parallel", "2"], ["--model_t", "effiB1"],
+    ["--model_parallel", "2"], ["--model_t", "resnet8"],
 ])
 def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag

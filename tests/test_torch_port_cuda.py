@@ -731,3 +731,99 @@ def test_random_resized_crop_cuda_matches_cpu(dev, shape, out):
     assert got.device.type == "cuda" and got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+# the cross-arch path (config #5: ViT-S/16 teacher, effiB0 student, 224^2,
+# batch 64): the BN reductions at the effiB0@224 widths, from the stem's
+# 112^2 maps to the head's 3136 rows of 1280 channels, and the RandAugment
+# layer on 224-wide images (448-byte bf16 rows)
+@pytest.mark.parametrize("shape", [(64, 112, 112, 32), (64, 112, 112, 96),
+                                   (64, 56, 56, 144), (64, 14, 14, 672),
+                                   (64, 7, 7, 1280)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_match_plain_at_effib0_224(dev, shape, dtype):
+    from moma_tpu_torch.ops import fused_bn as FB
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    mean = x.float().reshape(-1, shape[-1]).mean(0)
+    for got, want in ((FB.channel_sums(x), FB.channel_sums_plain(x)),
+                      (FB.grad_channel_sums(dy, x, mean),
+                       FB.grad_channel_sums_plain(dy, x, mean))):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("apply_p", [0.5, 1.0])
+def test_ra_layer_matches_plain_at_224(dev, apply_p):
+    """Every op at (64, 3, 224, 224) bf16, the cross-arch path's shape,
+    bit for bit."""
+    g = torch.Generator().manual_seed(4)
+    op = torch.arange(64) % 16
+    scal = _ra_scalars(dev, op, 224, 224, g, apply_p=apply_p)
+    x = torch.randint(0, 256, (64, 3, 224, 224), generator=g).to(
+        dev, torch.bfloat16)
+    _ra_same(x, scal)
+
+
+def test_vit_small_cuda_matches_cpu(dev):
+    """ViT-S/16 at 224^2 (dim 384, depth 12, 6 heads, 197 tokens) on the
+    card against its CPU run, float32 with TF32 off (the dev fixture):
+    features and logits within 1e-4 of their largest magnitude."""
+    from moma_tpu_torch.models import create_model
+
+    model = create_model("vit_small_patch16_224", 4, image_size=224,
+                         generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        (grid, cls), logits = model(x)
+        (g_grid, g_cls), g_logits = model.to(dev)(x.to(dev))
+    assert g_grid.shape == (4, 14, 14, 384) and g_cls.dtype == torch.float32
+    for got, want in ((g_grid, grid), (g_cls, cls), (g_logits, logits)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_cross_arch_step_cuda_matches_cpu(dev, tmp_path):
+    """One cross-arch step (vit_tiny teacher, effiB0 student, 64^2, batch 4,
+    float32, augment included) on the card against the CPU: losses within
+    1e-3, the student, the EMA copy and the queue within 1e-3 of each
+    tensor's scale (floored at 1e-3 of the largest)."""
+    import numpy as np
+
+    from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.train.loop import to_device
+    from moma_tpu_torch.train.moma import build_state, make_moma_train_step
+    from moma_tpu_torch.train.teacher import augment_fns
+
+    cfg = parse_student_args([
+        "--distill", "moma", "--dataset", "prostate_hv", "--model_s",
+        "effiB0", "--model_t", "vit_tiny_patch16_224", "--image_size", "64",
+        "--batch_size", "4", "--nce_k", "64", "--feat_dim", "32", "--head",
+        "mlp", "--attn", "self", "-b", "1", "--fp32", "--epochs", "1",
+        "--save_dir", str(tmp_path)])
+    rs = np.random.RandomState(0)
+    batch = {"image": rs.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             "label": rs.randint(0, 4, (4,)).astype(np.int32)}
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        state = build_state(cfg, device, steps_per_epoch=4, seed=0)
+        step = make_moma_train_step(cfg, augment_fns(cfg)[0],
+                                    kl_train_bn_override=True,
+                                    cross_arch=True)
+        out[device.type] = step(state, to_device(batch, device),
+                                torch.Generator().manual_seed(5))
+    (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
+    for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+        assert abs(float(mc[k]) - float(mg[k])) <= 1e-3 * abs(float(mc[k]))
+    for a, b in ((sc.student, sg.student), (sc.ema, sg.ema)):
+        pairs = [(p.detach(), q.detach().cpu()) for p, q in
+                 zip(a.parameters(), b.parameters())]
+        floor = 1e-3 * max(float(p.abs().max()) for p, _ in pairs)
+        for p, q in pairs:
+            assert float((p - q).abs().max()) <= 1e-3 * max(
+                float(p.abs().max()), floor)
+    torch.testing.assert_close(sg.queue.memory["memory"].cpu(),
+                               sc.queue.memory["memory"], rtol=0, atol=1e-3)

@@ -3,8 +3,8 @@ kernels have no stand-ins.
 
 1. A subprocess blocks jax / flax / optax / orbax and moma_tpu with a
    sys.meta_path finder, imports every moma_tpu_torch module and runs one
-   CPU train step of each ported memory variant and one with the fused
-   teacher forward.
+   CPU train step of each ported memory variant, one with the fused
+   teacher forward and one cross-arch (ViT teacher) step.
 2. No source file of the port, nor chip_smoke.py, imports moma_tpu
    (docstrings may name a counterpart file).
 3. The package source holds no library kernel stand-in
@@ -49,19 +49,23 @@ SCRIPT = textwrap.dedent('''
     ds = synthetic_dataset(2, 32, 4, seed=0)
     batch = to_device({"image": ds.images, "label": ds.labels},
                       torch.device("cpu"))
-    for mem, attn, fused in (("MoCo", "self", "off"), ("MoCoAtt", "all", "off"),
-                             ("MoCoSSTT", "self", "off"),
-                             ("MoCo", "self", "on")):
+    for mem, attn, fused, teacher in (
+            ("MoCo", "self", "off", "effiB0"),
+            ("MoCoAtt", "all", "off", "effiB0"),
+            ("MoCoSSTT", "self", "off", "effiB0"),
+            ("MoCo", "self", "on", "effiB0"),
+            ("MoCo", "self", "off", "vit_tiny_patch16_224")):
         cfg = parse_student_args([
             "--fused_teacher", fused,
             "--device", "cpu", "--dataset", "prostate_hv", "--model_s",
-            "effiB0", "--model_t", "effiB0", "--distill", "moma", "--head",
+            "effiB0", "--model_t", teacher, "--distill", "moma", "--head",
             "mlp", "--mem", mem, "--attn", attn, "--image_size", "32",
             "--batch_size", "2", "--nce_k", "8", "--feat_dim", "8",
             "--epochs", "1", "--fp32", "-b", "1"])
         state = build_state(cfg, torch.device("cpu"), 1, seed=0)
         step = make_moma_train_step(cfg, augment_fns(cfg)[0],
-                                    kl_train_bn_override=True)
+                                    kl_train_bn_override=True,
+                                    cross_arch=state.ema is not None)
         state, m = step(state, batch, torch.Generator().manual_seed(0))
         assert torch.isfinite(m["loss"]) and m["queue_ptr"] == 2, mem
     leaked = [k for k in sys.modules if k.split(".")[0] in BLOCKED]
@@ -74,7 +78,8 @@ def test_imports_and_one_step_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.strip().startswith("OK")
+    # the last line: build_state prints the cross-arch step's mode first
+    assert proc.stdout.strip().splitlines()[-1].startswith("OK")
     assert int(proc.stdout.split()[-1]) >= 20  # every module imported
 
 

@@ -99,6 +99,25 @@ def _make_init_ordered(model, sample_shape, dtype):
     return init
 
 
+def jax_template(model, sample_shape, dtype=np.float32):
+    """Zeros shaped like `model.init`'s variables, insertion-ordered, from
+    an abstract trace (jax.eval_shape: nothing is compiled or run).  With
+    moma_tpu_torch.interop.jax_variables it gives a JAX tree holding a port
+    module's own initial weights, at a fraction of a compiled init's cost
+    (effiB1: 2.9 s against 7.9 s)."""
+    order = {}
+    sample = np.zeros(sample_shape, dtype)
+
+    def f(key):
+        v = model.init(key, sample, train=False)
+        order["skel"] = _skeleton(v)
+        return v
+
+    shapes = jax.eval_shape(f, jax.random.PRNGKey(0))
+    return _rebuild(order["skel"], jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape, a.dtype), shapes))
+
+
 def assert_close_scaled(got, want, rtol, what="", floor=0.0):
     """|got - want| <= rtol * (|want| + max(max|want|, floor)): relative
     error with a floor at the tensor's own scale, so entries near zero are
