@@ -11,7 +11,9 @@ RandAugment layer, many-token attention and fused MBConv block went through
 the hand-written kernels; then the run around the step (checkpoints,
 --resume, preemption, test_eval, pretrained weights, the resized crop);
 then config #5, cross-arch MoMA: a ViT-S/16 teacher and an effiB0 student
-at 224^2 in EmaTec mode (CROSS_ARGS).
+at 224^2 in EmaTec mode (CROSS_ARGS); then supervised teacher training
+(scripts/run_vanilla.sh's command line, TEACHER_ARGS) and the seven
+comparison distillers of scripts/run_comparison.sh from that teacher.
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -76,8 +78,24 @@ Phases (each prints its own lines):
                  unchanged, the EMA copy after one step, step time, img/s,
                  peak memory; a --resume round trip at 1 step an epoch
                  (every tensor, the EMA copy's too); one --mem MoCoST step
-                 (memory_s and memory_t rows differ).  Every run writes
-                 under a temporary --save_dir, removed at exit
+                 (memory_s and memory_t rows differ)
+  9 teacher    : TEACHER_ARGS through cli.train_teacher, 4 steps: launch
+                 counts (49 channel_sums and grad_channel_sums a step, 2
+                 RandAugment layers, no flash or fused kernel), step time,
+                 img/s, peak memory; 2 steps under --profile_dir (device
+                 busy and idle share, top 5); its best_acc.pt into one
+                 MoMA step (--tec_pre) and one kd step (--path_t), the
+                 loaded teacher bit for bit the run's; a --resume round
+                 trip; one 64^2 vanilla step on the CPU and the card
+ 10 comparison : run_comparison.sh's kd, hint, correlation, crd, attention,
+                 semckd and simkd (their -c / -d / -b, --path_t phase 9's
+                 teacher) through cli.train_student, 4 steps each: launch
+                 counts (the student's and the aux modules' train-mode
+                 BatchNorms), step time, img/s, peak memory; crd's 2 steps
+                 under --profile_dir; then one 64^2 step of each of the 17
+                 methods on the CPU and the card.
+                 Every run writes under a temporary --save_dir, removed at
+                 exit
 The last three lines of stdout are one JSON object with the per-kernel
 results, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -1215,12 +1233,14 @@ def _tensors(tree, path=""):
 def _state_gap(got, want):
     """max over tensors of max|got - want| / max(max|want|, group floor),
     the groups being student, teacher, heads, queue, optimizer and, in
-    cross-arch runs, the EMA copy."""
+    cross-arch runs, the EMA copy; in distillation runs the aux modules
+    and the CRD memory ('extra')."""
     worst, where = 0.0, ""
     if set(got) != set(want):
         raise AssertionError(f"state groups {sorted(got)} != {sorted(want)}")
     for group in [g for g in ("student", "teacher", "heads", "queue",
-                              "optimizer", "ema") if g in want]:
+                              "optimizer", "ema", "aux", "extra")
+                  if g in want]:
         pairs = dict(_tensors(want[group]))
         floor = 1e-3 * max((float(t.float().abs().max()) for t in
                             pairs.values() if t.numel()), default=0.0)
@@ -1261,27 +1281,31 @@ def _check_losses(got, want, label):
     return worst
 
 
-def _round_trip(base, label, sets):
+def _round_trip(base, label, sets, main=None, full=None):
     """A straight 2-epoch run and 1 epoch + --resume to 2 epochs: the same
-    step losses and the same final state (to STATE_RTOL)."""
+    step losses and the same final state (to STATE_RTOL).  `main` is the
+    CLI's entry point (train_student's by default) and `full` the run's
+    checkpointed state (train/moma.full_state's)."""
     from moma_tpu_torch.cli import train_student
     from moma_tpu_torch.train.moma import full_state
 
+    main = main or train_student.main
+    full = full or full_state
     with _cut_sets(sets):
         root = SAVE_ROOT
         _set_root(os.path.join(root, label, "straight"))
-        s_st, r_st = train_student.main(_args(base, 2))
+        s_st, r_st = main(_args(base, 2))
         _set_root(os.path.join(root, label, "resumed"))
-        _, r_1 = train_student.main(_args(base, 1))
-        s_re, r_re = train_student.main(_args(base, 2, "--resume"))
+        _, r_1 = main(_args(base, 1))
+        s_re, r_re = main(_args(base, 2, "--resume"))
         _set_root(root)
     loss_gap = _check_losses(_step_losses(r_re["run_dir"]),
                              _step_losses(r_st["run_dir"]), label)
-    if (s_re.step, s_re.queue.ptr) != (s_st.step, s_st.queue.ptr):
-        raise AssertionError(f"{label}: step / queue_ptr "
-                             f"{(s_re.step, s_re.queue.ptr)} != "
-                             f"{(s_st.step, s_st.queue.ptr)}")
-    gap, where = _state_gap(full_state(s_re), full_state(s_st))
+    if s_re.step != s_st.step or (
+            hasattr(s_st, "queue") and s_re.queue.ptr != s_st.queue.ptr):
+        raise AssertionError(f"{label}: step / queue pointer differ after "
+                             f"the resume")
+    gap, where = _state_gap(full(s_re), full(s_st))
     if not gap <= STATE_RTOL:
         raise AssertionError(f"{label}: resumed vs straight state gap "
                              f"{gap:.2e} at {where}")
@@ -1290,7 +1314,8 @@ def _round_trip(base, label, sets):
 
 class _cut_sets:
     """Cut the synthetic train / val / test sets to (n_train, n_val,
-    n_test) images for the runs inside."""
+    n_test) images for the runs inside (MoMA, teacher and distillation
+    runs)."""
 
     def __init__(self, sizes):
         self.sizes = sizes
@@ -1298,53 +1323,70 @@ class _cut_sets:
     def __enter__(self):
         from moma_tpu_torch.data.pipeline import ArrayDataset
         from moma_tpu_torch.train import moma as moma_train
+        from moma_tpu_torch.train import teacher as teacher_train
 
-        self.full = full = moma_train.build_datasets
+        self.full = full = teacher_train.build_datasets
         sizes = self.sizes
-        moma_train.build_datasets = lambda cfg, syn: tuple(
-            ArrayDataset(ds.images[:n], ds.labels[:n])
-            for ds, n in zip(full(cfg, syn), sizes))
+
+        def cut(cfg, syn):
+            return tuple(ArrayDataset(ds.images[:n], ds.labels[:n])
+                         for ds, n in zip(full(cfg, syn), sizes))
+
+        moma_train.build_datasets = teacher_train.build_datasets = cut
 
     def __exit__(self, *exc):
         from moma_tpu_torch.train import moma as moma_train
+        from moma_tpu_torch.train import teacher as teacher_train
 
-        moma_train.build_datasets = self.full
+        moma_train.build_datasets = teacher_train.build_datasets = self.full
         return False
 
 
+def _step_makers():
+    """(module, name) of each run's step factory: the MoMA, the vanilla
+    and the distillation step."""
+    from moma_tpu_torch.train import moma as moma_train
+    from moma_tpu_torch.train import student as student_train
+    from moma_tpu_torch.train import teacher as teacher_train
+
+    return ((moma_train, "make_moma_train_step"),
+            (teacher_train, "make_vanilla_train_step"),
+            (student_train, "make_distill_train_step"))
+
+
 class _wrapped_steps:
-    """For the runs inside, make_moma_train_step's step programs call
-    `before(state, n)` before and `after(state, n)` after their n-th step
-    (counted over all of them)."""
+    """For the runs inside, the step programs built call `before(state,
+    n)` before and `after(state, n)` after their n-th step (counted over
+    all of them)."""
 
     def __init__(self, before=None, after=None):
         self.before, self.after = before, after
 
     def __enter__(self):
-        from moma_tpu_torch.train import moma as moma_train
-
-        self.make = make = moma_train.make_moma_train_step
         before, after, done = self.before, self.after, [0]
+        self.saved = []
+        for mod, name in _step_makers():
+            make = getattr(mod, name)
+            self.saved.append((mod, name, make))
 
-        def wrapped(*a, **kw):
-            step = make(*a, **kw)
+            def wrapped(*a, _make=make, **kw):
+                step = _make(*a, **kw)
 
-            def counted(state, *rest):
-                done[0] += 1
-                if before is not None:
-                    before(state, done[0])
-                out = step(state, *rest)
-                if after is not None:
-                    after(out[0], done[0])
-                return out
-            return counted
+                def counted(state, *rest):
+                    done[0] += 1
+                    if before is not None:
+                        before(state, done[0])
+                    out = step(state, *rest)
+                    if after is not None:
+                        after(out[0], done[0])
+                    return out
+                return counted
 
-        moma_train.make_moma_train_step = wrapped
+            setattr(mod, name, wrapped)
 
     def __exit__(self, *exc):
-        from moma_tpu_torch.train import moma as moma_train
-
-        moma_train.make_moma_train_step = self.make
+        for mod, name, make in self.saved:
+            setattr(mod, name, make)
         return False
 
 
@@ -1635,6 +1677,286 @@ def phase_cross_arch(batch=64):
     return counts
 
 
+# phase_teacher: scripts/run_vanilla.sh's command line (effiB0, 512^2, batch
+# 64, lr 0.05, cosine, wd 1e-4) for one epoch of synthetic data
+TEACHER_ARGS = [
+    "--dataset", "prostate_hv", "--model", "effiB0", "--batch_size", "64",
+    "--image_size", "512", "--epochs", "1", "--learning_rate", "0.05",
+    "--cosine", "--weight_decay", "1e-4", "--synthetic", "--device", "cuda",
+    "--print_freq", "1",
+]
+# phase_comparison: scripts/run_comparison.sh's seven command lines, each
+# with the script's -c / -d / -b, distilling from phase_teacher's run
+COMPARISON_ARGS = [
+    "--dataset", "prostate_hv", "--model_s", "effiB0", "--model_t",
+    "effiB0", "--batch_size", "64", "--image_size", "512", "--epochs", "1",
+    "--learning_rate", "0.05", "--cosine", "--weight_decay", "1e-4",
+    "--nce_k", "16384", "--synthetic", "--device", "cuda", "--print_freq",
+    "1",
+]
+COMPARISON = (("kd", "1", "0", "1"), ("hint", "1", "1", "100"),
+              ("correlation", "1", "1", "0.02"), ("crd", "1", "1", "0.8"),
+              ("attention", "1", "1", "1000"), ("semckd", "1", "0", "50"),
+              ("simkd", "0", "0", "1"))
+
+
+def comparison_args(method, c, d, b, *extra):
+    return COMPARISON_ARGS + ["--distill", method, "-c", c, "-d", d, "-b",
+                              b, *extra]
+
+
+def _n_bn(*modules):
+    return sum(1 for mod in modules for m in mod.modules()
+               if type(m).__name__ == "FusedBatchNorm")
+
+
+def phase_drive(main, args, label, nets):
+    """Drive a training CLI (`main`, with `args`) for one epoch of 4 steps:
+    finite losses, and the launch counts of its train-mode BatchNorms (the
+    modules `nets(state)` returns: every one runs one channel_sums forward
+    and one grad_channel_sums backward a step) and of the augment; then
+    steady step time, img/s and peak memory.  Returns (state, result,
+    counts)."""
+    import torch
+
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, result = main(list(args) + ["--save_dir", SAVE_ROOT])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tr = result["train"]
+    n = tr["steps"]
+    for k in ("loss", "acc1"):
+        if not math.isfinite(tr[k]):
+            raise AssertionError(f"{label}: train {k} {tr[k]} not finite")
+    for k in ("loss", "acc", "f1"):
+        if not math.isfinite(result["val"][k]):
+            raise AssertionError(f"{label}: val {k} not finite")
+    if n != 4:
+        raise AssertionError(f"{label} ran {n} steps, expected 4")
+    n_bn = _n_bn(*nets(state))
+    want = {"channel_sums": n_bn * n, "grad_channel_sums": n_bn * n,
+            "ra_layer": 2 * n, "ra_layer_kernels": 4 * n,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "k1_expand_stats": 0, "k2_depthwise": 0, "k4_project": 0}
+    log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} "
+        f"train-mode BNs)")
+    for k, v in want.items():
+        if counts.get(k, 0) != v:
+            raise AssertionError(f"{label}: launch count {k}: "
+                                 f"{counts.get(k, 0)} != {v}")
+    steady = statistics.median(tr["batch_times"][1:])
+    log(f"[{label}] {n} steps + eval in {wall:.1f} s; train loss "
+        f"{tr['loss']:.4f}, val acc {result['val']['acc']:.2f}; step times "
+        f"(s) {[round(t, 4) for t in tr['batch_times']]}; steady step "
+        f"{steady * 1e3:.1f} ms = {64 / steady:.1f} img/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    return state, result, counts
+
+
+def phase_trace(main, args, label):
+    """One epoch of 2 steps of a path under --profile_dir: the device's
+    busy time over the traced span, its idle share and the top 5 device
+    operations (the steps' host clock runs slower under the profiler)."""
+    from moma_tpu_torch.core.profiling import trace_summary
+
+    trace_dir = os.path.join(SAVE_ROOT, "trace_" + label)
+    with _cut_sets(PERSIST_SETS):
+        main(_args(args, 1, "--profile_dir", trace_dir))
+    t = trace_summary(trace_dir, top=5)
+    if not t["device_intervals"]:
+        raise AssertionError(f"{label}: the trace holds no device work")
+    log(f"[{label}] --profile_dir, 2 steps: device busy "
+        f"{t['busy_us'] / 1e3:.1f} of {t['span_us'] / 1e3:.1f} ms traced "
+        f"(idle {100 * t['idle_share']:.1f}%), {t['device_intervals']} "
+        f"device intervals; top 5 (ms): "
+        + "; ".join(f"{n[:80]} {ms:.2f}" for n, ms in t["top_kernels_ms"]))
+
+
+def _cpu_vs_card(build, batch, label, nets, extra=None):
+    """One step (augmentation included) on the CPU (plain versions) and
+    on the card (kernels), built by `build(device) -> (state, step)` from
+    the same seed, on the same batch and draws, f32 with TF32 off: the
+    losses within 1e-3, each tensor of the modules `nets(state)` within
+    1e-3 of its largest magnitude (floored at 1e-3 of the largest of
+    all), and the tensors `extra(state)` within 1e-3 of theirs."""
+    import torch
+
+    from moma_tpu_torch.train.loop import to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            device = torch.device(dev)
+            state, step = build(device)
+            out[dev] = step(state, to_device(batch, device),
+                            torch.Generator().manual_seed(5))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
+    for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+        if k not in mc:
+            continue
+        a, b = float(mc[k]), float(mg[k])
+        if not abs(a - b) <= 1e-3 * abs(a) + 1e-5:
+            raise AssertionError(f"{label} parity {k}: cpu {a} vs cuda {b}")
+    pairs = [(p.detach(), q.detach().cpu()) for a, b in zip(nets(sc),
+                                                             nets(sg))
+             for p, q in zip(a.parameters(), b.parameters())]
+    floor = 1e-3 * max(float(p.abs().max()) for p, _ in pairs)
+    worst = max(float((p - q).abs().max()) / max(float(p.abs().max()), floor)
+                for p, q in pairs)
+    xerr = 0.0
+    for p, q in zip(extra(sc) if extra else (), extra(sg) if extra else ()):
+        xerr = max(xerr, float((p - q.cpu()).abs().max())
+                   / max(float(p.abs().max()), 1e-30))
+    if not (worst <= 1e-3 and xerr <= 1e-3):
+        raise AssertionError(f"{label} parity: params max rel {worst:.2e}, "
+                             f"extra {xerr:.2e}")
+    log(f"[parity] {label} 64^2 f32 step cpu vs cuda: loss "
+        f"{float(mc['loss']):.6f} vs {float(mg['loss']):.6f}; params max rel "
+        f"diff {worst:.2e}" + (f"; extra state {xerr:.2e}" if extra else ""))
+
+
+def _small_batch(n_data=16):
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    idx = rs.permutation(n_data)[:4].astype(np.int32)
+    cidx = rs.randint(0, n_data, (4, 17)).astype(np.int32)
+    cidx[:, 0] = idx
+    return {"image": rs.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+            "label": rs.randint(0, 4, (4,)).astype(np.int32),
+            "index": idx, "contrast_idx": cidx}
+
+
+def phase_teacher(batch=64):
+    """scripts/run_vanilla.sh through cli.train_teacher (4 steps), then
+    its best_acc.pt into one MoMA step (--tec_pre) and one kd step
+    (--path_t), the loaded teacher bit for bit the run's; a --resume
+    round trip of the teacher run; a 64^2 vanilla step on the CPU and the
+    card.  Returns (best_acc.pt, counts)."""
+    import torch
+
+    from moma_tpu_torch.cli import train_student, train_teacher
+    from moma_tpu_torch.core.config import parse_teacher_args
+    from moma_tpu_torch.train.steps import make_vanilla_train_step
+    from moma_tpu_torch.train.teacher import (augment_fns,
+                                              build_teacher_state,
+                                              teacher_full_state)
+
+    t_phase = time.perf_counter()
+    root = SAVE_ROOT
+    _set_root(os.path.join(root, "teacher"))
+    state, result, counts = phase_drive(
+        train_teacher.main, TEACHER_ARGS, "teacher", lambda s: [s.model])
+    _set_root(root)
+    phase_trace(train_teacher.main, TEACHER_ARGS, "teacher")
+    best = os.path.join(result["run_dir"], "ckpt", "best_acc.pt")
+    saved = torch.load(best, map_location="cpu", weights_only=True)[
+        "teacher"]
+
+    def loaded(state, n):
+        if n == 1:
+            for k, t in state.teacher.state_dict().items():
+                if not torch_equal(t, saved[k]):
+                    raise AssertionError(f"loaded teacher {k} is not the "
+                                         "teacher run's")
+
+    kd_args = comparison_args("kd", "1", "0", "1")
+    for label, base, flag in (("tec_pre", MAIN_ARGS, "--tec_pre"),
+                              ("path_t", kd_args, "--path_t")):
+        _set_root(os.path.join(root, label))
+        with _cut_sets((batch,) * 3), _wrapped_steps(before=loaded):
+            s_l, r_l = train_student.main(_args(base, 1, flag, best))
+        _set_root(root)
+        if not (s_l.step == 1 and math.isfinite(r_l["train"]["loss"])):
+            raise AssertionError(f"{label}: step {s_l.step}, loss "
+                                 f"{r_l['train']['loss']}")
+        log(f"[teacher] {flag} {os.path.basename(best)} into one "
+            f"{'MoMA' if label == 'tec_pre' else 'kd'} step: the teacher "
+            f"equals the teacher run's bit for bit; loss "
+            f"{r_l['train']['loss']:.4f}")
+
+    # the round trip at a step learning rate: a cosine schedule over 1
+    # epoch is another run than the first epoch of one over 2
+    s_re, _, _, loss_gap, gap, where = _round_trip(
+        [a for a in TEACHER_ARGS if a != "--cosine"], "t_resume",
+        PERSIST_SETS, main=train_teacher.main, full=teacher_full_state)
+    log(f"[teacher] 1 + 1 epochs (2 steps each) with --resume vs 2 straight: "
+        f"step losses rel gap {loss_gap:.2e}, state max rel gap {gap:.2e}"
+        f"{' at ' + where if where else ''}; step {s_re.step}")
+
+    cfg = parse_teacher_args([
+        "--dataset", "prostate_hv", "--model", "effiB0", "--image_size",
+        "64", "--batch_size", "4", "--fp32", "--epochs", "1"])
+    _cpu_vs_card(lambda dev: (build_teacher_state(cfg, dev, 4, 0),
+                              make_vanilla_train_step(augment_fns(cfg)[0])),
+                 _small_batch(), "vanilla", lambda s: [s.model])
+    log(f"[teacher] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return best, counts
+
+
+def phase_comparison(teacher_best):
+    """scripts/run_comparison.sh's seven methods through
+    cli.train_student with --path_t the teacher run's best_acc.pt (4
+    steps each), then a 64^2 step of each of the 17 methods on the CPU
+    and the card.  Returns the launch counts of the first method."""
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.core.config import DISTILLERS, parse_student_args
+    from moma_tpu_torch.train.distill import make_distill_train_step
+    from moma_tpu_torch.train.student import build_distill_state
+    from moma_tpu_torch.train.teacher import augment_fns
+
+    t_phase = time.perf_counter()
+    root = SAVE_ROOT
+    first = None
+    for method, c, d, b in COMPARISON:
+        _set_root(os.path.join(root, "cmp_" + method))
+        state, result, counts = phase_drive(
+            train_student.main,
+            comparison_args(method, c, d, b, "--path_t", teacher_best),
+            method, lambda s: [s.student, s.aux])
+        _set_root(root)
+        first = first or counts
+        if method == "crd":
+            z = (float(state.extra.z_v1), float(state.extra.z_v2))
+            if not all(math.isfinite(v) and v > 0 for v in z):
+                raise AssertionError(f"crd: Z {z}")
+            log(f"[crd] banks {tuple(state.extra.v1.shape)} x 2 f32, Z "
+                f"{z[0]:.4g} / {z[1]:.4g}")
+        del state, result
+    phase_trace(train_student.main,
+                comparison_args("crd", "1", "1", "0.8", "--path_t",
+                                teacher_best), "crd")
+
+    for method in DISTILLERS:
+        cfg = parse_student_args([
+            "--distill", method, "--dataset", "prostate_hv", "--model_s",
+            "effiB0", "--model_t", "effiB0", "--image_size", "64",
+            "--batch_size", "4", "--nce_k", "16", "--feat_dim", "32", "-b",
+            "1", "--fp32", "--epochs", "1"])
+
+        def build(dev, cfg=cfg):
+            state, distiller = build_distill_state(cfg, dev, 4, 0, 16)
+            return state, make_distill_train_step(distiller,
+                                                  augment_fns(cfg)[0])
+
+        _cpu_vs_card(build, _small_batch(), method,
+                     lambda s: [s.student, s.aux],
+                     (lambda s: [s.extra.v1, s.extra.v2]) if method == "crd"
+                     else None)
+    log(f"[comparison] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return first
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1674,8 +1996,11 @@ def _run(name_power, t0) -> int:
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
     phase_persistence()
     cross_counts = phase_cross_arch()
+    teacher_best, teacher_counts = phase_teacher()
+    cmp_counts = phase_comparison(teacher_best)
     # a kernel's launches: those of the first main path that runs it
-    for later in (att_counts, fused_counts, cross_counts):
+    for later in (att_counts, fused_counts, cross_counts, teacher_counts,
+                  cmp_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

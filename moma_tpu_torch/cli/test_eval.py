@@ -2,8 +2,8 @@
 
 Counterpart of moma_tpu/cli/test_eval.py (`build_parser` :34, `main`
 :103): take run directories (a glob, a CSV of names, or every run under a
-root), evaluate the student of each run's `ckpt/<tag>.pt` on the test
-split, and write one stat.json with per-run accuracy, macro-F1, loss and
+root), evaluate the student of each run's `ckpt/<tag>.pt` (a teacher
+run's model) on the test split, and write one stat.json with per-run accuracy, macro-F1, loss and
 confusion matrix under the JAX package's keys.
 
     python -m moma_tpu_torch.cli.test_eval --runs './save/moma_*' \\

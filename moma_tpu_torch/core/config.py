@@ -1,19 +1,21 @@
-"""Typed configuration tree + the student CLI bridge.
+"""Typed configuration tree + the CLI bridges.
 
 Counterpart of moma_tpu/core/config.py: the same dataclasses, field names
 and defaults (without the TPU-only `scoped_vmem_kib` and `donate`; with an
 explicit `RunConfig.device`), `Config.run_name` (the run directory's
-name), and `parse_student_args` for the flags of scripts/run_moma.sh plus
---fp32, --synthetic and --device.
+name), `parse_student_args` for the flags of scripts/run_moma.sh and
+scripts/run_comparison.sh, and `parse_teacher_args` for those of
+scripts/run_vanilla.sh, each plus --fp32, --synthetic and --device.
 
-The port runs these slices of moma_tpu so far: MoMA distillation with
-global-batch BN on one device, a same-arch teacher or (cross-arch EmaTec
-mode) any other backbone of the port's registry, every memory variant
-(MoCo, MoCoAtt, MoCoST, MoCoSSTT), attention mode and projection head,
-with the run around the step (checkpoints, --resume, pretrained weights,
-the resized crop, folds, the optimizer's options).  `check_slice` rejects
-every other choice with NotImplementedError rather than training something
-else than asked.
+The port runs these slices of moma_tpu so far, with global-batch BN on one
+device: supervised training of any backbone of the port's registry; MoMA
+distillation with a same-arch teacher or (cross-arch EmaTec mode) any
+other backbone, every memory variant (MoCo, MoCoAtt, MoCoST, MoCoSSTT),
+attention mode and projection head; the 17 comparison distillers
+(`DISTILLERS`); each with the run around the step (checkpoints,
+--resume, pretrained weights, the resized crop, folds, the optimizer's
+options).  `check_slice` rejects every other choice with
+NotImplementedError rather than training something else than asked.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ DATASET_NUM_CLASSES = {
     "aggc2022": 6,
 }
 
+
+# the comparison distillers of train/distill.py (moma_tpu/train/distill.py)
+DISTILLERS = ("kd", "hint", "attention", "similarity", "vid", "nst", "rkd",
+              "pkt", "kdsvd", "correlation", "crd", "semckd", "srrl",
+              "simkd", "ab", "fsp", "ft")
 
 # the choices of --mem / --head / --attn the port trains (moma/cmo.py holds
 # the module sets of the attention modes)
@@ -202,34 +209,40 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
 
 
-def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for any choice outside the ported slice."""
+def check_slice(cfg: Config, supervised: bool = False) -> None:
+    """Raise NotImplementedError for any choice outside the ported slice;
+    `supervised`: a teacher run's config (no teacher, no distiller)."""
     from moma_tpu_torch.models import available_models
 
-    m, r = cfg.moma, cfg.run
+    m, r, method = cfg.moma, cfg.run, cfg.distill.distill
     bad = []
-    if cfg.distill.distill != "moma":
-        bad.append(f"--distill {cfg.distill.distill} (KD zoo, Queue 1 item 4)")
-    if m.mem not in MEMS:
-        bad.append(f"--mem {m.mem} (known: {MEMS})")
-    if m.head not in HEADS:
-        bad.append(f"--head {m.head} (known: {HEADS})")
-    if m.attn not in ATTN_MODES:
-        bad.append(f"--attn {m.attn} (known: {ATTN_MODES})")
-    if cfg.model_t is None:
-        bad.append("MoMA without a teacher")
+    if not supervised:
+        if method not in ("moma",) + DISTILLERS:
+            bad.append(f"--distill {method} (known: moma, {DISTILLERS})")
+        if m.mem not in MEMS:
+            bad.append(f"--mem {m.mem} (known: {MEMS})")
+        if m.head not in HEADS:
+            bad.append(f"--head {m.head} (known: {HEADS})")
+        if m.attn not in ATTN_MODES:
+            bad.append(f"--attn {m.attn} (known: {ATTN_MODES})")
+        if cfg.model_t is None:
+            bad.append("distillation without a teacher")
+        if method == "moma":
+            # the comparison distillers raise ValueError for these, as in
+            # the JAX package (train/student.py)
+            if r.bn != "global":
+                bad.append(f"--bn {r.bn} (multi-GPU, Queue 1 item 5)")
+            if (r.model_parallel > 1 or r.sequence_parallel
+                    or r.pp_microbatch):
+                bad.append("--model_parallel / --sequence_parallel / "
+                           "--pp_microbatch (Queue 1 items 5-6)")
+        if m.teacher_quant != "none":
+            bad.append("--teacher_quant (Queue 1 item 6)")
     for mc in (cfg.model_s, cfg.model_t):
         if mc is not None and mc.name not in available_models():
             bad.append(f"model {mc.name} (the model zoo, Queue 1 item 3)")
-    if r.bn != "global":
-        bad.append(f"--bn {r.bn} (multi-GPU, Queue 1 item 5)")
     if r.grad_accum > 1:
         bad.append("--grad_accum > 1 (Queue 1 item 5)")
-    if r.model_parallel > 1 or r.sequence_parallel or r.pp_microbatch:
-        bad.append("--model_parallel / --sequence_parallel / "
-                   "--pp_microbatch (Queue 1 items 5-6)")
-    if m.teacher_quant != "none":
-        bad.append("--teacher_quant (Queue 1 item 6)")
     if r.remat:
         bad.append("--remat (BN running statistics under recompute need "
                    "their own design)")
@@ -239,14 +252,11 @@ def check_slice(cfg: Config) -> None:
             + "; ".join(bad))
 
 
-def student_parser() -> argparse.ArgumentParser:
-    """The flags scripts/run_moma.sh passes to train_student, plus the
-    port's --fp32 / --device and the switches check_slice rejects (so a
-    reference command line fails loudly, not silently).  Flags of
-    moma_tpu that the port would accept and ignore (--num_workers,
-    --nce_m) are left out, so argparse refuses them.  --synthetic is taken
-    by the CLI (cli/train_student.py), as in moma_tpu."""
-    p = argparse.ArgumentParser("moma_tpu_torch train_student")
+def _add_common_flags(p: argparse.ArgumentParser) -> None:
+    """The flags both training CLIs take (config.py:295-418), without
+    those the port would accept and ignore (--num_workers,
+    --scoped_vmem_kib, --sync_bn: argparse refuses them), plus --fp32 and
+    --device.  --synthetic is taken by the CLIs, as in moma_tpu."""
     p.add_argument("--print_freq", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--epochs", type=int, default=240)
@@ -279,13 +289,13 @@ def student_parser() -> argparse.ArgumentParser:
     p.add_argument("--trial", type=str, default="0",
                    help="run label, part of the run directory's name")
     p.add_argument("--save_dir", type=str, default="./save",
-                   help="root of the run directories "
-                        "(<save_dir>/moma_<run name>)")
+                   help="root of the run directories")
     p.add_argument("--skip_test", action="store_true")
     p.add_argument("--skip_validation", action="store_true",
-                   help="run a pre-flight eval of the teacher on the test "
-                        "split before training (the reference's inverted "
-                        "store_false flag: passing it RUNS the validation)")
+                   help="run a pre-flight eval of the loaded model / "
+                        "teacher on the test split before training (the "
+                        "reference's inverted store_false flag: passing it "
+                        "RUNS the validation)")
     p.add_argument("--fp32", action="store_true", help="disable bf16 compute")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default; an error if absent) "
@@ -300,6 +310,66 @@ def student_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of the first epoch")
     p.add_argument("--n_cls", type=int, default=0)
+
+
+def _cfg_from_common(a) -> Config:
+    cfg = Config()
+    cfg.data = DataConfig(
+        dataset=a.dataset, data_dir=a.data_dir, batch_size=a.batch_size,
+        image_size=a.image_size, image_resize=a.image_resize, crop=a.crop,
+        aug_train=a.aug_train, ra_config=a.ra_config, use_cmc=a.use_cmc,
+        fold_idx=a.fold_idx, n_folds=a.n_folds)
+    cfg.optim = OptimConfig(
+        learning_rate=a.learning_rate, momentum=a.momentum,
+        weight_decay=a.weight_decay, cosine=a.cosine,
+        lr_decay_rate=a.lr_decay_rate,
+        lr_decay_epochs=tuple(int(x) for x in a.lr_decay_epochs.split(",")),
+        grad_clip=a.grad_clip, trust_ratio=a.trust_ratio,
+        warmup_epochs=a.warmup_epochs)
+    cfg.run = RunConfig(
+        epochs=a.epochs, seed=a.seed, print_freq=a.print_freq,
+        save_dir=a.save_dir, trial=a.trial, skip_test=a.skip_test,
+        preflight_eval=a.skip_validation, half_precision=not a.fp32,
+        bn=a.bn, model_parallel=a.model_parallel, grad_accum=a.grad_accum,
+        remat=a.remat, resume=a.resume, profile_dir=a.profile_dir,
+        device=a.device)
+    return cfg
+
+
+def teacher_parser() -> argparse.ArgumentParser:
+    """The flags of scripts/run_vanilla.sh's train_teacher
+    (config.py:471-482)."""
+    p = argparse.ArgumentParser("moma_tpu_torch train_teacher")
+    _add_common_flags(p)
+    p.add_argument("--model", type=str, default="resnet20")
+    p.add_argument("--pretrain", type=str, default=None)
+    p.add_argument("--not_strict", action="store_true")
+    p.add_argument("--pre_strict", action="store_false", dest="pre_strict",
+                   help="reference alias of strict pretrained loading "
+                        "(passing it disables strict)")
+    return p
+
+
+def parse_teacher_args(argv=None) -> Config:
+    """CLI -> Config (config.py:485-496); raises for choices outside the
+    ported slice (check_slice)."""
+    a = teacher_parser().parse_args(argv)
+    cfg = _cfg_from_common(a)
+    cfg.model_s = ModelConfig(name=a.model, pretrain=a.pretrain,
+                              strict=(not a.not_strict) and a.pre_strict)
+    cfg = cfg.finalize()
+    if a.n_cls:
+        cfg.model_s.n_cls = a.n_cls
+    check_slice(cfg, supervised=True)
+    return cfg
+
+
+def student_parser() -> argparse.ArgumentParser:
+    """The flags scripts/run_moma.sh and scripts/run_comparison.sh pass to
+    train_student (config.py:499-558), plus the switches check_slice
+    rejects (so a reference command line fails loudly, not silently)."""
+    p = argparse.ArgumentParser("moma_tpu_torch train_student")
+    _add_common_flags(p)
     p.add_argument("--model_s", type=str, default="resnet8x4")
     p.add_argument("--model_t", type=str, default="resnet32x4")
     p.add_argument("--path_t", type=str, default=None)
@@ -312,9 +382,16 @@ def student_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--cls", type=float, default=1.0)
     p.add_argument("-d", "--div", type=float, default=1.0)
     p.add_argument("-b", "--beta", type=float, default=0.0)
+    p.add_argument("-f", "--factor", type=int, default=2)
+    p.add_argument("-s", "--soft", type=float, default=1.0)
+    p.add_argument("--hint_layer", type=int, default=1,
+                   choices=[0, 1, 2, 3, 4])
     p.add_argument("--feat_dim", type=int, default=512)
+    p.add_argument("--mode", type=str, default="exact",
+                   choices=["exact", "relax"])
     p.add_argument("--nce_k", type=int, default=16384)
     p.add_argument("--nce_t", type=float, default=0.07)
+    p.add_argument("--nce_m", type=float, default=0.5)
     p.add_argument("--alpha", type=float, default=0.999)
     p.add_argument("--mem", type=str, default="MoCo",
                    choices=list(MEMS))
@@ -336,35 +413,17 @@ def parse_student_args(argv=None) -> Config:
     """CLI -> Config (config.py:562-586); raises for choices outside the
     ported slice (check_slice)."""
     a = student_parser().parse_args(argv)
-    cfg = Config()
-    cfg.data = DataConfig(
-        dataset=a.dataset, data_dir=a.data_dir, batch_size=a.batch_size,
-        image_size=a.image_size, image_resize=a.image_resize, crop=a.crop,
-        aug_train=a.aug_train, ra_config=a.ra_config, use_cmc=a.use_cmc,
-        fold_idx=a.fold_idx, n_folds=a.n_folds)
-    cfg.optim = OptimConfig(
-        learning_rate=a.learning_rate, momentum=a.momentum,
-        weight_decay=a.weight_decay, cosine=a.cosine,
-        lr_decay_rate=a.lr_decay_rate,
-        lr_decay_epochs=tuple(int(x) for x in a.lr_decay_epochs.split(",")),
-        grad_clip=a.grad_clip, trust_ratio=a.trust_ratio,
-        warmup_epochs=a.warmup_epochs)
-    cfg.run = RunConfig(
-        epochs=a.epochs, seed=a.seed, print_freq=a.print_freq,
-        save_dir=a.save_dir, trial=a.trial, skip_test=a.skip_test,
-        preflight_eval=a.skip_validation, half_precision=not a.fp32,
-        bn=a.bn, model_parallel=a.model_parallel, grad_accum=a.grad_accum,
-        remat=a.remat, resume=a.resume, profile_dir=a.profile_dir,
-        device=a.device)
+    cfg = _cfg_from_common(a)
     cfg.model_s = ModelConfig(name=a.model_s, pretrain=a.std_pre,
                               strict=a.std_strict)
     cfg.model_t = ModelConfig(name=a.model_t, pretrain=a.path_t or a.tec_pre,
                               strict=a.tec_strict)
     cfg.distill = DistillConfig(distill=a.distill, kd_T=a.kd_T, cls=a.cls,
-                                div=a.div, beta=a.beta)
+                                div=a.div, beta=a.beta, factor=a.factor,
+                                soft=a.soft, hint_layer=a.hint_layer)
     cfg.moma = MomaConfig(
-        feat_dim=a.feat_dim, nce_k=a.nce_k, nce_t=a.nce_t, alpha=a.alpha,
-        mem=a.mem, head=a.head, attn=a.attn,
+        feat_dim=a.feat_dim, nce_k=a.nce_k, nce_t=a.nce_t, nce_m=a.nce_m,
+        alpha=a.alpha, mem=a.mem, head=a.head, attn=a.attn, mode=a.mode,
         shuffle_bn=not a.no_shuffle_bn, kl_teacher_bn=a.kl_teacher_bn,
         fast_teacher=a.fast_teacher, fused_teacher=a.fused_teacher,
         teacher_quant=a.teacher_quant)

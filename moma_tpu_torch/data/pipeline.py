@@ -11,7 +11,7 @@ memory-mapped dataset are gathered with numpy fancy indexing.
 from __future__ import annotations
 
 import math
-from typing import Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -44,15 +44,18 @@ class Loader:
     """Epoch iterator: train=True reshuffles per epoch (seeded), drops
     the ragged tail and can start mid-epoch (`set_start_batch`);
     train=False is sequential, pads the last batch and marks valid rows in
-    'mask'."""
+    'mask'.  Every batch carries its dataset rows as 'index' (int32) and
+    the same rows of each `extras` array (name -> (n, ...))."""
 
-    def __init__(self, dataset, batch_size: int, train: bool, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, train: bool, seed: int = 0,
+                 extras: Optional[Dict[str, np.ndarray]] = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.train = train
         self.seed = seed
         self.epoch = 0
         self.start_batch = 0
+        self.extras = extras or {}
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -70,6 +73,13 @@ class Loader:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
 
+    def _batch(self, idx: np.ndarray) -> dict:
+        batch = {"image": self.ds.images[idx], "label": self.ds.labels[idx],
+                 "index": idx.astype(np.int32)}
+        for k, v in self.extras.items():
+            batch[k] = v[idx]
+        return batch
+
     def __iter__(self) -> Iterator[dict]:
         n = len(self.ds)
         bs = self.batch_size
@@ -77,9 +87,7 @@ class Loader:
             order = np.random.RandomState(
                 (self.seed * 100003 + self.epoch) % (2 ** 31)).permutation(n)
             for i in range(self.start_batch, n // bs):
-                idx = order[i * bs:(i + 1) * bs]
-                yield {"image": self.ds.images[idx],
-                       "label": self.ds.labels[idx]}
+                yield self._batch(order[i * bs:(i + 1) * bs])
         else:
             for i in range(math.ceil(n / bs)):
                 idx = np.arange(i * bs, min((i + 1) * bs, n))
@@ -88,5 +96,4 @@ class Loader:
                 if pad:
                     mask[idx.shape[0]:] = False
                     idx = np.concatenate([idx, np.zeros(pad, dtype=idx.dtype)])
-                yield {"image": self.ds.images[idx],
-                       "label": self.ds.labels[idx], "mask": mask}
+                yield {**self._batch(idx), "mask": mask}

@@ -24,6 +24,13 @@ its own value, or a JAX leaf left unread, raises.
       the port module's current weights shaped like `template` (an
       insertion-ordered init tree), for comparing with a JAX state whose
       dict keys may since have been re-sorted.
+  load_jax_aux(aux, params, batch_stats) JAX -> port, the comparison
+      distillers' aux modules: `params` / `batch_stats` as
+      `Distiller.init_aux` returns them (name -> subtree, numpy), `aux`
+      the port's `Distiller.init_aux` ModuleDict.  A bare parameter at a
+      module's top (VID's `log_scale`) crosses by its name.
+  jax_aux_variables(aux, params, batch_stats)  port -> JAX layout, the
+      inverse, shaped like the given trees.
 """
 
 from __future__ import annotations
@@ -184,3 +191,63 @@ def jax_variables(module: torch.nn.Module,
             node = node.setdefault(k, {})
         node[path[-1]] = _to_jax(state[key], layout)
     return out
+
+
+def _aux_split(module: torch.nn.Module, params: Dict[str, Any]):
+    """The names of the bare parameters at the top of a flax aux subtree
+    (not inside a conv / bn / linear module), checked to exist in the
+    port module under the same name."""
+    raw = [k for k, v in params.items() if not isinstance(v, dict)]
+    own = dict(module.named_parameters(recurse=False))
+    missing = [k for k in raw if k not in own]
+    if missing:
+        raise ValueError(f"bare parameters {missing} have no port "
+                         "counterpart")
+    return raw
+
+
+def load_jax_aux(aux: torch.nn.ModuleDict, params: Dict[str, Any],
+                 batch_stats: Dict[str, Any]) -> None:
+    """Fill the port's aux modules in place from JAX `Distiller.init_aux`
+    trees (see module docstring)."""
+    if list(aux) != list(params):
+        raise ValueError(f"aux modules differ: {list(aux)} vs {list(params)}")
+    for name, module in aux.items():
+        raw = _aux_split(module, params[name])
+        rest = {k: v for k, v in params[name].items() if k not in raw}
+        template = {k: v for k, v in _numpy_state(module).items()
+                    if k not in raw}
+        sd = export_state_dict({"params": rest,
+                                "batch_stats": batch_stats.get(name, {})},
+                               template)
+        sd.update({k: np.asarray(params[name][k]) for k in raw})
+        own = module.state_dict()
+        module.load_state_dict({
+            k: torch.as_tensor(np.array(v)).to(own[k].device, own[k].dtype)
+            for k, v in sd.items()})
+
+
+def jax_aux_variables(aux: torch.nn.ModuleDict, params: Dict[str, Any],
+                      batch_stats: Dict[str, Any], grads: bool = False):
+    """(params, batch_stats) of the port's aux modules in the layout of
+    the given JAX trees; with `grads`, the parameters' gradients (zero
+    where there is none) in place of their values.  As with jax_variables,
+    the arrays of a CPU module share its memory: copy them before a later
+    step changes it."""
+    out_p, out_bs = {}, {}
+    for name, module in aux.items():
+        raw = _aux_split(module, params[name])
+        state = _numpy_state(module)
+        if grads:
+            state.update({k: (np.zeros(p.shape, np.float32) if p.grad is None
+                              else p.grad.detach().float().cpu().numpy())
+                          for k, p in module.named_parameters()})
+        tmpl = {"params": {k: v for k, v in params[name].items()
+                           if k not in raw},
+                "batch_stats": batch_stats.get(name, {})}
+        conv = convert_state_dict(
+            {k: v for k, v in state.items() if k not in raw}, tmpl)
+        out_p[name] = {**conv["params"], **{k: state[k] for k in raw}}
+        if name in batch_stats:
+            out_bs[name] = conv["batch_stats"]
+    return out_p, out_bs

@@ -6,7 +6,9 @@ replaces a backbone's weights in place from:
 
   * the port's own checkpoint (core/checkpoint.py, `<run>/ckpt/<tag>.pt`):
     its `student` entry, as the JAX package takes the student of a MoMA
-    run's checkpoint (:158-163);
+    or distillation run's checkpoint (:158-163), or else its `teacher`
+    entry, the model of a supervised run (train/teacher.py), as the JAX
+    package reads the teacher layout {params, batch_stats} (:149-157);
   * a torch state dict (.pth/.pt/.bin/.ckpt, optionally wrapped in
     {'model': ...} or {'state_dict': ...}: reference-trained weights, or
     the export of moma_tpu.cli.export_torch), converted through the port's
@@ -169,10 +171,13 @@ def load_pretrained(module: torch.nn.Module, path: Optional[str],
         obj = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:
         obj = None  # a reference checkpoint with pickled objects
-    if isinstance(obj, dict) and isinstance(obj.get("student"), dict):
-        # a checkpoint of this package: the run's student
-        _load_port_state(module, obj["student"], strict)
-        return module
+    if isinstance(obj, dict):
+        # a checkpoint of this package: a distillation run's student, or
+        # the model of a supervised run
+        for key in ("student", "teacher"):
+            if isinstance(obj.get(key), dict):
+                _load_port_state(module, obj[key], strict)
+                return module
     from moma_tpu_torch.models.vit import VisionTransformer
 
     if isinstance(module, VisionTransformer):

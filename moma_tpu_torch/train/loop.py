@@ -1,4 +1,5 @@
-"""Epoch loops: one training epoch, full-split evaluation.
+"""Epoch loops: one training epoch, full-split evaluation, and the run's
+epochs around them.
 
 Counterpart of moma_tpu/train/loop.py (`train_one_epoch` :34-129,
 `evaluate` :132-157).  Host batches (numpy uint8 from
@@ -6,10 +7,19 @@ moma_tpu_torch.data.pipeline.Loader) move to the run's device; step metrics stay
 on the device and are fetched at print points and once at epoch end.  An
 epoch can start mid-way (`start_step`, for a resume from a preemption
 save) and stops between steps when its `stop` guard is set.
+
+`resume_point` and `run_epochs` are the part the three training runs
+share (moma_tpu/train/teacher.py:166-305, student.py:176-363,
+moma.py:1440-1640, which repeat it): the resume point read from `latest`
+and its meta files, then per epoch the (optionally traced) training
+epoch, the NaN guard, the preemption save, the val / test evaluation, the
+stat files, the `latest` / `best_acc` / `best_f1` checkpoints, and at the
+end `parameters.json`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Optional
 
@@ -17,6 +27,8 @@ import numpy as np
 import torch
 
 from moma_tpu_torch.core.metrics import EvalAccumulator, Meter
+from moma_tpu_torch.core.preempt import GracefulStop
+from moma_tpu_torch.core.profiling import trace
 
 
 class NonFiniteLossError(RuntimeError):
@@ -119,3 +131,120 @@ def evaluate(model: torch.nn.Module, loader, eval_step: Callable,
         acc.update(float(tot[0]), float(tot[1]), tot[2].cpu().numpy())
     return {"loss": acc.loss, "acc": acc.acc, "f1": acc.f1,
             "conf_mat": acc.conf_mat.tolist(), "n": acc.n}
+
+
+def resume_point(cfg, ckpt):
+    """(saved state or None, start_epoch, resume_step, best_acc, best_f1)
+    of a run: with --resume and a complete `latest`, its state, the epoch
+    after it, the exact batch of a preemption save, and the best-metric
+    thresholds read back from their meta files (else the first epoch after
+    the restart would overwrite the real best checkpoints)."""
+    if not (cfg.run.resume and ckpt.exists("latest")):
+        return None, 1, 0, -1.0, -1.0
+    saved = ckpt.restore("latest")
+    meta = ckpt.meta("latest") or {}
+    start_epoch = int(meta.get("epoch", 0)) + 1
+    resume_step = int(meta.get("resume_step", 0))
+    best_acc = float((ckpt.meta("best_acc") or {}).get("val_acc", -1.0))
+    best_f1 = float((ckpt.meta("best_f1") or {}).get("val_f1", -1.0))
+    print(f"[resume] from epoch {start_epoch}"
+          + (f" step {resume_step}" if resume_step else "")
+          + f" (best_acc={best_acc:.2f}, best_f1={best_f1:.4f})", flush=True)
+    return saved, start_epoch, resume_step, best_acc, best_f1
+
+
+def run_epochs(cfg, state, *, epoch_step: Callable, evaluate_fn: Callable,
+               full_state: Callable, train_loader, device, ckpt, stats,
+               run_dir: str, start, stop=None, test_loss: bool = False,
+               params: Optional[dict] = None, line: str = "loss"):
+    """Epochs start[0]..cfg.run.epochs of a run; returns (state, {'best_acc',
+    'best_f1', 'train', 'val', 'epochs', 'run_dir'}, plus 'preempted' or
+    'nan_aborted' when the run stopped early).
+
+    `epoch_step(ep_start)` gives the step function of an epoch that starts
+    at batch `ep_start`; `evaluate_fn(state, split)` evaluates on 'val' or
+    'test'; `full_state(state)` is the checkpointed dict.  `start` is
+    resume_point's (start_epoch, resume_step, best_acc, best_f1).  `stop`
+    is a GracefulStop-like guard to use in place of the one installed
+    here for SIGTERM / SIGINT.  `test_loss` adds the test loss to the
+    epoch's row, `params` to parameters.json; `line` names the train loss
+    in the epoch's printed line."""
+    start_epoch, resume_step, best_acc, best_f1 = start
+    guard = stop if stop is not None else GracefulStop()
+    t_start = time.time()
+    history = []
+    tr = val = None
+
+    def result(**extra):
+        return state, {"best_acc": best_acc, "best_f1": best_f1, "train": tr,
+                       "val": val, "epochs": history, "run_dir": run_dir,
+                       **extra}
+
+    try:
+        if stop is None:
+            guard.__enter__()
+        for epoch in range(start_epoch, cfg.run.epochs + 1):
+            ep_start = resume_step if epoch == start_epoch else 0
+            ctx = (trace(cfg.run.profile_dir)
+                   if cfg.run.profile_dir and epoch == start_epoch
+                   else contextlib.nullcontext())
+            try:
+                with ctx:
+                    state, tr = train_one_epoch(
+                        state, train_loader, epoch_step(ep_start), device,
+                        epoch, cfg.run.seed, print_freq=cfg.run.print_freq,
+                        log_fn=stats.scalar, stop=guard, start_step=ep_start)
+            except NonFiniteLossError as e:
+                # 'latest' (the end of the last finite epoch) is the resume
+                # point
+                print(f"[nan-guard] {e}; stopping — resume from the last "
+                      f"epoch-end checkpoint (epoch {epoch - 1})", flush=True)
+                stats.update_epoch(epoch, {"nan_aborted": True})
+                return result(nan_aborted=True)
+            if guard.stopping:
+                # preemption: the full state and the exact batch index, so
+                # --resume continues this epoch where it stopped
+                ckpt.save("latest", full_state(state),
+                          {"epoch": epoch - 1, "preempted": True,
+                           "resume_step": tr["steps"]})
+                print(f"[preempt] checkpointed at epoch {epoch} step "
+                      f"{tr['steps']}/{len(train_loader)}; exiting",
+                      flush=True)
+                return result(preempted=True)
+            val = evaluate_fn(state, "val")
+            row = {"train_loss": tr["loss"], "train_acc": tr["acc1"],
+                   "ips": tr["ips"], "val_loss": val["loss"],
+                   "val_acc": val["acc"], "val_f1": val["f1"]}
+            if ep_start:
+                # resumed epoch: train stats cover only the tail batches
+                row["train_partial_from"] = ep_start
+            if not cfg.run.skip_test:
+                test = evaluate_fn(state, "test")
+                if test_loss:
+                    row["test_loss"] = test["loss"]
+                row.update(test_acc=test["acc"], test_f1=test["f1"])
+            stats.update_epoch(epoch, row)
+            history.append({"epoch": epoch, **row})
+            print(f"epoch {epoch}: {line} {tr['loss']:.4f} acc "
+                  f"{tr['acc1']:.2f} | val acc {val['acc']:.2f} f1 "
+                  f"{val['f1']:.4f} | {tr['ips']:.1f} img/s", flush=True)
+            saved = full_state(state)
+            meta = {"epoch": epoch, **row}
+            ckpt.save("latest", saved, meta)
+            if val["acc"] > best_acc:
+                best_acc = val["acc"]
+                ckpt.save("best_acc", saved, meta)
+            if val["f1"] > best_f1:
+                best_f1 = val["f1"]
+                ckpt.save("best_f1", saved, meta)
+        stats.write_params_json(run_dir, {
+            "config": cfg.to_json(), **(params or {}),
+            "best_val_acc": best_acc, "best_val_f1": best_f1,
+            "hours": (time.time() - t_start) / 3600.0})
+        return result()
+    finally:
+        # the prior handlers come back, so a later SIGTERM in this process
+        # is not swallowed by a dead flag
+        if stop is None:
+            guard.__exit__()
+        stats.close()

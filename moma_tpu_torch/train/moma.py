@@ -44,9 +44,11 @@ With `--fast_teacher` the KL logits are the key forward's (unshuffled), so
 a step runs one teacher forward (train/moma.py:192-197, :475-480).
 
 Cross-arch (`cross_arch=True`, train/moma.py:294-700; `build_state`
-detects it as run_moma does, :1209-1218: the two backbones' parameter
-names differ) changes three things.  The KL forward runs on the fixed
-teacher, always in eval mode (`kl_teacher_bn` does not apply, :340-348).
+detects it as run_moma does, :1209-1218, when the two backbones'
+parameters differ in names, and also when they differ only in shapes,
+which the JAX package takes as same-arch and fails on) changes three
+things.  The KL forward runs on the fixed teacher, always in eval mode
+(`kl_teacher_bn` does not apply, :340-348).
 The momentum encoder is `state.ema`, an EMA copy of the student with its
 own BN statistics: the EMA goes into it (:374-377), the key forward runs
 through it in train mode (:417-426; the step's second train-mode forward
@@ -75,7 +77,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import os
-import time
 import warnings
 from typing import Callable, Optional
 
@@ -84,8 +85,6 @@ from torch import nn
 
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_slice
-from moma_tpu_torch.core.preempt import GracefulStop
-from moma_tpu_torch.core.profiling import trace
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.data.pipeline import Loader
 from moma_tpu_torch.losses import functional as F
@@ -98,10 +97,9 @@ from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        step_moco_st)
 from moma_tpu_torch.ops import fused_effnet
 from moma_tpu_torch.runtime import resolve_device
-from moma_tpu_torch.train.loop import (NonFiniteLossError, evaluate,
-                                       train_one_epoch)
-from moma_tpu_torch.train.state import MomaState, make_sgd
-from moma_tpu_torch.train.steps import make_eval_step
+from moma_tpu_torch.train.loop import evaluate, resume_point, run_epochs
+from moma_tpu_torch.train.state import MomaState, make_sgd, sgd_step
+from moma_tpu_torch.train.steps import accuracy, make_eval_step
 from moma_tpu_torch.train.teacher import augment_fns, build_datasets
 
 
@@ -139,10 +137,14 @@ def module_forward(model, images, train: bool):
 
 
 def is_cross_arch(student: nn.Module, teacher: nn.Module) -> bool:
-    """EmaTec mode: the backbones' parameter trees differ in names, not
-    only in shapes (train/moma.py:1209-1218)."""
-    return ([n for n, _ in student.named_parameters()]
-            != [n for n, _ in teacher.named_parameters()])
+    """EmaTec mode: the backbones' parameters differ in names or in
+    shapes.  The JAX package compares the trees' structure only
+    (train/moma.py:1209-1218), so a teacher with the student's names and
+    other widths (ViT-S -> ViT-Ti, effiB2 -> effiB1) is taken as the
+    momentum encoder there and fails at its first EMA update; here it
+    trains in EmaTec mode."""
+    return ([(n, p.shape) for n, p in student.named_parameters()]
+            != [(n, p.shape) for n, p in teacher.named_parameters()])
 
 
 def make_teacher_forward(cfg: Config):
@@ -334,30 +336,16 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
             logits_list)
         total = c * loss_cls + dv * loss_div + b * loss_kd
 
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        for group in opt.param_groups:
-            group["lr"] = state.schedule(state.step)
-            for p in group["params"]:
-                if p.grad is None:  # unused modules: decay still applies
-                    p.grad = torch.zeros_like(p)
-        opt.step()
+        sgd_step(state.optimizer, state.schedule(state.step))
         state.queue = new_queue
         state.step += 1
 
-        with torch.no_grad():
-            k5 = min(5, logit_s.shape[-1])
-            metrics = {
-                "loss": total.detach(),
-                "loss_cls": loss_cls.detach(),
-                "loss_div": loss_div.detach(),
-                "loss_kd": loss_kd.detach(),
-                "acc1": (logit_s.argmax(-1) == labels).float().mean() * 100.0,
-                "acc5": (logit_s.topk(k5, -1).indices == labels[:, None])
-                .any(-1).float().mean() * 100.0,
-                "queue_ptr": new_queue.ptr,
-            }
+        metrics = {"loss": total.detach(), "loss_cls": loss_cls.detach(),
+                   "loss_div": loss_div.detach(),
+                   "loss_kd": loss_kd.detach(),
+                   **accuracy(logit_s, labels), "queue_ptr": new_queue.ptr}
         return state, metrics
 
     return step
@@ -368,9 +356,9 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
     """Student, teacher, CMO heads, queue and SGD from seeded generators;
     the student and teacher then take --std_pre / --tec_pre weights where
     given (load_pretrained; an unresolvable tag raises).  Backbones whose
-    parameter names differ make a cross-arch (EmaTec) state: its momentum
-    encoder `ema` is a distinct copy of the student, its heads gain
-    embed_ema."""
+    parameters differ in names or shapes make a cross-arch (EmaTec) state:
+    its momentum encoder `ema` is a distinct copy of the student, its heads
+    gain embed_ema."""
     dtype = torch.bfloat16 if cfg.run.half_precision else None
     n_cls = cfg.model_s.n_cls
 
@@ -517,123 +505,30 @@ def run_moma(cfg: Config, synthetic: bool = False, stop=None):
         print(f"[pre-flight] teacher test acc {pre['acc']:.2f} "
               f"f1 {pre['f1']:.4f}", flush=True)
 
-    best_acc, best_f1 = -1.0, -1.0
-    start_epoch, resume_step = 1, 0
-    if cfg.run.resume and ckpt.exists("latest"):
-        load_full_state(state, ckpt.restore("latest"))
-        meta = ckpt.meta("latest") or {}
-        start_epoch = int(meta.get("epoch", 0)) + 1
-        # exact mid-epoch resume point of a preemption save
-        resume_step = int(meta.get("resume_step", 0))
-        # the best-metric thresholds survive the restart (else the first
-        # epoch after it would overwrite the real best checkpoints)
-        m = ckpt.meta("best_acc")
-        if m is not None:
-            best_acc = float(m.get("val_acc", -1.0))
-        m = ckpt.meta("best_f1")
-        if m is not None:
-            best_f1 = float(m.get("val_f1", -1.0))
-        print(f"[resume] from epoch {start_epoch}"
-              + (f" step {resume_step}" if resume_step else "")
-              + f" (best_acc={best_acc:.2f}, best_f1={best_f1:.4f})",
-              flush=True)
+    saved, *start = resume_point(cfg, ckpt)
+    if saved is not None:
+        load_full_state(state, saved)
+    first_fn, rest_fn = (step_fn if isinstance(step_fn, tuple)
+                         else (step_fn, step_fn))
 
-    stats = StatsWriter(run_dir)
-    guard = stop if stop is not None else GracefulStop()
-    try:
-        if stop is None:
-            guard.__enter__()
-        return _epoch_loop_moma(
-            cfg, state, stats, ckpt, guard, step_fn, eval_step,
-            train_loader, val_loader, test_loader, device, n_cls,
-            start_epoch, resume_step, best_acc, best_f1, run_dir)
-    finally:
-        # the prior handlers come back, so a later SIGTERM in this process
-        # is not swallowed by a dead flag
-        if stop is None:
-            guard.__exit__()
-        stats.close()
+    def epoch_step(ep_start):
+        # 'exact': eval-BN KL forward on the epoch's first batch (the
+        # per-epoch model_t.eval() reset), train-BN after.  A mid-epoch
+        # resume already ran the epoch's first batch before the
+        # preemption, so it takes the train-BN step throughout.
+        seen = [0 if ep_start == 0 else 1]
 
+        def step(s, b, g):
+            fn = first_fn if seen[0] == 0 else rest_fn
+            seen[0] += 1
+            return fn(s, b, g)
+        return step
 
-def _epoch_loop_moma(cfg, state, stats, ckpt, stop, step_fn, eval_step,
-                     train_loader, val_loader, test_loader, device, n_cls,
-                     start_epoch, resume_step, best_acc, best_f1, run_dir):
-    t_start = time.time()
-    history = []
-    tr = val = None
-
-    def result(**extra):
-        return state, {"best_acc": best_acc, "best_f1": best_f1, "train": tr,
-                       "val": val, "epochs": history, "run_dir": run_dir,
-                       **extra}
-
-    for epoch in range(start_epoch, cfg.run.epochs + 1):
-        ep_start = resume_step if epoch == start_epoch else 0
-        if isinstance(step_fn, tuple):
-            # 'exact': eval-BN KL forward on the epoch's first batch (the
-            # per-epoch model_t.eval() reset), train-BN after.  A mid-epoch
-            # resume already ran the epoch's first batch before the
-            # preemption, so it takes the train-BN step throughout.
-            first_fn, rest_fn = step_fn
-            seen = [0 if ep_start == 0 else 1]
-
-            def epoch_step(s, b, g):
-                fn = first_fn if seen[0] == 0 else rest_fn
-                seen[0] += 1
-                return fn(s, b, g)
-        else:
-            epoch_step = step_fn
-        ctx = (trace(cfg.run.profile_dir)
-               if cfg.run.profile_dir and epoch == start_epoch
-               else contextlib.nullcontext())
-        try:
-            with ctx:
-                state, tr = train_one_epoch(
-                    state, train_loader, epoch_step, device, epoch,
-                    cfg.run.seed, print_freq=cfg.run.print_freq,
-                    log_fn=stats.scalar, stop=stop, start_step=ep_start)
-        except NonFiniteLossError as e:
-            # 'latest' (the end of the last finite epoch) is the resume point
-            print(f"[nan-guard] {e}; stopping — resume from the last "
-                  f"epoch-end checkpoint (epoch {epoch - 1})", flush=True)
-            stats.update_epoch(epoch, {"nan_aborted": True})
-            return result(nan_aborted=True)
-        if stop.stopping:
-            # preemption: the full state and the exact batch index, so
-            # --resume continues this epoch where it stopped
-            ckpt.save("latest", full_state(state),
-                      {"epoch": epoch - 1, "preempted": True,
-                       "resume_step": tr["steps"]})
-            print(f"[preempt] checkpointed at epoch {epoch} step "
-                  f"{tr['steps']}/{len(train_loader)}; exiting", flush=True)
-            return result(preempted=True)
-        val = evaluate(state.student, val_loader, eval_step, device, n_cls)
-        row = {"train_loss": tr["loss"], "train_acc": tr["acc1"],
-               "ips": tr["ips"], "val_loss": val["loss"],
-               "val_acc": val["acc"], "val_f1": val["f1"]}
-        if ep_start:
-            # resumed epoch: train stats cover only the tail batches
-            row["train_partial_from"] = ep_start
-        if not cfg.run.skip_test:
-            test = evaluate(state.student, test_loader, eval_step, device,
-                            n_cls)
-            row.update(test_acc=test["acc"], test_f1=test["f1"])
-        stats.update_epoch(epoch, row)
-        history.append({"epoch": epoch, **row})
-        print(f"epoch {epoch}: loss {tr['loss']:.4f} acc {tr['acc1']:.2f} | "
-              f"val acc {val['acc']:.2f} f1 {val['f1']:.4f} | "
-              f"{tr['ips']:.1f} img/s", flush=True)
-        saved = full_state(state)
-        meta = {"epoch": epoch, **row}
-        ckpt.save("latest", saved, meta)
-        if val["acc"] > best_acc:
-            best_acc = val["acc"]
-            ckpt.save("best_acc", saved, meta)
-        if val["f1"] > best_f1:
-            best_f1 = val["f1"]
-            ckpt.save("best_f1", saved, meta)
-
-    stats.write_params_json(run_dir, {
-        "config": cfg.to_json(), "best_val_acc": best_acc,
-        "best_val_f1": best_f1, "hours": (time.time() - t_start) / 3600.0})
-    return result()
+    loaders = {"val": val_loader, "test": test_loader}
+    return run_epochs(
+        cfg, state, epoch_step=epoch_step,
+        evaluate_fn=lambda st, split: evaluate(st.student, loaders[split],
+                                               eval_step, device, n_cls),
+        full_state=full_state, train_loader=train_loader, device=device,
+        ckpt=ckpt, stats=StatsWriter(run_dir), run_dir=run_dir, start=start,
+        stop=stop)

@@ -1,6 +1,9 @@
-"""MoMA train state and the SGD optimizer.
+"""Train states and the SGD optimizer.
 
-Counterpart of moma_tpu/train/state.py: `MomaState` (:95-128) and
+Counterpart of moma_tpu/train/state.py: `TrainState` (:19), the
+supervised run's; `DistillState` (:61), the comparison distillers' (the
+student and the loss zoo's aux modules under one optimizer, the frozen
+teacher, and `extra`, the CRD memory); `MomaState` (:95-128); and
 `make_sgd` (:131-169).  JAX's immutable state becomes a container of live
 modules that the step updates in place: the student and teacher backbones,
 in cross-arch (EmaTec) runs the EMA copy of the student (JAX's
@@ -33,6 +36,7 @@ from typing import Callable, Iterable, Optional
 import torch
 from torch import nn
 
+from moma_tpu_torch.losses.crd import CRDMemory
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import QueueState
 
@@ -108,6 +112,50 @@ def make_sgd(params: Iterable[nn.Parameter], momentum: float = 0.9,
                         trust_ratio)
     return torch.optim.SGD(list(params), lr=0.0, momentum=momentum,
                            weight_decay=weight_decay, nesterov=nesterov)
+
+
+def sgd_step(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """One optimizer step at learning rate `lr`, after backward.  A
+    parameter without a gradient (a module the loss did not reach) gets a
+    zero one, so weight decay and momentum still apply to it, as in the
+    optax chain over the whole parameter tree."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    optimizer.step()
+
+
+@dataclass
+class TrainState:
+    """The supervised run's model, optimizer and step (updated in
+    place)."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+
+
+@dataclass
+class DistillState:
+    """A comparison distiller's state: the student and the method's aux
+    modules (trained under one optimizer, as the reference's
+    trainable_list), the frozen teacher, and `extra`, the CRD memory of
+    --distill crd."""
+
+    student: nn.Module
+    aux: nn.ModuleDict
+    teacher: nn.Module
+    optimizer: Optional[torch.optim.Optimizer]
+    schedule: Callable[[int], float]
+    step: int = 0
+    extra: Optional[CRDMemory] = None
+
+    def trainable_params(self):
+        yield from self.student.parameters()
+        yield from self.aux.parameters()
 
 
 @dataclass

@@ -827,3 +827,92 @@ def test_cross_arch_step_cuda_matches_cpu(dev, tmp_path):
                 float(p.abs().max()), floor)
     torch.testing.assert_close(sg.queue.memory["memory"].cpu(),
                                sc.queue.memory["memory"], rtol=0, atol=1e-3)
+
+
+def _step_on_both(dev, build, batch):
+    """One step (augmentation included) built by `build(device) -> (state,
+    step)` from one seed, on the CPU and on the card, same batch and
+    draws."""
+    from moma_tpu_torch.train.loop import to_device
+
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        state, step = build(device)
+        out[device.type] = step(state, to_device(batch, device),
+                                torch.Generator().manual_seed(5))
+    return out["cpu"], out["cuda"]
+
+
+def _close_modules(pairs):
+    """Each parameter within 1e-3 of its largest magnitude (floored at
+    1e-3 of the largest of all)."""
+    pairs = [(p.detach(), q.detach().cpu()) for a, b in pairs
+             for p, q in zip(a.parameters(), b.parameters())]
+    floor = 1e-3 * max(float(p.abs().max()) for p, _ in pairs)
+    for p, q in pairs:
+        assert float((p - q).abs().max()) <= 1e-3 * max(
+            float(p.abs().max()), floor)
+
+
+def _small_batch(n_data=16):
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    idx = rs.permutation(n_data)[:4].astype(np.int32)
+    cidx = rs.randint(0, n_data, (4, 17)).astype(np.int32)
+    cidx[:, 0] = idx
+    return {"image": rs.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+            "label": rs.randint(0, 4, (4,)).astype(np.int32),
+            "index": idx, "contrast_idx": cidx}
+
+
+def test_vanilla_step_cuda_matches_cpu(dev):
+    """One supervised step of effiB0 (64^2, batch 4, float32, augment
+    included) on the card against the CPU: loss within 1e-3, every
+    parameter within 1e-3 of its scale."""
+    from moma_tpu_torch.core.config import parse_teacher_args
+    from moma_tpu_torch.train.steps import make_vanilla_train_step
+    from moma_tpu_torch.train.teacher import augment_fns, build_teacher_state
+
+    cfg = parse_teacher_args([
+        "--dataset", "prostate_hv", "--model", "effiB0", "--image_size",
+        "64", "--batch_size", "4", "--fp32", "--epochs", "1"])
+    (sc, mc), (sg, mg) = _step_on_both(
+        dev, lambda d: (build_teacher_state(cfg, d, 4, 0),
+                        make_vanilla_train_step(augment_fns(cfg)[0])),
+        _small_batch())
+    assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-3 * abs(
+        float(mc["loss"]))
+    _close_modules([(sc.model, sg.model)])
+
+
+def test_crd_step_cuda_matches_cpu(dev):
+    """One --distill crd step (effiB0 -> effiB0, 64^2, batch 4, K 16,
+    float32) on the card against the CPU: the four losses within 1e-3, the
+    student and the embeds within 1e-3 of their scale, the banks within
+    1e-3 and Z within 1e-4 of theirs."""
+    from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.train.distill import make_distill_train_step
+    from moma_tpu_torch.train.student import build_distill_state
+    from moma_tpu_torch.train.teacher import augment_fns
+
+    cfg = parse_student_args([
+        "--distill", "crd", "--dataset", "prostate_hv", "--model_s",
+        "effiB0", "--model_t", "effiB0", "--image_size", "64",
+        "--batch_size", "4", "--nce_k", "16", "--feat_dim", "32", "-b",
+        "0.8", "--fp32", "--epochs", "1"])
+
+    def build(d):
+        state, distiller = build_distill_state(cfg, d, 4, 0, 16)
+        return state, make_distill_train_step(distiller, augment_fns(cfg)[0])
+
+    (sc, mc), (sg, mg) = _step_on_both(dev, build, _small_batch())
+    for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+        assert abs(float(mc[k]) - float(mg[k])) <= 1e-3 * abs(float(mc[k]))
+    _close_modules([(sc.student, sg.student), (sc.aux, sg.aux)])
+    for k, tol in (("v1", 1e-3), ("v2", 1e-3), ("z_v1", 1e-4),
+                   ("z_v2", 1e-4)):
+        want, got = getattr(sc.extra, k), getattr(sg.extra, k).cpu()
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())

@@ -105,17 +105,37 @@ def jax_template(model, sample_shape, dtype=np.float32):
     moma_tpu_torch.interop.jax_variables it gives a JAX tree holding a port
     module's own initial weights, at a fraction of a compiled init's cost
     (effiB1: 2.9 s against 7.9 s)."""
-    order = {}
     sample = np.zeros(sample_shape, dtype)
+    return _writable(tree_template(
+        lambda key: model.init(key, sample, train=False),
+        jax.random.PRNGKey(0)))
 
-    def f(key):
-        v = model.init(key, sample, train=False)
-        order["skel"] = _skeleton(v)
-        return v
 
-    shapes = jax.eval_shape(f, jax.random.PRNGKey(0))
-    return _rebuild(order["skel"], jax.tree_util.tree_map(
-        lambda a: np.zeros(a.shape, a.dtype), shapes))
+def _writable(tree):
+    """An order-preserving copy of a nested dict into writable arrays."""
+    if isinstance(tree, Mapping):
+        return {k: _writable(v) for k, v in tree.items()}
+    return np.array(tree)
+
+
+def tree_template(fn, *args):
+    """Zeros shaped like fn(*args)'s output (nested dicts, or a tuple of
+    them), insertion-ordered, from an abstract trace.  The leaves are
+    read-only broadcast views of one zero, which hold no memory."""
+    order = {}
+
+    def f(*a):
+        out = fn(*a)
+        order["skel"] = [_skeleton(o) for o in
+                         (out if isinstance(out, tuple) else (out,))]
+        return out
+
+    shapes = jax.eval_shape(f, *args)
+    zeros = jax.tree_util.tree_map(
+        lambda a: np.broadcast_to(np.zeros((), a.dtype), a.shape), shapes)
+    outs = tuple(_rebuild(s, z) for s, z in zip(
+        order["skel"], zeros if isinstance(zeros, tuple) else (zeros,)))
+    return outs if isinstance(shapes, tuple) else outs[0]
 
 
 def assert_close_scaled(got, want, rtol, what="", floor=0.0):
@@ -126,8 +146,13 @@ def assert_close_scaled(got, want, rtol, what="", floor=0.0):
     feeding the next train-mode BN gets a zero gradient), where both sides
     hold only float noise: pass a small fraction of the enclosing group's
     scale (group_floor)."""
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
+    # in the inputs' own float precision (float32 at least): the limit's
+    # rounding is then 1e-7 of itself, and a 255M-element comparison does
+    # not first copy both sides to float64
+    dt = np.result_type(np.asarray(got).dtype, np.asarray(want).dtype,
+                        np.float32)
+    got = np.asarray(got, dt)
+    want = np.asarray(want, dt)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     scale = max(np.abs(want).max() if want.size else 0.0, floor)
     err = np.abs(got - want)
