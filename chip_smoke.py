@@ -13,7 +13,9 @@ the hand-written kernels; then the run around the step (checkpoints,
 then config #5, cross-arch MoMA: a ViT-S/16 teacher and an effiB0 student
 at 224^2 in EmaTec mode (CROSS_ARGS); then supervised teacher training
 (scripts/run_vanilla.sh's command line, TEACHER_ARGS) and the seven
-comparison distillers of scripts/run_comparison.sh from that teacher.
+comparison distillers of scripts/run_comparison.sh from that teacher;
+then the CLIs' default run on CIFAR-100 (a resnet32x4 teacher, resnet8x4
+kd / crd / MoMA students) and one step of each backbone family.
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -93,7 +95,24 @@ Phases (each prints its own lines):
                  counts (the student's and the aux modules' train-mode
                  BatchNorms), step time, img/s, peak memory; crd's 2 steps
                  under --profile_dir; then one 64^2 step of each of the 17
-                 methods on the CPU and the card.
+                 methods on the CPU and the card
+ 11 zoo / CIFAR: channel_sums / grad_channel_sums at the zoo's 32^2
+                 shapes (batch 64; C = 32..256 and the odd 8, 12, 54, 116,
+                 216) against their plain versions, and timed at
+                 (64,32,32,256) / (64,32,32,64) bf16 beside bound and
+                 library; a seeded CIFAR-100 file in the canonical pickle
+                 layout at 50000 / 10000 images; resnet32x4 through
+                 cli.train_teacher (CIFAR_TEACHER_ARGS, the JAX defaults,
+                 4 steps: 34 channel_sums and grad_channel_sums a step, no
+                 RandAugment; 2 steps under --profile_dir; a --resume round
+                 trip), then resnet8x4 students from its best_acc.pt by
+                 --path_t: kd, crd (banks of 50000 rows) and MoMA
+                 (cross-arch EmaTec), 4 steps each, the loaded teacher bit
+                 for bit; then one full-width batch-64 step of one net per
+                 family (ZOO_SWEEP: launches = the net's BatchNorms, every
+                 BN input channels_last, ShuffleNets' copies in a profiled
+                 step) and each family's step at 32^2 / 64^2, batch 4, f32,
+                 on the CPU and the card.
                  Every run writes under a temporary --save_dir, removed at
                  exit
 The last three lines of stdout are one JSON object with the per-kernel
@@ -1121,9 +1140,10 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
         f"diff {worst:.2e}; queue max diff {qerr:.2e}")
 
 
-def expected_launches(state, n, flash_per_step=0, fused=False):
+def expected_launches(state, n, flash_per_step=0, fused=False, ra=2):
     """The kernel launches of an epoch of n steps of the 'exact' schedule
-    on the state's model (and the number of its student's BatchNorms)."""
+    on the state's model (and the number of its student's BatchNorms);
+    `ra` RandAugment layers a step (0 on the CIFAR augment)."""
     n_bn = sum(1 for m in state.student.modules()
                if type(m).__name__ == "FusedBatchNorm")
     # first batch: eval-BN KL forward ('exact'), so student + key forwards;
@@ -1133,7 +1153,7 @@ def expected_launches(state, n, flash_per_step=0, fused=False):
     teacher_train = n if state.ema is not None else 2 * n - 1
     want = {"channel_sums": n_bn * n + n_bn * teacher_train,
             "grad_channel_sums": n_bn * n,
-            "ra_layer": 2 * n, "ra_layer_kernels": 4 * n,
+            "ra_layer": ra * n, "ra_layer_kernels": 2 * ra * n,
             "flash_fwd": flash_per_step * n,
             "flash_dq": flash_per_step * n, "flash_dkv": flash_per_step * n,
             "k1_expand_stats": 0, "k2_depthwise": 0, "k4_project": 0}
@@ -1710,13 +1730,14 @@ def _n_bn(*modules):
                if type(m).__name__ == "FusedBatchNorm")
 
 
-def phase_drive(main, args, label, nets):
+def phase_drive(main, args, label, nets, ra_per_step=2, expect=None):
     """Drive a training CLI (`main`, with `args`) for one epoch of 4 steps:
     finite losses, and the launch counts of its train-mode BatchNorms (the
     modules `nets(state)` returns: every one runs one channel_sums forward
-    and one grad_channel_sums backward a step) and of the augment; then
-    steady step time, img/s and peak memory.  Returns (state, result,
-    counts)."""
+    and one grad_channel_sums backward a step) and of the augment's
+    `ra_per_step` RandAugment layers a step, or those `expect(state, n)`
+    gives; then steady step time, img/s and peak memory.  Returns (state,
+    result, counts)."""
     import torch
 
     from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
@@ -1741,9 +1762,12 @@ def phase_drive(main, args, label, nets):
         raise AssertionError(f"{label} ran {n} steps, expected 4")
     n_bn = _n_bn(*nets(state))
     want = {"channel_sums": n_bn * n, "grad_channel_sums": n_bn * n,
-            "ra_layer": 2 * n, "ra_layer_kernels": 4 * n,
+            "ra_layer": ra_per_step * n,
+            "ra_layer_kernels": 2 * ra_per_step * n,
             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "k1_expand_stats": 0, "k2_depthwise": 0, "k4_project": 0}
+    if expect is not None:
+        want = expect(state, n)
     log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} "
         f"train-mode BNs)")
     for k, v in want.items():
@@ -1778,13 +1802,58 @@ def phase_trace(main, args, label):
         + "; ".join(f"{n[:80]} {ms:.2f}" for n, ms in t["top_kernels_ms"]))
 
 
-def _cpu_vs_card(build, batch, label, nets, extra=None):
+def _relu_sides():
+    """A TorchFunctionMode that records which side of its kinks every ReLU
+    (and relu6's clamp(0, 6)) input takes (`sides` None), or makes them
+    take the recorded sides, in call order: relu(x) becomes x * side."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class ReluSides(TorchFunctionMode):
+        def __init__(self, sides=None):
+            super().__init__()
+            self.replay = sides is not None
+            self.sides = sides if self.replay else []
+            self.calls = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            relu = func in (F.relu, torch.relu)
+            relu6 = (func is torch.Tensor.clamp and not kwargs
+                     and tuple(args[1:]) == (0.0, 6.0))
+            if not (relu or relu6):
+                return func(*args, **kwargs)
+            x = args[0]
+            if not self.replay:
+                side = (x > 0).to(torch.int8)
+                if relu6:
+                    side += (x >= 6.0).to(torch.int8)
+                self.sides.append(side.detach().cpu())
+                return func(*args, **kwargs)
+            side = self.sides[self.calls].to(x.device)
+            self.calls += 1
+            if relu:
+                return x * side.to(x.dtype)
+            return torch.where(side == 1, x, (side == 2).to(x.dtype) * 6.0)
+
+    return ReluSides
+
+
+def _cpu_vs_card(build, batch, label, nets, extra=None, relu_sides=False):
     """One step (augmentation included) on the CPU (plain versions) and
     on the card (kernels), built by `build(device) -> (state, step)` from
     the same seed, on the same batch and draws, f32 with TF32 off: the
     losses within 1e-3, each tensor of the modules `nets(state)` within
     1e-3 of its largest magnitude (floored at 1e-3 of the largest of
-    all), and the tensors `extra(state)` within 1e-3 of theirs."""
+    all), and the tensors `extra(state)` within 1e-3 of theirs.  With
+    `relu_sides` every ReLU input on the card takes the side of 0 (and
+    relu6's of 6) that it took on the CPU: one input within rounding of a
+    kink that falls the other way moves every gradient before it, by
+    percents for the BatchNorm biases a first step sets, which no
+    tolerance of float rounding covers."""
+    import contextlib
+
     import torch
 
     from moma_tpu_torch.train.loop import to_device
@@ -1792,12 +1861,22 @@ def _cpu_vs_card(build, batch, label, nets, extra=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    sides, flips = None, 0
     try:
         for dev in ("cpu", "cuda"):
             device = torch.device(dev)
             state, step = build(device)
-            out[dev] = step(state, to_device(batch, device),
-                            torch.Generator().manual_seed(5))
+            mode = (_relu_sides()(sides) if relu_sides
+                    else contextlib.nullcontext())
+            with mode:
+                out[dev] = step(state, to_device(batch, device),
+                                torch.Generator().manual_seed(5))
+            if relu_sides:
+                if dev == "cpu":
+                    sides = mode.sides
+                elif mode.calls != len(sides):
+                    raise AssertionError(f"{label}: {mode.calls} ReLUs on "
+                                         f"the card, {len(sides)} on the CPU")
     finally:
         torch.backends.cudnn.allow_tf32 = True
     (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
@@ -1820,9 +1899,10 @@ def _cpu_vs_card(build, batch, label, nets, extra=None):
     if not (worst <= 1e-3 and xerr <= 1e-3):
         raise AssertionError(f"{label} parity: params max rel {worst:.2e}, "
                              f"extra {xerr:.2e}")
-    log(f"[parity] {label} 64^2 f32 step cpu vs cuda: loss "
+    log(f"[parity] {label} f32 step cpu vs cuda: loss "
         f"{float(mc['loss']):.6f} vs {float(mg['loss']):.6f}; params max rel "
-        f"diff {worst:.2e}" + (f"; extra state {xerr:.2e}" if extra else ""))
+        f"diff {worst:.2e}" + (f"; extra state {xerr:.2e}" if extra else "")
+        + (f"; {len(sides)} ReLUs on the CPU's sides" if relu_sides else ""))
 
 
 def _small_batch(n_data=16):
@@ -1956,6 +2036,319 @@ def phase_comparison(teacher_best):
     log(f"[comparison] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return first
 
+# phase_zoo: the CLIs' default run on CIFAR-100 (moma_tpu/core/config.py
+# defaults: 240 epochs, lr 0.05 at 150/180/210, wd 5e-4, batch 64), on a
+# seeded file in the canonical pickle layout at the real split sizes
+CIFAR_SPLITS = (50000, 10000)
+CIFAR_TEACHER_ARGS = [
+    "--dataset", "cifar100", "--model", "resnet32x4", "--batch_size", "64",
+    "--epochs", "1", "--device", "cuda", "--print_freq", "1",
+]
+CIFAR_STUDENT_ARGS = [
+    "--dataset", "cifar100", "--batch_size", "64", "--epochs", "1",
+    "--device", "cuda", "--print_freq", "1",
+]
+# resnet32x4 -> resnet8x4 (the defaults); kd and crd with
+# scripts/run_comparison.sh's -c / -d / -b, MoMA with its defaults
+CIFAR_STUDENTS = (("kd", ["-c", "1", "-d", "0", "-b", "1"]),
+                  ("crd", ["-c", "1", "-d", "1", "-b", "0.8"]),
+                  ("moma", []))
+CIFAR_TEACHER_BNS = 34
+# one name per backbone family at full width, batch 64: the CIFAR nets at
+# 32^2, the ImageNet ones at 224^2
+ZOO_SWEEP = (("resnet32x4", 32), ("wrn_40_2", 32), ("vgg13", 32),
+             ("MobileNetV2", 32), ("ShuffleV1", 32), ("ShuffleV2", 32),
+             ("ResNet50", 224), ("resnext50_32x4d", 224),
+             ("MobileNetV2_Imagenet", 224), ("ShuffleV2_Imagenet", 224))
+# the BN reductions at the zoo's 32^2 shapes, batch 64: the CIFAR ResNets'
+# widths and the odd ones (MobileNetV2 half's 8 and 12, ShuffleV1's 54 and
+# 216, ShuffleV2's 116), whose bf16 rows are no multiple of 16 bytes
+ZOO_BN_SHAPES = [(64, 32, 32, c) for c in (32, 64, 128, 256, 8, 12, 54,
+                                            116, 216)]
+ZOO_BN_TIMED = [(64, 32, 32, 256), (64, 32, 32, 64)]
+
+
+class _cap_steps:
+    """Loaders inside yield at most `n` batches an epoch (train) and
+    `n_eval` (eval), their datasets kept whole (CRD sizes its banks from
+    the train split)."""
+
+    def __init__(self, n, n_eval=4):
+        self.n, self.n_eval = n, n_eval
+
+    def __enter__(self):
+        from moma_tpu_torch.data.pipeline import Loader
+
+        self.saved = Loader.__len__, Loader.__iter__
+        length, it = self.saved
+        n, n_eval = self.n, self.n_eval
+
+        def capped_len(ld):
+            return min(length(ld), n if ld.train else n_eval)
+
+        def capped_iter(ld):
+            stop = (n - ld.start_batch) if ld.train else n_eval
+            for i, batch in enumerate(it(ld)):
+                if i >= stop:
+                    return
+                yield batch
+
+        Loader.__len__, Loader.__iter__ = capped_len, capped_iter
+
+    def __exit__(self, *exc):
+        from moma_tpu_torch.data.pipeline import Loader
+
+        Loader.__len__, Loader.__iter__ = self.saved
+        return False
+
+
+def phase_zoo_bn_kernels(results):
+    """channel_sums / grad_channel_sums at the zoo's 32^2 shapes, f32 and
+    bf16, against their plain versions (1e-4 of sum|.|); then at
+    ZOO_BN_TIMED bf16 the kernels' device times beside their bound (bytes
+    at 3.35 TB/s), the plain versions' and torch.batch_norm_stats /
+    batch_norm_backward_reduce's at the same shape."""
+    import torch
+
+    from moma_tpu_torch.ops import fused_bn as FB
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for shape in ZOO_BN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(
+                dtype)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            mean = x.float().mean((0, 1, 2))
+            bounds = ((x.float().abs().sum((0, 1, 2)),
+                       (x.float() ** 2).sum((0, 1, 2))),
+                      (dy.float().abs().sum((0, 1, 2)),
+                       (dy.float() * (x.float() - mean)).abs().sum(
+                           (0, 1, 2))))
+            for name, got, want, bound in (
+                    ("channel_sums", FB.channel_sums(x),
+                     FB.channel_sums_plain(x), bounds[0]),
+                    ("grad_channel_sums", FB.grad_channel_sums(dy, x, mean),
+                     FB.grad_channel_sums_plain(dy, x, mean), bounds[1])):
+                rel = max(float(((g - w).abs() / (b + 1e-6)).max())
+                          for g, w, b in zip(got, want, bound))
+                results[name]["max_abs_err"] = max(
+                    results[name]["max_abs_err"],
+                    max(float((g - w).abs().max())
+                        for g, w in zip(got, want)))
+                if not rel <= BN_RTOL:
+                    raise AssertionError(f"{name} {shape} {dtype}: error "
+                                         f"{rel:.2e} of sum|.|")
+    log(f"[zoo] channel_sums and grad_channel_sums agree with their plain "
+        f"versions within {BN_RTOL} of sum|.| at {len(ZOO_BN_SHAPES)} 32^2 "
+        "shapes (C = 32, 64, 128, 256, 8, 12, 54, 116, 216), f32 and bf16")
+    for shape in ZOO_BN_TIMED:
+        x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(
+            torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        mean = x.float().mean((0, 1, 2))
+        invstd = torch.rsqrt(x.float().var((0, 1, 2)) + 1e-5)
+        weight = torch.ones_like(mean)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        nbytes = x.numel() * x.element_size()
+        for name, kern, plain, lib, nb in (
+                ("channel_sums", lambda: FB.channel_sums(x),
+                 lambda: FB.channel_sums_plain(x),
+                 lambda: torch.batch_norm_stats(xn, 1e-5), nbytes),
+                ("grad_channel_sums",
+                 lambda: FB.grad_channel_sums(dy, x, mean),
+                 lambda: FB.grad_channel_sums_plain(dy, x, mean),
+                 lambda: torch.batch_norm_backward_reduce(
+                     dyn, xn, mean, invstd, weight, True, True, True),
+                 2 * nbytes)):
+            ms, plain_ms, lib_ms = (cuda_time_ms(f)
+                                    for f in (kern, plain, lib))
+            bound = nb / HBM_BYTES_PER_S * 1e3
+            log(f"[zoo] {name} {shape} bf16: kernel {ms:.4f} ms, bound "
+                f"{bound:.4f} ms (bytes), plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms")
+
+
+def _zoo_batch(size, n_cls, batch=4, seed=0):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    return {"image": rs.randint(0, 256, (batch, size, size, 3),
+                                dtype=np.uint8),
+            "label": rs.randint(0, n_cls, (batch,)).astype(np.int32)}
+
+
+def _zoo_cfg(name, size, batch, *extra):
+    from moma_tpu_torch.core.config import parse_teacher_args
+
+    return parse_teacher_args([
+        "--dataset", "synthetic", "--model", name, "--image_size",
+        str(size), "--batch_size", str(batch), "--epochs", "1", *extra])
+
+
+def phase_zoo_sweep(batch=64):
+    """One vanilla step of each ZOO_SWEEP net at full width (bf16, batch
+    64; 3 steps, the last timed): finite loss, channel_sums and
+    grad_channel_sums launches equal to the net's BatchNorms, every
+    BatchNorm input channels_last; ShuffleV1 / ShuffleV2's copies in a
+    profiled step.  Then one step of each at 32^2 (64^2 for the ImageNet
+    family), batch 4, f32, on the CPU and the card."""
+    import torch
+
+    from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+    from moma_tpu_torch.train.loop import to_device
+    from moma_tpu_torch.train.steps import make_vanilla_train_step
+    from moma_tpu_torch.train.teacher import augment_fns, build_teacher_state
+
+    dev = torch.device("cuda")
+    for name, size in ZOO_SWEEP:
+        cfg = _zoo_cfg(name, size, batch)
+        torch.cuda.reset_peak_memory_stats()
+        state = build_teacher_state(cfg, dev, 4, 0)
+        step = make_vanilla_train_step(augment_fns(cfg)[0])
+        n_bn = _n_bn(state.model)
+        bad = []
+        for m in state.model.modules():
+            if isinstance(m, FusedBatchNorm):
+                m.register_forward_pre_hook(lambda m, a: bad.append(1) if (
+                    a[0].ndim == 4 and not a[0].is_contiguous(
+                        memory_format=torch.channels_last)) else None)
+        b = to_device(_zoo_batch(size, cfg.model_s.n_cls, batch), dev)
+        g = torch.Generator().manual_seed(0)
+        for i in range(3):
+            if i == 2:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+            state, m = step(state, b, g)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if not math.isfinite(loss):
+            raise AssertionError(f"zoo {name}: loss {loss}")
+        for k in ("channel_sums", "grad_channel_sums"):
+            if counts.get(k, 0) != n_bn:
+                raise AssertionError(f"zoo {name}: {k} {counts.get(k, 0)} "
+                                     f"launches, {n_bn} BatchNorms")
+        if bad:
+            raise AssertionError(f"zoo {name}: {len(bad)} BatchNorm inputs "
+                                 "not channels_last")
+        copies = ""
+        if name.startswith("Shuffle"):
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                state, m = step(state, b, g)
+                torch.cuda.synchronize()
+            ops = {e.key: e.count for e in prof.key_averages()}
+            copies = (f"; one profiled step: aten::copy_ "
+                      f"{ops.get('aten::copy_', 0)}, aten::contiguous "
+                      f"{ops.get('aten::contiguous', 0)}, aten::clone "
+                      f"{ops.get('aten::clone', 0)}, aten::cat "
+                      f"{ops.get('aten::cat', 0)}, aten::stack "
+                      f"{ops.get('aten::stack', 0)}")
+        log(f"[zoo] {name} @ {size}^2, batch {batch}, bf16: one step "
+            f"{ms:.1f} ms (host clock, third step), loss {loss:.4f}, "
+            f"{n_bn} BatchNorms = channel_sums {counts['channel_sums']} = "
+            f"grad_channel_sums {counts['grad_channel_sums']}, every BN "
+            f"input channels_last, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB{copies}")
+        del state, step, b
+    for name, size in ZOO_SWEEP:
+        size = 32 if size == 32 else 64
+        cfg = _zoo_cfg(name, size, 4, "--fp32")
+        _cpu_vs_card(lambda d, cfg=cfg: (
+            build_teacher_state(cfg, d, 4, 0),
+            make_vanilla_train_step(augment_fns(cfg)[0])),
+            _zoo_batch(size, cfg.model_s.n_cls), f"zoo {name} {size}^2",
+            lambda s: [s.model], relu_sides=True)
+
+
+def phase_zoo(results):
+    """CIFAR-100 and the model zoo: the BN kernels at the zoo's shapes;
+    resnet32x4 through cli.train_teacher on a seeded CIFAR-100 file at the
+    real split sizes (4 steps: 34 channel_sums and grad_channel_sums a
+    step, no RandAugment; 2 steps under --profile_dir; a --resume round
+    trip), then kd, crd and MoMA students of resnet8x4 from its
+    best_acc.pt (4 steps each; the loaded teacher bit for bit the run's),
+    then the backbone sweep.  Returns the teacher run's launch counts."""
+    import torch
+
+    from moma_tpu_torch.cli import train_student, train_teacher
+    from moma_tpu_torch.data.cifar import write_cifar100
+    from moma_tpu_torch.train.teacher import teacher_full_state
+
+    t_phase = time.perf_counter()
+    phase_zoo_bn_kernels(results)
+    root = SAVE_ROOT
+    data_dir = os.path.join(root, "cifar")
+    t0 = time.perf_counter()
+    write_cifar100(data_dir, *CIFAR_SPLITS, seed=0)
+    log(f"[zoo] seeded CIFAR-100 pickle ({CIFAR_SPLITS[0]} / "
+        f"{CIFAR_SPLITS[1]} images) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t_args = CIFAR_TEACHER_ARGS + ["--data_dir", data_dir]
+    _set_root(os.path.join(root, "cifar_teacher"))
+    with _cap_steps(4):
+        state, result, counts = phase_drive(
+            train_teacher.main, t_args, "cifar_teacher",
+            lambda s: [s.model], ra_per_step=0)
+    _set_root(root)
+    if _n_bn(state.model) != CIFAR_TEACHER_BNS:
+        raise AssertionError(f"resnet32x4 has {_n_bn(state.model)} "
+                             f"BatchNorms, not {CIFAR_TEACHER_BNS}")
+    del state
+    phase_trace(train_teacher.main, t_args, "cifar_teacher")
+    s_re, _, _, loss_gap, gap, where = _round_trip(
+        t_args, "cifar_t_resume", PERSIST_SETS, main=train_teacher.main,
+        full=teacher_full_state)
+    log(f"[cifar_teacher] 1 + 1 epochs (2 steps each) with --resume vs 2 "
+        f"straight: step losses rel gap {loss_gap:.2e}, state max rel gap "
+        f"{gap:.2e}{' at ' + where if where else ''}; step {s_re.step}")
+    del s_re
+    best = os.path.join(result["run_dir"], "ckpt", "best_acc.pt")
+    saved = torch.load(best, map_location="cpu", weights_only=True)[
+        "teacher"]
+
+    def loaded(state, n):
+        if n == 1:
+            for k, t in state.teacher.state_dict().items():
+                if not torch_equal(t, saved[k]):
+                    raise AssertionError(f"loaded teacher {k} is not the "
+                                         "teacher run's")
+
+    for method, weights in CIFAR_STUDENTS:
+        args = CIFAR_STUDENT_ARGS + ["--data_dir", data_dir, "--distill",
+                                     method, *weights, "--path_t", best]
+        _set_root(os.path.join(root, "cifar_" + method))
+        with _cap_steps(4), _wrapped_steps(before=loaded):
+            if method == "moma":
+                state, result, _ = phase_drive(
+                    train_student.main, args, "cifar_moma",
+                    lambda s: [s.student],
+                    expect=lambda s, n: expected_launches(s, n, ra=0)[0])
+                if state.ema is None:
+                    raise AssertionError("resnet32x4 -> resnet8x4 MoMA is "
+                                         "not in cross-arch EmaTec mode")
+            else:
+                state, result, _ = phase_drive(
+                    train_student.main, args, "cifar_" + method,
+                    lambda s: [s.student, s.aux], ra_per_step=0)
+        _set_root(root)
+        if method == "crd":
+            if tuple(state.extra.v1.shape)[0] != CIFAR_SPLITS[0]:
+                raise AssertionError(f"crd banks {tuple(state.extra.v1.shape)}"
+                                     f" not sized from the train split")
+            log(f"[cifar_crd] banks {tuple(state.extra.v1.shape)} x 2 f32")
+        log(f"[cifar_{method}] the loaded teacher equals the teacher run's "
+            "best_acc.pt bit for bit")
+        del state, result
+    phase_zoo_sweep()
+    log(f"[zoo] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -1998,9 +2391,10 @@ def _run(name_power, t0) -> int:
     cross_counts = phase_cross_arch()
     teacher_best, teacher_counts = phase_teacher()
     cmp_counts = phase_comparison(teacher_best)
+    zoo_counts = phase_zoo(results)
     # a kernel's launches: those of the first main path that runs it
     for later in (att_counts, fused_counts, cross_counts, teacher_counts,
-                  cmp_counts):
+                  cmp_counts, zoo_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

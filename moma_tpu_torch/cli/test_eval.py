@@ -36,6 +36,7 @@ import torch
 
 from moma_tpu_torch.core.config import DATASET_NUM_CLASSES
 from moma_tpu_torch.data import augment as aug
+from moma_tpu_torch.data.cifar import cifar100_available, load_cifar100
 from moma_tpu_torch.data.manifests import viz_subset
 from moma_tpu_torch.data.pipeline import (ArrayDataset, Loader,
                                           synthetic_dataset)
@@ -161,12 +162,12 @@ def main(argv=None):
         test_ds = synthetic_dataset(max(a.batch_size, 128), a.image_size,
                                     n_cls, 1)
 
-        def norm(images):
-            return aug.normalize(images, aug.CIFAR100_MEAN, aug.CIFAR100_STD)
+        norm = aug.cifar_eval_normalize
     elif a.dataset == "cifar100":
-        raise NotImplementedError(
-            "CIFAR-100 loading is not ported to moma_tpu_torch yet; pass "
-            "--synthetic or a histo dataset")
+        if not cifar100_available(a.data_dir):
+            raise FileNotFoundError(f"CIFAR-100 not under {a.data_dir}")
+        _, test_ds = load_cifar100(a.data_dir)
+        norm = aug.cifar_eval_normalize
     else:
         from moma_tpu_torch.data.histo import load_histo_testset
 

@@ -212,7 +212,7 @@ class Config:
 def check_slice(cfg: Config, supervised: bool = False) -> None:
     """Raise NotImplementedError for any choice outside the ported slice;
     `supervised`: a teacher run's config (no teacher, no distiller)."""
-    from moma_tpu_torch.models import available_models
+    from moma_tpu_torch.models import NOT_PORTED
 
     m, r, method = cfg.moma, cfg.run, cfg.distill.distill
     bad = []
@@ -239,8 +239,8 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
         if m.teacher_quant != "none":
             bad.append("--teacher_quant (Queue 1 item 6)")
     for mc in (cfg.model_s, cfg.model_t):
-        if mc is not None and mc.name not in available_models():
-            bad.append(f"model {mc.name} (the model zoo, Queue 1 item 3)")
+        if mc is not None and mc.name in NOT_PORTED:
+            bad.append(f"model {mc.name} ({NOT_PORTED[mc.name]})")
     if r.grad_accum > 1:
         bad.append("--grad_accum > 1 (Queue 1 item 5)")
     if r.remat:

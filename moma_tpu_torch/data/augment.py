@@ -1,9 +1,14 @@
 """Device-side augmentation primitives.
 
-Counterpart of moma_tpu/data/augment.py: `normalize` (:27),
-`random_hflip` (:57), `random_resized_crop` (:75), `resize_bilinear`
-(:161) and `center_crop` (:169).  Images are NHWC, as in moma_tpu, so the
-two packages compare like with like.
+Counterpart of moma_tpu/data/augment.py: `normalize` (:27), the CIFAR
+stack (`random_crop_pad` :37, `cifar_train_augment` :63,
+`cifar_eval_normalize` :71), `random_hflip` (:57), `random_resized_crop`
+(:75), `resize_bilinear` (:161) and `center_crop` (:169).  Images are
+NHWC, as in moma_tpu, so the two packages compare like with like.
+
+Every draw is made on the host from a CPU torch.Generator; each random
+op has a `..._from_draws` form that takes the draws, so a test can pass
+in the JAX function's own.
 
 The crop is torchvision's RandomResizedCrop with moma_tpu's arithmetic:
 `random_resized_crop_from_draws` takes the four per-image draws (so a
@@ -40,13 +45,66 @@ def normalize(images: torch.Tensor, mean: Sequence[float],
     return (x - m) / s
 
 
+def hflip_from_draws(images: torch.Tensor,
+                     flip: torch.Tensor) -> torch.Tensor:
+    """Flip the NHWC images whose (B,) bool `flip` is set along W."""
+    flip = flip.to(images.device)
+    return torch.where(flip[:, None, None, None], images.flip(2), images)
+
+
 def random_hflip(images: torch.Tensor, generator: torch.Generator,
                  p: float = 0.5) -> torch.Tensor:
     """Flip each NHWC image along W with probability p (flip bits drawn on
     the host from `generator`)."""
     B = images.shape[0]
-    flip = (torch.rand(B, generator=generator) < p).to(images.device)
-    return torch.where(flip[:, None, None, None], images.flip(2), images)
+    return hflip_from_draws(images, torch.rand(B, generator=generator) < p)
+
+
+def random_crop_pad_from_draws(images: torch.Tensor, off_h: torch.Tensor,
+                               off_w: torch.Tensor,
+                               padding: int) -> torch.Tensor:
+    """torchvision RandomCrop(size, padding=p) on NHWC images: zero-pad by
+    `padding`, then each image's window at rows off_h, columns off_w
+    ((B,) ints in [0, 2p]), one gather for the batch."""
+    B, H, W, C = images.shape
+    dev = images.device
+    x = F.pad(images, (0, 0, padding, padding, padding, padding))
+    rows = off_h.to(dev, torch.long)[:, None] + torch.arange(H, device=dev)
+    cols = off_w.to(dev, torch.long)[:, None] + torch.arange(W, device=dev)
+    b = torch.arange(B, device=dev)[:, None, None]
+    return x[b, rows[:, :, None], cols[:, None, :]]
+
+
+def random_crop_pad(images: torch.Tensor, generator: torch.Generator,
+                    padding: int) -> torch.Tensor:
+    """random_crop_pad_from_draws with both offsets drawn uniformly in
+    [0, 2 * padding] on the host."""
+    off = torch.randint(0, 2 * padding + 1, (2, images.shape[0]),
+                        generator=generator)
+    return random_crop_pad_from_draws(images, off[0], off[1], padding)
+
+
+def cifar_augment_from_draws(images_u8: torch.Tensor, off_h: torch.Tensor,
+                             off_w: torch.Tensor,
+                             flip: torch.Tensor) -> torch.Tensor:
+    """The CIFAR train stack on given draws: crop with padding 4, flip,
+    normalize with the CIFAR-100 statistics; float32 NHWC."""
+    x = random_crop_pad_from_draws(images_u8, off_h, off_w, 4)
+    return normalize(hflip_from_draws(x, flip), CIFAR100_MEAN, CIFAR100_STD)
+
+
+def cifar_train_augment(images_u8: torch.Tensor,
+                        generator: torch.Generator) -> torch.Tensor:
+    """RandomCrop(32, padding 4) + hflip + normalize
+    (dataset/cifar100.py:78-87); the three (B,) draws from `generator`."""
+    B = images_u8.shape[0]
+    off = torch.randint(0, 9, (2, B), generator=generator)
+    flip = torch.rand(B, generator=generator) < 0.5
+    return cifar_augment_from_draws(images_u8, off[0], off[1], flip)
+
+
+def cifar_eval_normalize(images_u8: torch.Tensor) -> torch.Tensor:
+    return normalize(images_u8, CIFAR100_MEAN, CIFAR100_STD)
 
 
 def random_resized_crop_from_draws(

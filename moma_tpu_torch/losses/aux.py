@@ -30,9 +30,9 @@ from torch import nn
 
 from moma_tpu_torch.losses.functional import (adaptive_avg_pool_nhwc,
                                               l2_normalize)
-from moma_tpu_torch.models.common import (TorchLinear, conv_kernel_init_,
+from moma_tpu_torch.models.common import (BatchNorm, TorchLinear,
+                                          conv_kernel_init_,
                                           default_generator)
-from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -41,10 +41,6 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
-
-
-def _bn(c: int, dtype) -> FusedBatchNorm:
-    return FusedBatchNorm(c, momentum=0.9, eps=1e-5, dtype=dtype)
 
 
 class AuxConv(nn.Module):
@@ -111,7 +107,7 @@ class ConvReg(nn.Module):
         else:
             self.conv = AuxConv(s_C, t_C, (3, 3), 1, 1, **kw)
             self.pool_t = (s_H, s_W)
-        self.bn = _bn(t_C, dtype)
+        self.bn = BatchNorm(t_C, dtype)
 
     def forward(self, x, t):
         y = F.relu(self.bn(self.conv(_nchw(x))))
@@ -130,9 +126,9 @@ class Proj(nn.Module):
         mid = 2 * out_channels
         self.conv1 = AuxConv(in_channels, mid, (1, 1), dtype=dtype,
                              generator=g)
-        self.bn1 = _bn(mid, dtype)
+        self.bn1 = BatchNorm(mid, dtype)
         self.conv2 = AuxConv(mid, mid, (3, 3), 1, 1, dtype=dtype, generator=g)
-        self.bn2 = _bn(mid, dtype)
+        self.bn2 = BatchNorm(mid, dtype)
         self.conv3 = AuxConv(mid, out_channels, (1, 1), dtype=dtype,
                              generator=g)
 
@@ -239,7 +235,7 @@ class SRRL(nn.Module):
         super().__init__()
         self.conv = AuxConv(s_dim, t_dim, (1, 1), dtype=dtype,
                             generator=generator)
-        self.bn = _bn(t_dim, dtype)
+        self.bn = BatchNorm(t_dim, dtype)
 
     def forward(self, feat_s):
         y = F.relu(self.bn(self.conv(_nchw(feat_s[:, None, None, :]))))
@@ -258,12 +254,12 @@ class SimKD(nn.Module):
         mid = t_channels // factor
         self.conv1 = AuxConv(s_channels, mid, (1, 1), dtype=dtype,
                              generator=g)
-        self.bn1 = _bn(mid, dtype)
+        self.bn1 = BatchNorm(mid, dtype)
         self.conv2 = AuxConv(mid, mid, (3, 3), 1, 1, dtype=dtype, generator=g)
-        self.bn2 = _bn(mid, dtype)
+        self.bn2 = BatchNorm(mid, dtype)
         self.conv3 = AuxConv(mid, t_channels, (1, 1), dtype=dtype,
                              generator=g)
-        self.bn3 = _bn(t_channels, dtype)
+        self.bn3 = BatchNorm(t_channels, dtype)
 
     def forward(self, feat_s, feat_t):
         s_H, t_H = feat_s.shape[1], feat_t.shape[1]

@@ -1,15 +1,58 @@
-"""Backbone registry (the EfficientNet and ViT / DeiT families of
-moma_tpu.models)."""
+"""Backbone registry: every name of moma_tpu/models/__init__.py (:13-91),
+aliases included, but the two Mixture-of-Experts ViTs (ROADMAP Queue 1
+item 6).  `create_model(name, ...)` is the one construction entry point;
+imports are lazy."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import torch
 
+_P = "moma_tpu_torch.models."
+# name -> (module, factory)
+_REGISTRY = {
+    # CIFAR ResNet / WRN family
+    **{name: (_P + "resnet_cifar", name) for name in (
+        "resnet8", "resnet14", "resnet20", "resnet32", "resnet38",
+        "resnet44", "resnet56", "resnet110", "resnet116", "resnet200",
+        "resnet14x2", "resnet38x2", "resnet110x2",
+        "resnet8x4", "resnet14x4", "resnet20x4", "resnet26x4",
+        "resnet32x4", "resnet38x4", "resnet44x4", "resnet56x4",
+        "resnet110x4")},
+    "wrn_40_1": (_P + "resnet_cifar", "resnet38"),
+    "wrn_16_2": (_P + "resnet_cifar", "resnet14x2"),
+    "wrn_40_2": (_P + "resnet_cifar", "resnet38x2"),
+    "wrn_16_4": (_P + "resnet_cifar", "resnet14x4"),
+    "wrn_40_4": (_P + "resnet_cifar", "resnet38x4"),
+    # VGG
+    **{f"vgg{d}": (_P + "vgg", f"vgg{d}_bn") for d in (8, 11, 13, 16, 19)},
+    # CIFAR mobile / shuffle
+    "MobileNetV2": (_P + "mobilenetv2", "mobile_half"),
+    "MobileNetV2_1_0": (_P + "mobilenetv2", "mobile_half_double"),
+    "ShuffleV1": (_P + "shufflenet_v1", "ShuffleV1"),
+    "ShuffleV2": (_P + "shufflenet_v2", "ShuffleV2"),
+    "ShuffleV2_1_5": (_P + "shufflenet_v2", "ShuffleV2_1_5"),
+    # ImageNet ResNets
+    "ResNet18": (_P + "resnet_imagenet", "resnet18"),
+    "ResNet34": (_P + "resnet_imagenet", "resnet34"),
+    "ResNet50": (_P + "resnet_imagenet", "resnet50"),
+    "resnet101": (_P + "resnet_imagenet", "resnet101"),
+    "resnet152": (_P + "resnet_imagenet", "resnet152"),
+    "resnext50_32x4d": (_P + "resnet_imagenet", "resnext50_32x4d"),
+    "ResNet10x2": (_P + "resnet_imagenet", "wide_resnet10_2"),
+    "ResNet18x2": (_P + "resnet_imagenet", "wide_resnet18_2"),
+    "ResNet34x2": (_P + "resnet_imagenet", "wide_resnet34_2"),
+    "wrn_50_2": (_P + "resnet_imagenet", "wide_resnet50_2"),
+    # ImageNet mobile / shuffle
+    "MobileNetV2_Imagenet": (_P + "mobilenetv2_imagenet", "mobilenet_v2"),
+    "ShuffleV2_Imagenet": (_P + "shufflenet_v2_imagenet",
+                           "shufflenet_v2_x1_0"),
+}
 _EFFNETS = {f"effiB{i}": f"b{i}" for i in range(8)}
-# ViT / DeiT, with the timm-flavoured aliases of moma_tpu/models/__init__.py
-# (:67-84; architecturally the vit_* factories)
+# ViT / DeiT, with the timm-flavoured aliases (architecturally the vit_*
+# factories)
 _VITS = {name: name for name in (
     "vit_base_patch16_224", "vit_tiny_patch16_224", "vit_small_patch16_224",
     "deit_base_patch16_224", "deit_tiny_patch16_224",
@@ -18,10 +61,13 @@ _VITS = {name: name for name in (
     "deit_tiny_patch16_384")}
 _VITS.update({"vit_timm_base_patch16_224": "vit_base_patch16_224",
               "vit_timm_tiny_patch16_224": "vit_tiny_patch16_224"})
+# registered in moma_tpu, not ported: name -> ROADMAP label
+NOT_PORTED = {"vit_tiny_moe_patch16_224": "Queue 1 item 6",
+              "vit_small_moe_patch16_224": "Queue 1 item 6"}
 
 
 def available_models():
-    return sorted([*_EFFNETS, *_VITS])
+    return sorted([*_REGISTRY, *_EFFNETS, *_VITS])
 
 
 def create_model(name: str, num_classes: int,
@@ -31,6 +77,11 @@ def create_model(name: str, num_classes: int,
     """Build a registered backbone (moma_tpu/models/__init__.py
     counterpart).  A ViT needs `image_size`: its position embedding is
     sized from it."""
+    if name in _REGISTRY:
+        module, attr = _REGISTRY[name]
+        factory = getattr(importlib.import_module(module), attr)
+        return factory(num_classes=num_classes, dtype=dtype,
+                       generator=generator)
     if name in _EFFNETS:
         from moma_tpu_torch.models.efficientnet import EfficientNet
 
@@ -44,7 +95,8 @@ def create_model(name: str, num_classes: int,
 
         return vit_factory(_VITS[name], num_classes, image_size, dtype=dtype,
                            generator=generator)
-    raise NotImplementedError(
-        f"model {name!r} is not ported to moma_tpu_torch yet (ported: "
-        f"{available_models()}; the rest of the model zoo is ROADMAP Queue 1 "
-        "item 3)")
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to moma_tpu_torch yet (ROADMAP "
+            f"{NOT_PORTED[name]})")
+    raise KeyError(f"unknown model '{name}'; known: {available_models()}")

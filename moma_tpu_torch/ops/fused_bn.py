@@ -87,9 +87,16 @@ def _chunks(lib: ctypes.CDLL, fn, name: str, *args) -> int:
 
 # --------------------------------------------------------------- plain
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The dtype the statistics take: float32, or float64 for a float64
+    tensor (which only the plain versions accept: a CPU model run in
+    float64 as a reference for float32 rounding)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def channel_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """sum(x) and sum(x*x) over all axes but the last, in f32."""
-    xf = x.float()
+    xf = x.to(_acc(x))
     dims = tuple(range(x.ndim - 1))
     return xf.sum(dims), (xf * xf).sum(dims)
 
@@ -97,8 +104,8 @@ def channel_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def grad_channel_sums_plain(dy: torch.Tensor, x: torch.Tensor,
                             mean: torch.Tensor):
     """sum(dy) and sum(dy * (x - mean)) over all axes but the last (f32)."""
-    dyf = dy.float()
-    xm = x.float() - mean
+    dyf = dy.to(_acc(dy))
+    xm = x.to(_acc(x)) - mean
     dims = tuple(range(x.ndim - 1))
     return dyf.sum(dims), (dyf * xm).sum(dims)
 
@@ -168,9 +175,10 @@ def channel_stats(x: torch.Tensor):
 def _normalize(x, mean, var, scale, bias, eps: float, out_dtype):
     """flax `_normalize` op order: y = (x - mean) * (rsqrt(var+eps)*scale)
     + bias in f32, cast to out_dtype (fused_bn.py:305-311)."""
-    y = x.float() - mean
-    mul = torch.rsqrt(var + eps) * scale.float()
-    return (y * mul + bias.float()).to(out_dtype)
+    acc = _acc(x)
+    y = x.to(acc) - mean
+    mul = torch.rsqrt(var + eps) * scale.to(acc)
+    return (y * mul + bias.to(acc)).to(out_dtype)
 
 
 class FusedBNTrain(torch.autograd.Function):
@@ -196,12 +204,13 @@ class FusedBNTrain(torch.autograd.Function):
         # reads (R, C) rows, so bring it to x's (a no-op when it matches)
         dy = dy.contiguous()
         sum_dy, sum_dy_xm = grad_channel_sums(dy, x, mean)
-        g = scale.float() * invstd
+        acc = _acc(x)
+        g = scale.to(acc) * invstd
         dscale = (sum_dy_xm * invstd).to(scale.dtype)
         dbias = sum_dy.to(scale.dtype)
         t1 = sum_dy / n
         t2 = (sum_dy_xm / n) * (invstd * invstd)
-        dx = g * (dy.float() - t1 - (x.float() - mean) * t2)
+        dx = g * (dy.to(acc) - t1 - (x.to(acc) - mean) * t2)
         return dx.to(x.dtype), dscale, dbias, None, None
 
 

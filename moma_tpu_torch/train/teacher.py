@@ -25,6 +25,8 @@ import torch
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_slice
 from moma_tpu_torch.core.schedules import lr_schedule
+from moma_tpu_torch.data import augment as aug
+from moma_tpu_torch.data.cifar import cifar100_available, load_cifar100
 from moma_tpu_torch.data.pipeline import Loader, synthetic_dataset
 from moma_tpu_torch.models import create_model
 from moma_tpu_torch.models.pretrained import load_pretrained
@@ -35,7 +37,17 @@ from moma_tpu_torch.train.steps import make_eval_step, make_vanilla_train_step
 
 
 def build_datasets(cfg, synthetic: bool = False):
+    """(train, val, test) ArrayDatasets: synthetic, CIFAR-100 (val = test,
+    as in the reference) or a file-backed histo dataset."""
     d = cfg.data
+    if d.fold_idx >= 0 and (synthetic
+                            or d.dataset in ("synthetic", "cifar100")):
+        # k-fold re-splits a manifest's train + val pool (data/histo.py);
+        # synthetic and CIFAR have no manifests, so the flag would train
+        # on the native splits under a fold's run name
+        raise ValueError(
+            f"--fold_idx applies to file-backed histo/imagefolder datasets, "
+            f"not '{d.dataset}'")
     if synthetic or d.dataset == "synthetic":
         n_cls = cfg.model_s.n_cls
         train = synthetic_dataset(max(d.batch_size * 4, 256), d.image_size,
@@ -44,9 +56,12 @@ def build_datasets(cfg, synthetic: bool = False):
                                  n_cls, seed=cfg.run.seed + 1)
         return train, test, test
     if d.dataset == "cifar100":
-        raise NotImplementedError(
-            "CIFAR-100 loading and its augment stack are not ported to "
-            "moma_tpu_torch yet; pass --synthetic or a histo dataset")
+        if not cifar100_available(d.data_dir):
+            raise FileNotFoundError(
+                f"CIFAR-100 not found under {d.data_dir}; pass --synthetic "
+                "for smoke runs")
+        train, test = load_cifar100(d.data_dir)
+        return train, test, test
     # file-backed histo datasets: the manifest / packed-cache reader
     from moma_tpu_torch.data.histo import load_histo_dataset
 
@@ -54,12 +69,12 @@ def build_datasets(cfg, synthetic: bool = False):
 
 
 def augment_fns(cfg):
+    """(train augment, eval normalize): the CIFAR stack for cifar100 and
+    for the synthetic dataset at 32^2, else the histo / ImageNet one."""
     d = cfg.data
     if d.dataset == "cifar100" or (d.dataset == "synthetic"
                                    and d.image_size == 32):
-        raise NotImplementedError(
-            "the CIFAR augment stack (random crop + flip) is not ported to "
-            "moma_tpu_torch yet; use a histo dataset name (e.g. prostate_hv)")
+        return aug.cifar_train_augment, aug.cifar_eval_normalize
     from moma_tpu_torch.data.histo_augment import (make_histo_augment,
                                                    make_histo_eval)
 

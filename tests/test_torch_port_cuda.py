@@ -916,3 +916,129 @@ def test_crd_step_cuda_matches_cpu(dev):
         assert got.dtype == torch.float32
         assert float((got - want).abs().max()) <= tol * float(
             want.abs().max())
+
+
+# the model zoo on CIFAR (32^2 maps, batch 64): the CIFAR ResNets' widths
+# and the odd ones of MobileNetV2 half (8, 12), ShuffleV1 (54, 216) and
+# ShuffleV2 (116), whose bf16 rows are no multiple of 16 bytes; held to
+# 1e-4 of sum|.| per channel, as chip_smoke.py holds them
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 8, 12, 54, 116, 216])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_match_plain_at_zoo_shapes(dev, C, dtype):
+    from moma_tpu_torch.ops import fused_bn as FB
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    shape = (64, 32, 32, C)
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    mean = x.float().mean((0, 1, 2))
+    xf, dyf = x.float(), dy.float()
+    for got, want, bounds in (
+            (FB.channel_sums(x), FB.channel_sums_plain(x),
+             (xf.abs().sum((0, 1, 2)), (xf * xf).sum((0, 1, 2)))),
+            (FB.grad_channel_sums(dy, x, mean),
+             FB.grad_channel_sums_plain(dy, x, mean),
+             (dyf.abs().sum((0, 1, 2)),
+              (dyf * (xf - mean)).abs().sum((0, 1, 2))))):
+        for a, b, bound in zip(got, want, bounds):
+            assert float(((a - b).abs() / (bound + 1e-6)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["ShuffleV1", "ShuffleV2"])
+def test_zoo_forward_cuda_matches_cpu(dev, name):
+    """ShuffleV1 / ShuffleV2 at 32^2, batch 4, float32 with TF32 off (the
+    dev fixture): the eval-mode features and logits within 1e-4 of their
+    largest magnitude; the train-mode ones and the updated running
+    statistics within 1e-3 of it, or 8 times the CPU float32 run's
+    distance from its float64 run where that is larger (train-mode
+    BatchNorm over the 64 values a channel of the last 4x4 maps holds
+    amplifies rounding)."""
+    import copy
+
+    from moma_tpu_torch.models import create_model
+
+    model = create_model(name, 100,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    m64 = copy.deepcopy(model).double()
+    card = copy.deepcopy(model).to(dev)
+    x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+
+    def close(got, want, ref, tol, what):
+        want = want.float()
+        lim = max(tol * float(want.abs().max()),
+                  8 * float((want - ref.float()).abs().max()))
+        err = float((got.cpu().float() - want).abs().max())
+        assert err <= lim, (what, err, lim)
+
+    with torch.no_grad():
+        for train, tol in ((False, 1e-4), (True, 1e-3)):
+            outs = []
+            for m, xx in ((model, x), (card, x.to(dev)), (m64, x.double())):
+                m.train(train)
+                feats, logits = m(xx)
+                outs.append((*feats, logits))
+            assert outs[1][-1].dtype == torch.float32
+            for i, (got, want, ref) in enumerate(zip(outs[1], outs[0],
+                                                     outs[2])):
+                close(got, want, ref, tol, f"train={train} output {i}")
+    sd, sd_card, sd64 = (m.state_dict() for m in (model, card, m64))
+    for k, want in sd.items():
+        close(sd_card[k], want, sd64[k], 1e-3, k)
+
+
+def test_avg_pool_with_padding_backward_on_the_card(dev):
+    """The ShuffleV1 shortcut's 3x3 / 2 average pool with zero padding
+    counted: F.avg_pool2d(padding=1) on a channels_last CUDA tensor gives
+    wrong input gradients (PyTorch 2.11), the explicitly padded form the
+    port uses gives the CPU's."""
+    import torch.nn.functional as F
+
+    x0 = torch.randn(4, 24, 16, 16, generator=torch.Generator().manual_seed(0))
+    w = torch.randn(4, 24, 8, 8, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for device in ("cpu", dev):
+        x = x0.to(device, memory_format=torch.channels_last)
+        x.requires_grad_(True)
+        (F.avg_pool2d(F.pad(x, (1, 1, 1, 1)), 3, 2) * w.to(device)).sum(
+            ).backward()
+        grads.append(x.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["v1-24-216", "v1-240-240", "v2-116"])
+def test_shufflenet_units_backward_cuda_matches_cpu(dev, case):
+    """One ShuffleV1 stride-2 bottleneck (the first stage's, from the
+    24-channel stem, and a later one) and one ShuffleV2 DownBlock, train
+    mode, float32, batch 4 at 16^2: the input's and every parameter's
+    gradient of a fixed weighting of the output on the card within 1e-4
+    of its largest magnitude of the CPU's, floored at 1e-2 of the largest
+    gradient of all (a BN bias before a 1x1 conv and a train-mode BN has
+    a zero gradient up to float noise), as the distillers' tests floor
+    gradient groups."""
+    import copy
+
+    from moma_tpu_torch.models.shufflenet_v1 import Bottleneck
+    from moma_tpu_torch.models.shufflenet_v2 import DownBlock
+
+    g = torch.Generator().manual_seed(0)
+    if case.startswith("v1"):
+        cin, cout = map(int, case.split("-")[1:])
+        unit, out_c = Bottleneck(cin, cout, 2, 3, generator=g), cout + cin
+    else:
+        cin, out_c = 116, 232
+        unit = DownBlock(cin, out_c, generator=g)
+    unit = unit.to(memory_format=torch.channels_last).train()
+    x0 = torch.randn(4, cin, 16, 16, generator=g)
+    w = torch.randn(4, out_c, 8, 8, generator=g)
+    grads = []
+    for device in ("cpu", dev):
+        m = copy.deepcopy(unit).to(device)
+        x = x0.to(device, memory_format=torch.channels_last)
+        x.requires_grad_(True)
+        (m(x) * w.to(device)).sum().backward()
+        grads.append([x.grad.cpu()] + [p.grad.cpu() for p in m.parameters()])
+    floor = 1e-2 * max(float(w.abs().max()) for w in grads[0])
+    for got, want in zip(grads[1], grads[0]):
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            float(want.abs().max()), floor)

@@ -301,7 +301,7 @@ def test_cli_trains_a_vit_teacher(small_sets, tmp_path):
     (["--bn", "local"], ValueError), (["--model_parallel", "2"], ValueError),
     (["--grad_accum", "2"], NotImplementedError),
     (["--remat"], NotImplementedError),
-    (["--model", "resnet8"], NotImplementedError),
+    (["--model", "vit_small_moe_patch16_224"], NotImplementedError),
 ])
 def test_teacher_refusals(extra, exc, tmp_path):
     with pytest.raises(exc):

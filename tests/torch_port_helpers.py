@@ -7,6 +7,12 @@ returns them with sorted keys, so `make_init_ordered` records the order while
 tracing and rebuilds it, at the cost of one jit compile instead of a
 slow eager init.
 
+Under pytest-xdist the workers of one run share `make_init_ordered`'s
+results: the first worker to need an init computes it and leaves it,
+pickled, in a directory of the run under the temporary directory; the
+others load it (an effiB0 init compiles in 5-10 s, and every worker used
+to compile its own).
+
 `make_init_ordered` and `quick_jit` compile with the CPU backend's LLVM
 optimisation off (QUICK_COMPILE): the same XLA program, compiled in a
 fraction of the time (effiB0's init: 6.5 s -> 1.3 s), its values within
@@ -17,12 +23,18 @@ twice.  (A train step that runs several times gains nothing from it: 5.5 s
 
 from __future__ import annotations
 
+import hashlib
+import os
+import pickle
+import tempfile
 from collections.abc import Mapping
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 
 def ordered_numpy(tree):
@@ -69,16 +81,45 @@ def quick_jit(fn):
 
 
 _INITS = {}
+# one directory for the workers of one pytest-xdist run, else none
+_RUN = os.environ.get("PYTEST_XDIST_TESTRUNUID")
 
 
 def make_init_ordered(model, sample_shape, dtype=np.float32):
     """Returns init(key) -> flax variables as insertion-ordered numpy
     dicts, jit-compiled once per process for `model` (flax modules compare
-    by their fields) at `sample_shape`: the parity files share effiB0's."""
+    by their fields) at `sample_shape`: the parity files share effiB0's.
+    Under pytest-xdist the run's workers share the results (module
+    docstring)."""
     key = (model, tuple(sample_shape), np.dtype(dtype).name)
     if key not in _INITS:
         _INITS[key] = _make_init_ordered(model, sample_shape, dtype)
-    return _INITS[key]
+    init = _INITS[key]
+    if _RUN is None:
+        return init
+
+    def shared(rng):
+        from filelock import FileLock
+
+        name = hashlib.sha256(repr((repr(model), key[1:], np.asarray(
+            jax.random.key_data(rng) if jax.dtypes.issubdtype(
+                rng.dtype, jax.dtypes.prng_key) else rng).tobytes(),
+            jax.__version__)).encode()).hexdigest()[:32]
+        root = os.path.join(tempfile.gettempdir(),
+                            f"moma_port_inits_{_RUN}")
+        os.makedirs(root, exist_ok=True)
+        path = os.path.join(root, name + ".pkl")
+        with FileLock(path + ".lock"):
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    return pickle.load(f)
+            v = init(rng)
+            with open(path + ".tmp", "wb") as f:
+                pickle.dump(v, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(path + ".tmp", path)
+            return v
+
+    return shared
 
 
 def _make_init_ordered(model, sample_shape, dtype):
@@ -109,6 +150,29 @@ def jax_template(model, sample_shape, dtype=np.float32):
     return _writable(tree_template(
         lambda key: model.init(key, sample, train=False),
         jax.random.PRNGKey(0)))
+
+
+def copied(tree):
+    """An order-preserving deep copy of a nested dict of arrays (tree_map
+    would sort the keys the converter aligns by)."""
+    if isinstance(tree, Mapping):
+        return {k: copied(v) for k, v in tree.items()}
+    return np.array(tree)
+
+
+class ReluInputs(TorchFunctionMode):
+    """Records the smallest |input| of any relu run inside: a ReLU input
+    within float rounding of 0 can take opposite sides in two packages,
+    which moves every gradient before it by far more than rounding."""
+
+    def __init__(self):
+        super().__init__()
+        self.low = float("inf")
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (F.relu, torch.relu):
+            self.low = min(self.low, float(args[0].detach().abs().min()))
+        return func(*args, **(kwargs or {}))
 
 
 def _writable(tree):
