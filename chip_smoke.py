@@ -60,6 +60,21 @@ Phases (each prints its own lines):
                  MoCo, MoCoAtt, then MoCo with --fused_teacher on; finite
                  losses, queue pointer, launch counts (set to 0 just before
                  each path), step time, img/s, peak memory
+ 6b packed     : a seeded JPEG tree (imagefolder, 384 train and 64 val
+                 images of 600^2) packed by the port at 512^2 and 224^2:
+                 the decoder's route (native libjpeg, or PIL where
+                 libjpeg's headers are missing), img/s, empty rows, the
+                 largest difference from PIL; the host loader at batch 64
+                 (numpy gather against the native prefetcher's wait, H2D
+                 from pageable and pinned memory); the MoCo main path
+                 trained from the pack (--dataset imagefolder
+                 --num_workers 8, 6 steps: launch counts, step and data
+                 time against the --synthetic run, every batch through the
+                 pinned ring); --remat on the main path (196 channel_sums
+                 a step, step losses and running statistics against the
+                 plain run, time, peak); one effiB0 student step plain /
+                 --remat / block_remat (time, peak) and the stem alone with
+                 stem_s2d 0 / 2 / 4
   7 persistence: the run around the step at the MoCo path's size, 2 steps
                  an epoch: (a) 1 epoch + --resume against 2 straight epochs
                  (step losses, step count, queue pointer, the best-metric
@@ -1169,12 +1184,19 @@ def expected_launches(state, n, flash_per_step=0, fused=False, ra=2):
     return want, n_bn
 
 
+# the runs of phase_main_path by label: state, result, steady step (s),
+# peak memory (bytes), launch counts, step losses (phase_packed compares
+# against "main")
+MAIN_RUNS = {}
+
+
 def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
-                    fused=False):
+                    fused=False, steps=4, remat=False):
     """Drive the CLI with `args`; `flash_per_step` launches of each
     flash-attention kernel are expected per step (0 on the MoCo path, whose
     attentions see 64 tokens and stay dense); `fused`: both teacher forwards
-    run the fused EfficientNet forward."""
+    run the fused EfficientNet forward; `remat`: the student's train-mode
+    BatchNorms run once more a step, in the backward's replay."""
     import torch
 
     from moma_tpu_torch.cli import train_student
@@ -1198,11 +1220,13 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
     for k in ("loss", "acc", "f1"):
         if not math.isfinite(result["val"][k]):
             raise AssertionError(f"main path: val {k} not finite")
-    if n != 4:
-        raise AssertionError(f"main path ran {n} steps, expected 4")
+    if n != steps:
+        raise AssertionError(f"main path ran {n} steps, expected {steps}")
     if state.queue.ptr != (64 * n) % 16384:
         raise AssertionError(f"queue_ptr {state.queue.ptr} != {64 * n}")
     want, n_bn = expected_launches(state, n, flash_per_step, fused)
+    if remat:
+        want["channel_sums"] += n_bn * n
     log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} BNs)")
     for k, v in want.items():
         if counts.get(k, 0) != v:
@@ -1214,7 +1238,298 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
     log(f"[{label}] step times (s) {[round(t, 4) for t in tr['batch_times']]}; "
         f"steady step {steady * 1e3:.1f} ms = {64 / steady:.1f} img/s; "
         f"peak memory {peak / 2 ** 30:.2f} GiB")
+    # this run's step losses: runs of one run name share its scalars.jsonl
+    MAIN_RUNS[label] = {"state": state, "result": result, "steady": steady,
+                        "peak": peak, "counts": counts,
+                        "losses": _step_losses(result["run_dir"])[-n:]}
     return counts
+
+# phase_packed: a seeded JPEG tree in imagefolder layout (train/<class>/,
+# val/<class>/), every source 600^2 so the pack's resize runs
+PACKED_SPLITS = (384, 64)
+PACKED_SRC = 600
+PACKED_CLASSES = 4
+PACKED_PIL_ROWS = 16       # rows held against PIL's decode + resize
+CARD = ""                  # the card's name and power limit (main() sets it)
+RUNNING_RTOL = 1e-3        # --remat's BN running statistics, of scale
+
+
+def _write_jpeg_tree(root, seed=0):
+    """PACKED_SPLITS JPEGs (quality 90) of PACKED_SRC^2: one of 8 seeded
+    smooth patterns, rolled, plus seeded noise, so no two are alike."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[0:PACKED_SRC, 0:PACKED_SRC].astype(np.float32)
+    bases = []
+    for _ in range(8):
+        f, ph = rs.uniform(6, 40, 3), rs.uniform(0, 6.3, 3)
+        bases.append(np.stack([128 + 90 * np.sin(x / f[c] + ph[c])
+                               * np.cos(y / f[2 - c]) for c in range(3)], -1))
+    jobs = [(split, i) for split, n in zip(("train", "val"), PACKED_SPLITS)
+            for i in range(n)]
+
+    def write(job):
+        split, i = job
+        r = np.random.RandomState(seed * 1000 + i + (split == "val") * 500)
+        img = np.roll(bases[i % 8], r.randint(PACKED_SRC, size=2), (0, 1))
+        img = np.clip(img + r.randint(-12, 13, img.shape), 0, 255)
+        d = os.path.join(root, split, f"class{i % PACKED_CLASSES}")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(d, f"{i:04d}.jpg"), quality=90)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, jobs))
+
+
+def _pack(root, size):
+    """(train, val) packed by the port's PackedCache at `size`, as the
+    CLI opens them; logs the route, the decode rate and the checks."""
+    import numpy as np
+
+    from moma_tpu_torch.data.histo import PackedCache, _decode_resize
+    from moma_tpu_torch.data.manifests import PREPARERS
+
+    train_pairs, val_pairs, _ = PREPARERS["imagefolder"](root)
+    cache = PackedCache(os.path.join(root, "_moma_pack"))
+    out, builds = [], []
+    for pairs in (train_pairs, val_pairs):
+        out.append(cache.build_or_open(pairs, size))
+        builds.append(cache.last_build)
+    n = sum(b["n"] for b in builds)
+    rate = n / sum(b["seconds"] for b in builds)
+    route = builds[0]["route"]
+    # a row the native decoder could not read and PIL did not fill would
+    # be zero; on the native route PIL takes no row of a JPEG tree
+    empty = sum(int((ds.images.reshape(len(ds), -1).max(1) == 0).sum())
+                for ds in out)
+    pil_rows = sum(b["pil_rows"] for b in builds)
+    if empty or (route == "native" and pil_rows):
+        raise AssertionError(f"pack {size}: {empty} empty rows, {pil_rows} "
+                             "rows through PIL")
+    rows = np.linspace(0, len(train_pairs) - 1, PACKED_PIL_ROWS).astype(int)
+    gap = max(int(np.abs(out[0].images[i].astype(np.int16) - _decode_resize(
+        train_pairs[i][0], size).astype(np.int16)).max()) for i in rows)
+    if gap > 1:
+        raise AssertionError(f"pack {size}: {gap} grey levels from PIL")
+    log(f"[packed] ({CARD}) pack {size}^2 of {n} JPEGs of {PACKED_SRC}^2: "
+        f"route {route}, {rate:.1f} img/s ({builds[0]['key']}, "
+        f"{builds[1]['key']}); rows through PIL {pil_rows}, empty rows 0; "
+        f"largest difference from PIL over {PACKED_PIL_ROWS} rows {gap} "
+        "grey level(s)")
+    return out
+
+
+def _host_loader_times(ds, size, batch=64):
+    """Host ms a batch: numpy's fancy-index gather on the memmap against
+    the native prefetcher's wait a batch (its Loader iterated with no step
+    between batches: assembly throughput, the worst case), on the CPU route
+    and on the pinned CUDA route; then the H2D copy of one batch from
+    pageable and from pinned memory (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from moma_tpu_torch.data.pipeline import Loader
+
+    np.asarray(ds.images).sum()          # the pack in the page cache
+    n = len(ds) // batch
+    order = np.random.RandomState(0).permutation(len(ds))
+    gather = []
+    for i in range(n):
+        t = time.perf_counter()
+        ds.images[order[i * batch:(i + 1) * batch]]
+        gather.append(time.perf_counter() - t)
+    waits = {}
+    for route, device in (("cpu", None), ("pinned", torch.device("cuda"))):
+        ld = Loader(ds, batch, True, seed=0, num_workers=8, device=device)
+        for epoch in range(2):           # the first builds ring and threads
+            ld.set_epoch(epoch)
+            w, t = [], time.perf_counter()
+            for _ in ld:
+                w.append(time.perf_counter() - t)
+                t = time.perf_counter()
+        torch.cuda.synchronize()
+        waits[route] = statistics.median(w)
+    host = torch.from_numpy(np.ascontiguousarray(ds.images[:batch]))
+    pinned = host.pin_memory()
+    h2d = {"pageable": cuda_time_ms(lambda: host.to("cuda"), 10, spin=0),
+           "pinned": cuda_time_ms(
+               lambda: pinned.to("cuda", non_blocking=True), 10, spin=0)}
+    mb = host.numel() / 1e6
+    log(f"[packed] ({CARD}) host loader at {size}^2, batch {batch} "
+        f"({mb:.1f} MB): numpy gather {1e3 * statistics.median(gather):.2f} "
+        f"ms a batch; native prefetcher's wait {1e3 * waits['cpu']:.2f} ms "
+        f"(CPU route), {1e3 * waits['pinned']:.2f} ms (pinned CUDA route, "
+        f"copy enqueued); H2D copy pageable {h2d['pageable']:.2f} ms "
+        f"({mb / h2d['pageable']:.1f} GB/s), pinned {h2d['pinned']:.2f} ms "
+        f"({mb / h2d['pinned']:.1f} GB/s)")
+
+
+def _running_stats_gap(got, want):
+    """Largest |got - want| of the BN running statistics over each
+    tensor's scale, floored at 1e-3 of the largest."""
+    pairs = [(a, b) for (n, a), (_, b) in zip(got.named_buffers(),
+                                               want.named_buffers())
+             if n.endswith(("running_mean", "running_var"))]
+    floor = 1e-3 * max(float(b.abs().max()) for _, b in pairs)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+               for a, b in pairs)
+
+
+def phase_effnet_options(batch=64, image=512):
+    """One vanilla student step of effiB0 at `image`^2, batch `batch`, bf16,
+    plain, with --remat's whole-forward checkpoint and with
+    EfficientNet(block_remat=True): steady step time and peak memory; then
+    the stem alone at (batch, 3, image, image) bf16 with stem_s2d 0 / 2 /
+    4: device time and the largest difference from stem_s2d=0.  A
+    measurement only: the default stays 0."""
+    import torch
+
+    from moma_tpu_torch.models.common import conv2d_same
+    from moma_tpu_torch.models.efficientnet import (EfficientNet,
+                                                    stem_s2d_conv)
+    from moma_tpu_torch.train.state import TrainState, make_sgd
+    from moma_tpu_torch.train.steps import make_vanilla_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(batch, image, image, 3, device="cuda", generator=g)
+    batch_ = {"image": x, "label": torch.arange(batch, device="cuda") % 4}
+    losses = {}
+    for name, kw, remat in (("plain", {}, False), ("remat", {}, True),
+                            ("block_remat", {"block_remat": True}, False)):
+        torch.cuda.empty_cache()
+        m = EfficientNet("b0", num_classes=4, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0), **kw)
+        m = m.to("cuda", memory_format=torch.channels_last)
+        state = TrainState(model=m, optimizer=make_sgd(m.parameters(), 0.9,
+                                                       5e-4),
+                           schedule=lambda s: 0.05)
+        step = make_vanilla_train_step(None, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(4):
+            t = time.perf_counter()
+            state, met = step(state, batch_, None)
+            loss = float(met["loss"])   # a sync
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                losses[name] = loss
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[options] ({CARD}) effiB0 {image}^2 batch {batch} bf16 student "
+            f"step, {name}: steady {1e3 * statistics.median(times[1:]):.1f} "
+            f"ms, peak {peak / 2 ** 30:.2f} GiB, first loss "
+            f"{losses[name]:.6f}")
+        del state, m, step
+    for name in ("remat", "block_remat"):
+        if abs(losses[name] - losses["plain"]) > STEP_LOSS_RTOL * abs(
+                losses["plain"]):
+            raise AssertionError(f"{name}: loss {losses[name]} against "
+                                 f"{losses['plain']}")
+    w = torch.randn(32, 3, 3, 3, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    xs = x.to(torch.bfloat16).permute(0, 3, 1, 2)   # channels_last NCHW
+    ref = conv2d_same(xs, w, None, 2)
+    base = cuda_time_ms(lambda: conv2d_same(xs, w, None, 2))
+    parts = [f"s2d=0 {base:.3f} ms"]
+    for f in (2, 4):
+        y = stem_s2d_conv(xs, w, f)
+        gap = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if gap > 2 ** -7 * scale * 2:
+            raise AssertionError(f"stem_s2d={f}: {gap} from s2d=0")
+        ms = cuda_time_ms(lambda: stem_s2d_conv(xs, w, f))
+        parts.append(f"s2d={f} {ms:.3f} ms (max |diff| {gap:.4g} of "
+                     f"max |y| {scale:.4g})")
+    log(f"[options] ({CARD}) stem alone at ({batch}, 3, {image}, {image}) "
+        "bf16: " + "; ".join(parts))
+
+
+def phase_packed():
+    """The main path trained from a packed on-disk dataset: a seeded JPEG
+    tree packed by the port, the host loader's times at 512^2 and 224^2,
+    the MoCo main path from the pack through the CLI (--dataset
+    imagefolder --num_workers 8: 6 steps, launch counts, steady step and
+    data time a step against phase_main_path's --synthetic run, every batch
+    through the pinned ring), then --remat on the --synthetic main path
+    (4 steps: 196 channel_sums a step, step losses and the student's
+    running statistics against the plain run, step time and peak memory),
+    then phase_effnet_options."""
+    import torch
+
+    from moma_tpu_torch.data import pipeline
+
+    root = os.path.join(SAVE_ROOT, "jpeg_tree")
+    t0 = time.perf_counter()
+    _write_jpeg_tree(root)
+    log(f"[packed] wrote {sum(PACKED_SPLITS)} JPEGs of {PACKED_SRC}^2 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    train, _ = _pack(root, 512)
+    _host_loader_times(train, 512)
+    _host_loader_times(_pack(root, 224)[0], 224)
+
+    copies = [0]
+    to_device = pipeline.PinnedRing.to_device
+
+    def counted(self, j):
+        copies[0] += 1
+        return to_device(self, j)
+
+    args = [a for a in with_flags(MAIN_ARGS, dataset="imagefolder")
+            if a != "--synthetic"] + [
+        "--data_dir", root, "--n_cls", str(PACKED_CLASSES),
+        "--num_workers", "8"]
+    steps = PACKED_SPLITS[0] // 64
+    pipeline.PinnedRing.to_device = counted
+    try:
+        counts = phase_main_path(args, "packed", steps=steps)
+    finally:
+        pipeline.PinnedRing.to_device = to_device
+    if copies[0] != steps:
+        raise AssertionError(f"{copies[0]} batches through the pinned ring, "
+                             f"expected {steps}")
+    main, packed = MAIN_RUNS["main"], MAIN_RUNS["packed"]
+    data = {k: statistics.median(r["result"]["train"]["data_times"][1:])
+            for k, r in (("main", main), ("packed", packed))}
+    log(f"[packed] ({CARD}) steady step {packed['steady'] * 1e3:.1f} ms from "
+        f"the pack against {main['steady'] * 1e3:.1f} ms --synthetic "
+        f"({100 * (packed['steady'] / main['steady'] - 1):+.1f}%); data "
+        f"time a step {data['packed'] * 1e3:.2f} ms against "
+        f"{data['main'] * 1e3:.2f} ms; peak {packed['peak'] / 2 ** 30:.2f} "
+        f"GiB; {copies[0]} batches through the pinned ring")
+
+    phase_main_path(MAIN_ARGS + ["--remat", "--trial", "remat"], "remat",
+                    remat=True)
+    remat = MAIN_RUNS["remat"]
+    worst = _check_losses(remat["losses"], main["losses"], "remat")
+    gap = _running_stats_gap(remat["state"].student, main["state"].student)
+    if not gap <= RUNNING_RTOL:
+        raise AssertionError(f"remat: running statistics {gap:.2e} of scale "
+                             "from the plain run's")
+    n_bn = sum(1 for m in main["state"].student.modules()
+               if type(m).__name__ == "FusedBatchNorm")
+    per_step = {k: (remat["counts"].get(k, 0) - main["counts"].get(k, 0))
+                / 4 for k in ("channel_sums", "grad_channel_sums")}
+    log(f"[remat] ({CARD}) steady step {remat['steady'] * 1e3:.1f} ms against "
+        f"{main['steady'] * 1e3:.1f} ms "
+        f"({1e3 * (remat['steady'] - main['steady']):+.1f} ms); peak "
+        f"{remat['peak'] / 2 ** 30:.2f} GiB against "
+        f"{main['peak'] / 2 ** 30:.2f} GiB; launches a step beyond the "
+        f"plain run's: channel_sums +{per_step['channel_sums']:g} "
+        f"({n_bn} student BNs replayed), grad_channel_sums "
+        f"+{per_step['grad_channel_sums']:g}; step losses within "
+        f"{worst:.2e}; student running statistics within {gap:.2e} of scale")
+    if per_step != {"channel_sums": n_bn, "grad_channel_sums": 0}:
+        raise AssertionError(f"remat: launches a step {per_step}")
+    MAIN_RUNS.clear()
+    torch.cuda.empty_cache()
+    phase_effnet_options()
+    return counts
+
 
 # phase_persistence: effiB0 at 512^2, batch 64, K 16384, bf16, the MoCo
 # main path's flags, synthetic sets cut to 2 training batches an epoch (1
@@ -2358,6 +2673,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     name_power = phase_device()
+    global CARD
+    CARD = name_power
     top = tempfile.mkdtemp(prefix="chip_smoke_")
     _set_root(top)
     try:
@@ -2387,14 +2704,15 @@ def _run(name_power, t0) -> int:
     counts = phase_main_path()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
+    packed_counts = phase_packed()
     phase_persistence()
     cross_counts = phase_cross_arch()
     teacher_best, teacher_counts = phase_teacher()
     cmp_counts = phase_comparison(teacher_best)
     zoo_counts = phase_zoo(results)
     # a kernel's launches: those of the first main path that runs it
-    for later in (att_counts, fused_counts, cross_counts, teacher_counts,
-                  cmp_counts, zoo_counts):
+    for later in (att_counts, fused_counts, packed_counts, cross_counts,
+                  teacher_counts, cmp_counts, zoo_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

@@ -243,9 +243,6 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
             bad.append(f"model {mc.name} ({NOT_PORTED[mc.name]})")
     if r.grad_accum > 1:
         bad.append("--grad_accum > 1 (Queue 1 item 5)")
-    if r.remat:
-        bad.append("--remat (BN running statistics under recompute need "
-                   "their own design)")
     if bad:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): "
@@ -254,11 +251,14 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
 
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
     """The flags both training CLIs take (config.py:295-418), without
-    those the port would accept and ignore (--num_workers,
-    --scoped_vmem_kib, --sync_bn: argparse refuses them), plus --fp32 and
-    --device.  --synthetic is taken by the CLIs, as in moma_tpu."""
+    those the port would accept and ignore (--scoped_vmem_kib, --sync_bn:
+    argparse refuses them), plus --fp32 and --device.  --synthetic is
+    taken by the CLIs, as in moma_tpu."""
     p.add_argument("--print_freq", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="gather threads of the native prefetcher that "
+                        "assembles a packed dataset's training batches")
     p.add_argument("--epochs", type=int, default=240)
     p.add_argument("--seed", type=int, default=12345)
     p.add_argument("--learning_rate", type=float, default=0.05)
@@ -316,7 +316,8 @@ def _cfg_from_common(a) -> Config:
     cfg = Config()
     cfg.data = DataConfig(
         dataset=a.dataset, data_dir=a.data_dir, batch_size=a.batch_size,
-        image_size=a.image_size, image_resize=a.image_resize, crop=a.crop,
+        num_workers=a.num_workers, image_size=a.image_size,
+        image_resize=a.image_resize, crop=a.crop,
         aug_train=a.aug_train, ra_config=a.ra_config, use_cmc=a.use_cmc,
         fold_idx=a.fold_idx, n_folds=a.n_folds)
     cfg.optim = OptimConfig(

@@ -5,10 +5,14 @@ only): instead of decoding every JPEG each epoch on CPU workers, images are
 decoded ONCE into a packed uint8 cache file (NHWC, fixed stored size), then
 every epoch streams from the OS page cache.  Random augmentation happens on
 the device (data/histo_augment.py), so the host's steady-state work is a
-fancy-index gather.  The native C++ decoder and batch assembler of
-moma_tpu/data/native are not ported: the pack is built with PIL on a
-thread pool, and the cache files of the two packages are interchangeable
-(same key, same layout).
+gather, which train Loaders hand to the native batch assembler
+(data/native, `bin_path`).  The pack is decoded by the port's copy of the
+native libjpeg decoder (data/native/decoder.cpp), PIL taking only the rows
+it flags (PNG, corrupt, missing), as in moma_tpu; so both packages write
+the same bytes under the same key, and either one's cache serves the
+other.  Where libjpeg's headers are missing the native decoder does not
+build: the pack is then decoded with PIL (as moma_tpu does), whose resize
+may differ from the native one by a grey level, and PackedCache says so.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -40,11 +45,21 @@ def _decode_resize(path: str, size: int) -> np.ndarray:
         return np.asarray(im, dtype=np.uint8)
 
 
+# native decode chunk budget (bytes of decoded pixels per batch); keeps
+# pack builds at bounded host RSS no matter the split size
+DECODE_CHUNK_BYTES = 256 * 1024 * 1024
+
+
 class PackedCache:
-    """Packed uint8 NHWC cache: <name>.bin (memmap) + <name>.json meta."""
+    """Packed uint8 NHWC cache: <name>.bin (memmap) + <name>.json meta.
+
+    `last_build` describes the last pack this cache built: {'key', 'n',
+    'route' ('native' or 'pil'), 'pil_rows' (rows PIL decoded),
+    'seconds'}; None until one is built."""
 
     def __init__(self, cache_dir: str):
         self.cache_dir = cache_dir
+        self.last_build = None
         os.makedirs(cache_dir, exist_ok=True)
 
     def _key(self, pairs, size) -> str:
@@ -66,28 +81,52 @@ class PackedCache:
             self._build(pairs, size, bin_path, meta_path, workers)
         images = np.memmap(bin_path, dtype=np.uint8, mode="r",
                            shape=(n, size, size, 3))
-        return ArrayDataset(images, labels)
+        return ArrayDataset(images, labels, bin_path=bin_path)
 
     def _build(self, pairs, size, bin_path, meta_path, workers):
         from concurrent.futures import ThreadPoolExecutor
 
+        from moma_tpu_torch.data import native
+
+        t0 = time.perf_counter()
+        key = os.path.basename(bin_path)[len("pack_"):-len(".bin")]
         n = len(pairs)
         tmp = bin_path + ".tmp"
         mm = np.memmap(tmp, dtype=np.uint8, mode="w+",
                        shape=(n, size, size, 3))
 
+        # the native decoder first, in chunks straight into the memmap (a
+        # 50k x 512^2 split is ~39 GB, far beyond host RAM); the rows it
+        # flags (PNG, corrupt, missing) go to PIL below
+        todo = list(range(n))
+        why = native.decoder_unavailable()
+        if why is None:
+            chunk = max(1, DECODE_CHUNK_BYTES // (size * size * 3))
+            todo = []
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                _, failed = native.decode_files(
+                    [pairs[i][0] for i in range(lo, hi)], size,
+                    threads=workers, out=mm[lo:hi])
+                todo.extend(lo + j for j in np.nonzero(failed)[0])
+        else:
+            print(f"[data] pack {key}: native decoder unavailable ({why}); "
+                  "decoding with PIL", flush=True)
+
         def work(i):
             mm[i] = _decode_resize(pairs[i][0], size)
 
-        # decoded row by row straight into the memmap: a 50k x 512^2 split
-        # is ~39 GB, far beyond host RAM
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            list(ex.map(work, range(n)))
+        if todo:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                list(ex.map(work, todo))
         mm.flush()
         del mm
         os.replace(tmp, bin_path)
         with open(meta_path, "w") as f:
             json.dump({"n": n, "size": size, "paths": [p for p, _ in pairs]}, f)
+        self.last_build = {
+            "key": key, "n": n, "route": "native" if why is None else "pil",
+            "pil_rows": len(todo), "seconds": time.perf_counter() - t0}
 
 
 def load_histo_dataset(data_cfg) -> Tuple[ArrayDataset, ArrayDataset, ArrayDataset]:

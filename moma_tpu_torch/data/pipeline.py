@@ -1,30 +1,42 @@
-"""Host-side batch pipeline: arrays in RAM -> shuffled uint8 batches.
+"""Host-side batch pipeline: arrays in RAM or a packed file -> shuffled
+uint8 batches.
 
 Counterpart of moma_tpu/data/pipeline.py (`ArrayDataset`,
-`synthetic_dataset`, `Loader`), numpy-only, so the port's training path
-needs nothing of the JAX package.  The same seeds give the same images,
-labels and batch orders as moma_tpu.  The native C++ prefetcher that
-moma_tpu uses for packed on-disk datasets is not ported: batches of a
-memory-mapped dataset are gathered with numpy fancy indexing.
+`synthetic_dataset`, `Loader`), so the port's training path needs nothing
+of the JAX package.  The same seeds give the same images, labels and batch
+orders as moma_tpu.  A train Loader over a packed on-disk dataset
+(`bin_path`, data/histo.py) assembles its batches with the native
+prefetcher (data/native/batcher.cpp), 4 batches ahead, as moma_tpu does;
+on a CUDA run it has them assembled straight into a ring of pinned host
+buffers and copies each to the card asynchronously.  Eval loaders and
+datasets held in RAM gather with numpy fancy indexing.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+# batches the native prefetcher assembles ahead (moma_tpu's depth)
+PREFETCH_DEPTH = 4
+
 
 class ArrayDataset:
-    """(images uint8 NHWC, labels) in RAM or memory-mapped."""
+    """(images uint8 NHWC, labels) in RAM or memory-mapped; `bin_path`
+    marks a packed on-disk dataset (data/histo.py), whose train Loaders
+    gather through the native prefetcher."""
 
-    def __init__(self, images: np.ndarray, labels: np.ndarray):
+    def __init__(self, images: np.ndarray, labels: np.ndarray,
+                 bin_path: Optional[str] = None):
         if images.shape[0] != labels.shape[0] or images.ndim != 4:
             raise ValueError("ArrayDataset wants NHWC images and one label "
                              f"per image, got {images.shape} / {labels.shape}")
         self.images = images
         self.labels = labels.astype(np.int32)
+        self.bin_path = bin_path
 
     def __len__(self):
         return self.images.shape[0]
@@ -40,15 +52,56 @@ def synthetic_dataset(n: int, image_size: int, n_cls: int,
     return ArrayDataset(images, labels)
 
 
+class PinnedRing:
+    """`slots` pinned host buffers of one batch each, and the CUDA event of
+    the last copy out of each: a slot goes back to the batcher only after
+    the copy that reads it has finished."""
+
+    def __init__(self, slots: int, shape, device):
+        import torch
+
+        self.bufs = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(slots)]
+        self.events = [None] * slots
+        self.device = device
+
+    def acquire(self, j: int) -> int:
+        """The address of batch j's slot, once its last copy is done."""
+        k = j % len(self.bufs)
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+            self.events[k] = None
+        return self.bufs[k].data_ptr()
+
+    def to_device(self, j: int):
+        """Batch j's slot copied to the device without blocking the host."""
+        import torch
+
+        k = j % len(self.bufs)
+        out = self.bufs[k].to(self.device, non_blocking=True)
+        self.events[k] = torch.cuda.Event()
+        self.events[k].record()
+        return out
+
+
 class Loader:
     """Epoch iterator: train=True reshuffles per epoch (seeded), drops
     the ragged tail and can start mid-epoch (`set_start_batch`);
     train=False is sequential, pads the last batch and marks valid rows in
     'mask'.  Every batch carries its dataset rows as 'index' (int32) and
-    the same rows of each `extras` array (name -> (n, ...))."""
+    the same rows of each `extras` array (name -> (n, ...)).
+
+    A train Loader over a packed dataset (`dataset.bin_path`) assembles
+    its batches with the native prefetcher: PREFETCH_DEPTH batches ahead,
+    `num_workers` gather threads (at most the host's cores).  With a CUDA
+    `device`, it has them assembled into a ring of pinned buffers and
+    yields 'image' already on the device (an asynchronous copy); elsewhere
+    'image' is a numpy array.  An iteration abandoned mid-epoch drains its
+    submitted batches, so the next one starts clean."""
 
     def __init__(self, dataset, batch_size: int, train: bool, seed: int = 0,
-                 extras: Optional[Dict[str, np.ndarray]] = None):
+                 extras: Optional[Dict[str, np.ndarray]] = None,
+                 num_workers: int = 8, device=None):
         self.ds = dataset
         self.batch_size = batch_size
         self.train = train
@@ -56,6 +109,10 @@ class Loader:
         self.epoch = 0
         self.start_batch = 0
         self.extras = extras or {}
+        self.num_workers = num_workers
+        self.device = device
+        self._batcher = None
+        self._ring = None
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -73,12 +130,65 @@ class Loader:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
 
-    def _batch(self, idx: np.ndarray) -> dict:
-        batch = {"image": self.ds.images[idx], "label": self.ds.labels[idx],
-                 "index": idx.astype(np.int32)}
+    def _batch(self, idx: np.ndarray, images=None) -> dict:
+        batch = {"image": self.ds.images[idx] if images is None else images,
+                 "label": self.ds.labels[idx], "index": idx.astype(np.int32)}
         for k, v in self.extras.items():
             batch[k] = v[idx]
         return batch
+
+    def _native(self):
+        """(batcher, pinned ring or None), made at the first iteration."""
+        if self._batcher is None:
+            from moma_tpu_torch.data.native import NativeBatcher
+
+            row = self.ds.images.shape[1:]
+            self._batcher = NativeBatcher(self.ds.bin_path, len(self.ds), row)
+            # threads beyond the core count only add contention
+            self._batcher.start(
+                self.batch_size, depth=PREFETCH_DEPTH,
+                threads=max(1, min(self.num_workers, os.cpu_count() or 1)))
+            if str(self.device).split(":")[0] == "cuda":
+                # in flight: PREFETCH_DEPTH being assembled, the batch
+                # just yielded and the one before, whose copies may still
+                # run
+                self._ring = PinnedRing(PREFETCH_DEPTH + 2,
+                                        (self.batch_size, *row),
+                                        self.device)
+        return self._batcher, self._ring
+
+    def _native_iter(self, order: np.ndarray, start: int,
+                     n_batches: int) -> Iterator[dict]:
+        batcher, ring = self._native()
+        bs = self.batch_size
+
+        def submit(j):
+            idx = order[j * bs:(j + 1) * bs]
+            if ring is None:
+                batcher.submit(idx)
+            else:
+                batcher.submit_into(idx, ring.acquire(j))
+
+        # batches [start, done) dequeued, [done, hi) submitted
+        done, hi = start, min(start + PREFETCH_DEPTH, n_batches)
+        try:
+            for j in range(start, hi):
+                submit(j)
+            for i in range(start, n_batches):
+                if ring is None:
+                    images = batcher.get()
+                else:
+                    batcher.release(batcher.get_view()[1])
+                    images = ring.to_device(i)
+                done = i + 1
+                if hi < n_batches:
+                    submit(hi)
+                    hi += 1
+                yield self._batch(order[i * bs:(i + 1) * bs], images)
+        finally:
+            # an abandoned iteration: take back what is still submitted
+            for _ in range(hi - done):
+                batcher.release(batcher.get_view()[1])
 
     def __iter__(self) -> Iterator[dict]:
         n = len(self.ds)
@@ -86,6 +196,9 @@ class Loader:
         if self.train:
             order = np.random.RandomState(
                 (self.seed * 100003 + self.epoch) % (2 ** 31)).permutation(n)
+            if getattr(self.ds, "bin_path", None) is not None:
+                yield from self._native_iter(order, self.start_batch, n // bs)
+                return
             for i in range(self.start_batch, n // bs):
                 yield self._batch(order[i * bs:(i + 1) * bs])
         else:

@@ -73,20 +73,21 @@ def available_models():
 def create_model(name: str, num_classes: int,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
-                 image_size: Optional[int] = None):
+                 image_size: Optional[int] = None, **kw):
     """Build a registered backbone (moma_tpu/models/__init__.py
     counterpart).  A ViT needs `image_size`: its position embedding is
-    sized from it."""
+    sized from it.  Other keywords go to the model's constructor, as in
+    moma_tpu (an EfficientNet's `stem_s2d`, `block_remat`)."""
     if name in _REGISTRY:
         module, attr = _REGISTRY[name]
         factory = getattr(importlib.import_module(module), attr)
         return factory(num_classes=num_classes, dtype=dtype,
-                       generator=generator)
+                       generator=generator, **kw)
     if name in _EFFNETS:
         from moma_tpu_torch.models.efficientnet import EfficientNet
 
         return EfficientNet(_EFFNETS[name], num_classes=num_classes,
-                            dtype=dtype, generator=generator)
+                            dtype=dtype, generator=generator, **kw)
     if name in _VITS:
         if image_size is None:
             raise ValueError(f"{name} needs image_size: its position "
@@ -94,7 +95,7 @@ def create_model(name: str, num_classes: int,
         from moma_tpu_torch.models.vit import vit_factory
 
         return vit_factory(_VITS[name], num_classes, image_size, dtype=dtype,
-                           generator=generator)
+                           generator=generator, **kw)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported to moma_tpu_torch yet (ROADMAP "

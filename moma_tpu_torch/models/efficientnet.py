@@ -18,6 +18,14 @@ moma_tpu_torch.models.torch_import aligns the two parameter trees
 Dropout and drop-connect need a generator: the MoMA step passes none (the
 JAX step passes no 'dropout' rng either), which makes them off and the
 forward deterministic.
+
+Two options of the JAX model, both off by default and leaving the state
+dict as it is: `block_remat=True` recomputes each MBConv block's interior
+in the backward (models/remat.py: BN running statistics written once, a
+generator's drop-connect masks drawn again the same), holding only the
+blocks' boundary activations; `stem_s2d=2|4` runs the stem as a 2x2
+stride-1 convolution over the space-to-depth packed input, its weight
+folded from the stored 3x3 one at forward time (`stem_s2d_conv`).
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from moma_tpu_torch.models.common import Conv2d, TorchLinear, default_generator
+from moma_tpu_torch.models import remat
+from moma_tpu_torch.models.common import (Conv2d, TorchLinear, conv2d_same,
+                                          default_generator)
 from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
 
 
@@ -91,6 +101,42 @@ def drop_connect(x: torch.Tensor, generator: torch.Generator,
     return x / keep * mask.to(x.dtype)[:, None, None, None]
 
 
+def stem_s2d_conv(x: torch.Tensor, weight: torch.Tensor,
+                  f: int) -> torch.Tensor:
+    """The stem's 3x3 stride-2 'SAME' convolution of an (N, C, H, W) input
+    as a 2x2 stride-1 'SAME' one over its space-to-depth packing by `f`
+    (2 or 4), moma_tpu/models/efficientnet.py:92-165 (`_StemConv`): the
+    same function, its products summed in another order.
+    F.pixel_unshuffle packs the channels as (c, dy, dx); the folded
+    weight follows that order:
+
+      Wf[(o, qy, qx), (c, dy, dx), KY, KX] = W[o, c, ky, kx],
+      ky = f*KY + dy - 2*qy (zero where ky falls outside 0..2),
+
+    so each packed pixel gives the (f/2)^2 outputs (qy, qx) it covers,
+    which pixel_shuffle puts back in place (none to move for f=2)."""
+    if f not in (2, 4):
+        raise ValueError(f"stem_s2d must be 0, 2 or 4, got {f}")
+    _, C, H, W = x.shape
+    if H % f or W % f:
+        raise ValueError(f"stem_s2d={f} needs H, W divisible by {f}; got "
+                         f"{(H, W)}")
+    q = f // 2
+    # the tap ky of each (qy, dy, KY); 3 picks the zero row of the padded W
+    qy = torch.arange(q)[:, None, None]
+    dy = torch.arange(f)[None, :, None]
+    ky_blk = torch.arange(2)[None, None, :]
+    k = f * ky_blk + dy - 2 * qy
+    k = torch.where((k >= 0) & (k < 3), k, 3).to(weight.device)
+    wp = F.pad(weight, (0, 1, 0, 1))                      # (O, C, 4, 4)
+    wf = wp[:, :, k][..., k]     # (O, C, qy, dy, KY, qx, dx, KX)
+    co = weight.shape[0]
+    wf = wf.permute(0, 2, 5, 1, 3, 6, 4, 7).reshape(co * q * q, C * f * f,
+                                                    2, 2)
+    y = conv2d_same(F.pixel_unshuffle(x, f), wf, None, 1)
+    return F.pixel_shuffle(y, q) if q > 1 else y
+
+
 def _bn(c: int, dtype) -> FusedBatchNorm:
     return FusedBatchNorm(c, momentum=BN_MOMENTUM, eps=BN_EPS, dtype=dtype)
 
@@ -148,11 +194,16 @@ class EfficientNet(nn.Module):
     def __init__(self, variant: str = "b0", num_classes: int = 1000,
                  drop_connect_rate: float = 0.2,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 stem_s2d: int = 0, block_remat: bool = False):
         super().__init__()
+        if stem_s2d not in (0, 2, 4):
+            raise ValueError(f"stem_s2d must be 0, 2 or 4, got {stem_s2d}")
         g = default_generator(generator)
         width, depth, _res, self.dropout = COEFFS[variant]
         self.drop_connect_rate = drop_connect_rate
+        self.stem_s2d = stem_s2d
+        self.block_remat = block_remat
         stem_ch = round_filters(32, width)
         self.stem_conv = Conv2d(3, stem_ch, 3, 2, dtype=dtype, generator=g)
         self.bn0 = _bn(stem_ch, dtype)
@@ -176,12 +227,22 @@ class EfficientNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         x = x.permute(0, 3, 1, 2)            # NHWC -> channels_last NCHW
-        x = F.silu(self.bn0(self.stem_conv(x)))
+        if self.stem_s2d:
+            stem = self.stem_conv
+            dt = (stem.dtype if stem.dtype is not None
+                  else torch.promote_types(x.dtype, stem.weight.dtype))
+            x = stem_s2d_conv(x.to(dt), stem.weight.to(dt), self.stem_s2d)
+        else:
+            x = self.stem_conv(x)
+        x = F.silu(self.bn0(x))
         endpoints = []
         prev = x
         total = len(self.blocks)
+        rematerialize = self.block_remat and torch.is_grad_enabled()
         for idx, blk in enumerate(self.blocks):
-            x = blk(x, self.drop_connect_rate * idx / total, generator)
+            rate = self.drop_connect_rate * idx / total
+            x = (remat.checkpoint(blk, x, rate, generator, generator=generator)
+                 if rematerialize else blk(x, rate, generator))
             if prev.shape[2] > x.shape[2]:
                 endpoints.append(prev)
             prev = x

@@ -79,6 +79,24 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_key(name, _flags(name))}.so"
 
 
+def compile_library(cmd, sources, dest: Path) -> subprocess.CompletedProcess:
+    """Run `cmd -o <temporary file> sources` and move the result onto
+    `dest` when the compiler succeeds: the library appears whole or not
+    at all, and processes that build the same library at once each write
+    their own temporary file.  Returns the finished process (stdout and
+    stderr as text); a failed build leaves nothing behind."""
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=dest.parent)
+    os.close(fd)
+    proc = subprocess.run([*cmd, "-o", tmp, *sources], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+    else:
+        os.replace(tmp, dest)
+    return proc
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` (if this exact source is not built yet)
@@ -88,19 +106,14 @@ def load(name: str) -> ctypes.CDLL:
     lib_path_ = lib_path(name)
     if not lib_path_.exists():
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), *flags, "-I", str(CSRC), "-o", tmp,
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [find_nvcc(), *flags, "-I", str(CSRC)]
+        proc = compile_library(cmd, [str(CSRC / f"{name}.cu")], lib_path_)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            os.unlink(tmp)
             raise RuntimeError(
                 f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{log}")
+                f"{' '.join(proc.args)}\n{log}")
         lib_path_.with_suffix(".log").write_text(log)
-        os.replace(tmp, lib_path_)
         _BUILD_SECONDS[name] = time.perf_counter() - t0
     return ctypes.CDLL(str(lib_path_))
 

@@ -19,12 +19,19 @@ the running update ra = m*ra + (1-m)*batch (torch.nn.BatchNorm2d uses the
 unbiased one), and flax's normalize order.  Parameter and buffer names are
 weight / bias / running_mean / running_var, so the JAX<->torch converter
 (models/torch_import.py) sees it as a 'bn' module.
+
+Inside `running_stats_frozen()` a train-mode FusedBatchNorm normalizes by
+its batch statistics as always but writes no running statistics: the
+replay of a rematerialized forward (models/remat.py), whose first run
+already wrote them once, as JAX keeps the forward's batch_stats and drops
+the replay's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -218,6 +225,21 @@ def fused_bn_train(x, scale, bias, eps: float, out_dtype):
     return FusedBNTrain.apply(x, scale, bias, eps, out_dtype)
 
 
+_FROZEN = threading.local()
+
+
+class running_stats_frozen:
+    """Context: train-mode FusedBatchNorms of this thread leave their
+    running statistics alone (the replay of a rematerialized forward)."""
+
+    def __enter__(self):
+        self.prev = getattr(_FROZEN, "on", False)
+        _FROZEN.on = True
+
+    def __exit__(self, *exc):
+        _FROZEN.on = self.prev
+
+
 class FusedBatchNorm(nn.Module):
     """BatchNorm with flax nn.BatchNorm numerics (see module docstring).
 
@@ -257,9 +279,10 @@ class FusedBatchNorm(nn.Module):
             y, mean, var = FusedBNTrain.apply(
                 xc, self.weight, self.bias, self.eps, out_dtype)
             m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * var)
+            if not getattr(_FROZEN, "on", False):
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1.0 - m) * var)
         return y.permute(0, 3, 1, 2) if x.ndim == 4 else y

@@ -28,6 +28,7 @@ from moma_tpu_torch.core.config import DISTILLERS, Config
 from moma_tpu_torch.losses import aux as A
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.losses.crd import CRDMemory, crd_loss
+from moma_tpu_torch.models import remat as rm
 from moma_tpu_torch.train.state import DistillState, sgd_step
 from moma_tpu_torch.train.steps import accuracy, eval_sums
 
@@ -215,16 +216,14 @@ def make_distill_train_step(distiller: Distiller,
     """step(state: DistillState, batch, generator) -> (state, metrics).
 
     batch: {'image', 'label'} on the run's device, plus 'index' and
-    'contrast_idx' for crd.  `grad_accum > 1` and `remat` are not ported
-    (ROADMAP Queue 1 items 5 and 1-rest) and raise."""
+    'contrast_idx' for crd.  `remat` recomputes the student forward in
+    the backward (models/remat.py; the frozen teacher's forward is
+    gradient-free and holds nothing).  `grad_accum > 1` is not ported
+    (ROADMAP Queue 1 item 5) and raises."""
     if grad_accum != 1:
         raise NotImplementedError(
             "--grad_accum > 1 is not ported to moma_tpu_torch yet (ROADMAP "
             "Queue 1 item 5)")
-    if remat:
-        raise NotImplementedError(
-            "--remat is not ported to moma_tpu_torch yet (ROADMAP Queue 1 "
-            "item 1-rest)")
     cfg = distiller.cfg
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     kd_T = cfg.distill.kd_T
@@ -239,7 +238,8 @@ def make_distill_train_step(distiller: Distiller,
             feat_t, logit_t = state.teacher(images)
         state.student.train()
         state.aux.train()
-        feat_s, logit_s = state.student(images)
+        feat_s, logit_s = (rm.checkpoint(state.student, images) if remat
+                           else state.student(images))
         loss_cls = F.cross_entropy(logit_s, labels)
         loss_div = F.kd_kl(logit_s, logit_t, kd_T)
         loss_kd, metric_logits = distiller.loss(

@@ -3,8 +3,10 @@ epochs around them.
 
 Counterpart of moma_tpu/train/loop.py (`train_one_epoch` :34-129,
 `evaluate` :132-157).  Host batches (numpy uint8 from
-moma_tpu_torch.data.pipeline.Loader) move to the run's device; step metrics stay
-on the device and are fetched at print points and once at epoch end.  An
+moma_tpu_torch.data.pipeline.Loader; a packed batch's image comes already
+copied to the card from pinned memory) move to the run's device; step
+metrics stay on the device and are fetched at print points and once at
+epoch end.  An
 epoch can start mid-way (`start_step`, for a resume from a preemption
 save) and stops between steps when its `stop` guard is set.
 
@@ -36,7 +38,11 @@ class NonFiniteLossError(RuntimeError):
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+    """The batch's arrays on `device`; a tensor the Loader already put
+    there (a packed batch's image on a CUDA run) stays as it is."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v))).to(device,
+                                                         non_blocking=True)
             for k, v in batch.items()}
 
 
@@ -52,7 +58,9 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
                     log_fn: Optional[Callable] = None, stop=None,
                     start_step: int = 0):
     """Runs one epoch; returns (state, {'loss','acc1','acc5','ips',
-    'batch_times', 'steps', ...}).  batch_times are host seconds per step;
+    'batch_times', 'data_times', 'steps', ...}).  batch_times are host
+    seconds per step, data_times the host seconds each step waited for its
+    batch;
     a step's device work is only waited for at print points, so use
     print_freq=1 for per-step times that include it.
 
@@ -70,13 +78,14 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
     bs = loader.batch_size
     sums = None
     n_steps = 0
-    batch_times = []
+    batch_times, data_times = [], []
     t0 = time.perf_counter()
     for i, batch in enumerate(loader, start=start_step):
         if stop is not None and stop.stopping:
             break
         t1 = time.perf_counter()
         meters["data_time"].update(t1 - t0)
+        data_times.append(t1 - t0)
         b = to_device(batch, device)
         state, metrics = step_fn(state, b, step_generator(base_seed, epoch, i))
         contrib = torch.stack([metrics["loss"].detach().float(),
@@ -107,7 +116,7 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
         "batch_time": meters["batch_time"].avg,
         "data_time": meters["data_time"].avg,
         "ips": bs / max(meters["batch_time"].avg, 1e-9),
-        "batch_times": batch_times,
+        "batch_times": batch_times, "data_times": data_times,
         "steps": start_step + n_steps,
     }
 

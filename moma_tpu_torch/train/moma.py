@@ -69,7 +69,11 @@ stops the run with `latest` kept; `--std_pre` / `--tec_pre`
 (models/pretrained.py); the teacher pre-flight eval (`--skip_validation`)
 and a torch.profiler trace of the first epoch (`--profile_dir`).
 
-Not ported yet (ROADMAP.md): --remat.
+`--remat` recomputes the student forward (and MoCoSSTT's second view) in
+the backward instead of holding its activations (train/moma.py:519-523,
+models/remat.py): its BN running statistics are written once, by the
+first forward; every teacher and momentum-encoder forward is
+gradient-free and holds nothing.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.data.pipeline import Loader
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
+from moma_tpu_torch.models import remat as rm
 from moma_tpu_torch.models.pretrained import load_pretrained
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
@@ -191,6 +196,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     state with its EMA copy (`state.ema`, build_state)."""
     check_slice(cfg)
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
+    remat = cfg.run.remat
     kd_T = cfg.distill.kd_T
     alpha = cfg.moma.alpha
     nce_t = cfg.moma.nce_t
@@ -287,7 +293,8 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         # 4-6. student, contrast against the pre-update queue, SGD
         student.train()
         heads.embed_s.train()
-        feat_s, logit_s = student(images)
+        feat_s, logit_s = (rm.checkpoint(student, images) if remat
+                           else student(images))
         loss_cls = F.cross_entropy(logit_s, labels)
         loss_div = F.kd_kl(logit_s, logit_t, kd_T)
         q = heads.embed_s(feat_s[-1])
@@ -309,7 +316,8 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                     k_in = fns["atts_k"](k_in)
             if mem == "MoCoSSTT":
                 with _buffers_restored(student, heads.embed_s):
-                    feat_s2, _ = student(images2)
+                    feat_s2, _ = (rm.checkpoint(student, images2) if remat
+                                  else student(images2))
                     qt_in = heads.embed_s(feat_s2[-1])
                 if self_attn:
                     qt_in = fns["atts_q"](qt_in)
@@ -482,7 +490,8 @@ def run_moma(cfg: Config, synthetic: bool = False, stop=None):
     n_cls = cfg.model_s.n_cls
     train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
     train_loader = Loader(train_ds, cfg.data.batch_size, train=True,
-                          seed=cfg.run.seed)
+                          seed=cfg.run.seed,
+                          num_workers=cfg.data.num_workers, device=device)
     val_loader = Loader(val_ds, cfg.data.eval_batch_size, train=False)
     test_loader = Loader(test_ds, cfg.data.eval_batch_size, train=False)
     state = build_state(cfg, device, len(train_loader), cfg.run.seed)

@@ -9,8 +9,10 @@ device.  The eval step returns the summed NLL over the valid rows of a
 (possibly padded) batch, the valid count and the confusion matrix, also
 on the device, so an epoch fetches once.
 
-`grad_accum > 1` and `remat` are not ported (ROADMAP Queue 1 items 5 and
-1-rest) and raise.
+`remat` recomputes the train-mode forward in the backward instead of
+holding its activations (models/remat.py; BN running statistics written
+once, by the first forward).  `grad_accum > 1` is not ported (ROADMAP
+Queue 1 item 5) and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from moma_tpu_torch.losses.functional import cross_entropy
+from moma_tpu_torch.models import remat as rm
 from moma_tpu_torch.train.state import TrainState, sgd_step
 
 
@@ -54,10 +57,6 @@ def make_vanilla_train_step(augment_fn: Optional[Callable] = None,
         raise NotImplementedError(
             "--grad_accum > 1 is not ported to moma_tpu_torch yet (ROADMAP "
             "Queue 1 item 5)")
-    if remat:
-        raise NotImplementedError(
-            "--remat is not ported to moma_tpu_torch yet (ROADMAP Queue 1 "
-            "item 1-rest)")
 
     def step(state: TrainState, batch, generator: torch.Generator):
         images = batch["image"]
@@ -66,7 +65,7 @@ def make_vanilla_train_step(augment_fn: Optional[Callable] = None,
         labels = batch["label"].long()
         model = state.model
         model.train()
-        _, logits = model(images)
+        _, logits = rm.checkpoint(model, images) if remat else model(images)
         loss = cross_entropy(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

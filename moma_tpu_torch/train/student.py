@@ -166,7 +166,7 @@ def run_student(cfg: Config, synthetic: bool = False, stop=None):
                              map_location=device)
     n_cls = cfg.model_s.n_cls
     train_ds, train_loader, val_loader, test_loader = make_loaders(
-        cfg, synthetic)
+        cfg, synthetic, device)
     state, distiller = build_distill_state(cfg, device, len(train_loader),
                                            cfg.run.seed, len(train_ds))
     if cfg.distill.distill == "crd":

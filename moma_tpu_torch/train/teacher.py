@@ -93,12 +93,16 @@ def check_data_parallel_only(cfg: Config, what: str) -> None:
                          f"{what} runs global-batch BN")
 
 
-def make_loaders(cfg: Config, synthetic: bool, extras=None):
-    """(train set, train, val and test loaders) of a run."""
+def make_loaders(cfg: Config, synthetic: bool, device=None, extras=None):
+    """(train set, train, val and test loaders) of a run.  The train
+    loader takes --num_workers gather threads and, over a packed dataset
+    on a CUDA `device`, copies its batches to the card from pinned
+    memory."""
     train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
     return (train_ds,
             Loader(train_ds, cfg.data.batch_size, train=True,
-                   seed=cfg.run.seed, extras=extras),
+                   seed=cfg.run.seed, extras=extras,
+                   num_workers=cfg.data.num_workers, device=device),
             Loader(val_ds, cfg.data.eval_batch_size, train=False),
             Loader(test_ds, cfg.data.eval_batch_size, train=False))
 
@@ -155,7 +159,8 @@ def run_teacher(cfg: Config, synthetic: bool = False, stop=None):
     ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
                              map_location=device)
     n_cls = cfg.model_s.n_cls
-    _, train_loader, val_loader, test_loader = make_loaders(cfg, synthetic)
+    _, train_loader, val_loader, test_loader = make_loaders(cfg, synthetic,
+                                                            device)
     state = build_teacher_state(cfg, device, len(train_loader), cfg.run.seed)
 
     train_aug, eval_norm = augment_fns(cfg)

@@ -85,7 +85,7 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--distill", "kd_zoo"], ["--remat"], ["--attn", "selff"],
+    ["--distill", "kd_zoo"], ["--attn", "selff"],
     ["--bn", "local"], ["--grad_accum", "2"], ["--teacher_quant", "int8"],
     ["--model_parallel", "2"], ["--model_t", "vit_tiny_moe_patch16_224"],
 ])
@@ -161,7 +161,7 @@ def test_cli_trains_mocoatt_through_the_streaming_path_on_cpu(small_sets,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--num_workers", "4"], ["--scoped_vmem_kib", "0"],
+    ["--scoped_vmem_kib", "0"],
 ])
 def test_flags_the_port_would_ignore_are_refused(extra, capsys):
     argv = [a for a in ARGS if a != "--synthetic"]

@@ -64,7 +64,7 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
                                 jax_template, make_init_ordered,
-                                ordered_numpy, walk_pairs)
+                                ordered_numpy, quick_compiled, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -173,9 +173,10 @@ def _jax_run(teacher, mem, batches):
         apply_fn=J_STUDENT.apply, teacher_apply_fn=jt.apply)
     prog = _JAX_PROGRAMS.get((teacher, mem))
     if prog is None:
-        prog = _JAX_PROGRAMS[(teacher, mem)] = j_make_step(
+        # compiled with quick options: compiling is most of the cost
+        prog = _JAX_PROGRAMS[(teacher, mem)] = quick_compiled(j_make_step(
             jc, jheads, augment_fn=None, donate=False, cross_arch=True,
-            kl_train_bn_override=True)
+            kl_train_bn_override=True))
     metrics = []
     for b in batches:
         state, m = prog(state, {k: jnp.asarray(v) for k, v in b.items()},

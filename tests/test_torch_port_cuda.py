@@ -1042,3 +1042,53 @@ def test_shufflenet_units_backward_cuda_matches_cpu(dev, case):
     for got, want in zip(grads[1], grads[0]):
         assert float((got - want).abs().max()) <= 1e-4 * max(
             float(want.abs().max()), floor)
+
+
+@pytest.mark.parametrize("consumer", ["device", "host"])
+def test_packed_loader_through_the_pinned_ring(dev, tmp_path, consumer):
+    """A train Loader over a packed file on a CUDA run: batches assembled
+    into pinned slots and copied to the card without blocking the host.
+    A slow consumer (the card busy 2 ms a batch while the host runs
+    ahead, or the host sleeping) must still get every batch's own rows:
+    a slot goes back to the batcher only after its copy has run.  Two
+    epochs of 25 batches through a ring of 6 slots, an abandoned one in
+    between; each batch equals numpy's rows."""
+    import time
+
+    import numpy as np
+
+    from moma_tpu_torch.data.pipeline import ArrayDataset, Loader
+
+    n, row, bs = 203, (16, 16, 3), 8
+    rs = np.random.RandomState(0)
+    arr = rs.randint(0, 256, (n, *row), dtype=np.uint8)
+    path = str(tmp_path / "rows.bin")
+    arr.tofile(path)
+    labels = rs.randint(0, 4, n)
+    mm = np.memmap(path, dtype=np.uint8, mode="r", shape=(n, *row))
+    ld = Loader(ArrayDataset(mm, labels, bin_path=path), bs, True, seed=1,
+                num_workers=3, device=dev)
+    ref = Loader(ArrayDataset(arr, labels), bs, True, seed=1)
+    for epoch in range(2):
+        if epoch == 1:
+            for i, _ in enumerate(ld):   # abandoned after 3 batches
+                if i == 2:
+                    break
+        ld.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        got = []
+        for b in ld:
+            assert b["image"].device.type == "cuda"
+            if consumer == "device":
+                torch.cuda._sleep(2_000_000)
+            else:
+                time.sleep(0.002)
+            got.append(b)
+        torch.cuda.synchronize()
+        want = list(ref)
+        assert len(got) == len(want) == n // bs
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["image"].cpu().numpy(),
+                                          w["image"])
+            np.testing.assert_array_equal(g["index"], w["index"])
+    assert all(b.is_pinned() for b in ld._ring.bufs)

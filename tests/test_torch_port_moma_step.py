@@ -82,8 +82,9 @@ B, HW, N_CLS, K, FEAT = 4, 64, 4, 64, 32
 ALPHA, LR, EPOCHS, STEPS_PER_EPOCH = 0.99, 0.05, 5, 4
 
 
-def _cfgs(fused="off", fast=False):
+def _cfgs(fused="off", fast=False, remat=False):
     jc = JConfig()
+    jc.run.remat = remat
     jc.model_t = JModel(name="effiB0", n_cls=N_CLS)
     jc.distill = JDistill(distill="moma", cls=1.0, div=1.0, beta=1.0)
     jc.moma = JMoma(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
@@ -96,6 +97,7 @@ def _cfgs(fused="off", fast=False):
     tc.moma = MomaConfig(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
                          mem="MoCo", head="mlp", attn="self",
                          fused_teacher=fused, fast_teacher=fast)
+    tc.run.remat = remat
     return jc, tc
 
 
@@ -130,10 +132,11 @@ def _batches(n):
 _JAX_PROGRAMS = {}
 
 
-def _jax_run(init_vars, programs, batches, fused="off", fast=False):
+def _jax_run(init_vars, programs, batches, fused="off", fast=False,
+             remat=False):
     """Returns (state, metrics per step, teacher batch_stats per step)."""
     model, jheads, vs, vt, cmo, mem = init_vars
-    jc, _ = _cfgs(fused, fast)
+    jc, _ = _cfgs(fused, fast, remat)
     # one optimizer and one jitted step per (route, BN mode) for the whole
     # module: a later test on the same process reuses the compiled program
     # (the optimizer is a static field of the state, so it must be the same
@@ -156,7 +159,7 @@ def _jax_run(init_vars, programs, batches, fused="off", fast=False):
         teacher_apply_fn=model.apply)
     steps = {}
     for flag in set(programs):
-        key = (id(jheads), fused, fast, flag)
+        key = (id(jheads), fused, fast, remat, flag)
         if key not in _JAX_PROGRAMS:
             _JAX_PROGRAMS[key] = j_make_step(
                 jc, jheads, augment_fn=None, donate=False,
@@ -171,9 +174,10 @@ def _jax_run(init_vars, programs, batches, fused="off", fast=False):
     return state, metrics, teacher_bs
 
 
-def _torch_run(init_vars, programs, batches, fused="off", fast=False):
+def _torch_run(init_vars, programs, batches, fused="off", fast=False,
+               remat=False):
     _, _, vs, vt, cmo, mem = init_vars
-    _, tc = _cfgs(fused, fast)
+    _, tc = _cfgs(fused, fast, remat)
     student = EfficientNet("b0", num_classes=N_CLS)
     teacher = EfficientNet("b0", num_classes=N_CLS)
     heads = CMOHeads("mlp", "self", FEAT, s_dim=1280, t_dim=1280)
@@ -255,10 +259,11 @@ def test_fused_teacher_needs_an_efficientnet_teacher():
 
 
 def _check_against_jax(init_vars, programs, rtol, div_rtol, upd_rtol, fused,
-                       fast=False):
+                       fast=False, remat=False):
     batches = _batches(len(programs))
-    js, jm, jbs = _jax_run(init_vars, programs, batches, fused, fast)
-    ts, tm, tbs = _torch_run(init_vars, programs, batches, fused, fast)
+    js, jm, jbs = _jax_run(init_vars, programs, batches, fused, fast, remat)
+    ts, tm, tbs = _torch_run(init_vars, programs, batches, fused, fast,
+                             remat)
     _, _, vs, vt, cmo, _ = init_vars
 
     for step, (got, ref) in enumerate(zip(tbs, jbs)):

@@ -4,7 +4,9 @@ kernels have no stand-ins.
 1. A subprocess blocks jax / flax / optax / orbax and moma_tpu with a
    sys.meta_path finder, imports every moma_tpu_torch module and runs one
    CPU train step of each ported memory variant, one with the fused
-   teacher forward and one cross-arch (ViT teacher) step.
+   teacher forward, one cross-arch (ViT teacher) step and one under
+   --remat; then packs four JPEGs with the native decoder and reads the
+   pack back through the native prefetcher.
 2. No source file of the port, nor chip_smoke.py, imports moma_tpu
    (docstrings may name a counterpart file).
 3. The package source holds no library kernel stand-in
@@ -49,13 +51,14 @@ SCRIPT = textwrap.dedent('''
     ds = synthetic_dataset(2, 32, 4, seed=0)
     batch = to_device({"image": ds.images, "label": ds.labels},
                       torch.device("cpu"))
-    for mem, attn, fused, teacher in (
+    for mem, attn, fused, teacher, *extra in (
             ("MoCo", "self", "off", "effiB0"),
             ("MoCoAtt", "all", "off", "effiB0"),
             ("MoCoSSTT", "self", "off", "effiB0"),
             ("MoCo", "self", "on", "effiB0"),
-            ("MoCo", "self", "off", "vit_tiny_patch16_224")):
-        cfg = parse_student_args([
+            ("MoCo", "self", "off", "vit_tiny_patch16_224"),
+            ("MoCo", "self", "off", "effiB0", "--remat")):
+        cfg = parse_student_args(extra + [
             "--fused_teacher", fused,
             "--device", "cpu", "--dataset", "prostate_hv", "--model_s",
             "effiB0", "--model_t", teacher, "--distill", "moma", "--head",
@@ -68,6 +71,23 @@ SCRIPT = textwrap.dedent('''
                                     cross_arch=state.ema is not None)
         state, m = step(state, batch, torch.Generator().manual_seed(0))
         assert torch.isfinite(m["loss"]) and m["queue_ptr"] == 2, mem
+
+    import os, tempfile
+    from PIL import Image
+    from moma_tpu_torch.data import native
+    from moma_tpu_torch.data.histo import PackedCache
+    from moma_tpu_torch.data.pipeline import Loader
+    d = tempfile.mkdtemp()
+    pairs = []
+    for i in range(4):
+        pairs.append((os.path.join(d, f"{i}.jpg"), i % 2))
+        Image.fromarray(ds.images[i % 2]).save(pairs[-1][0])
+    cache = PackedCache(os.path.join(d, "pack"))
+    packed = cache.build_or_open(pairs, 16)
+    assert cache.last_build["route"] == (
+        "native" if native.decoder_unavailable() is None else "pil")
+    got = [b["image"] for b in Loader(packed, 2, True)]
+    assert [g.shape for g in got] == [(2, 16, 16, 3)] * 2
     leaked = [k for k in sys.modules if k.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("OK", len(names))

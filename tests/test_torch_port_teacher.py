@@ -300,7 +300,6 @@ def test_cli_trains_a_vit_teacher(small_sets, tmp_path):
 @pytest.mark.parametrize("extra,exc", [
     (["--bn", "local"], ValueError), (["--model_parallel", "2"], ValueError),
     (["--grad_accum", "2"], NotImplementedError),
-    (["--remat"], NotImplementedError),
     (["--model", "vit_small_moe_patch16_224"], NotImplementedError),
 ])
 def test_teacher_refusals(extra, exc, tmp_path):
@@ -309,7 +308,7 @@ def test_teacher_refusals(extra, exc, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--num_workers", "4"], ["--scoped_vmem_kib", "0"], ["--sync_bn"],
+    ["--scoped_vmem_kib", "0"], ["--sync_bn"],
 ])
 def test_teacher_flags_the_port_would_ignore_are_refused(extra, capsys):
     with pytest.raises(SystemExit):
