@@ -15,7 +15,9 @@ at 224^2 in EmaTec mode (CROSS_ARGS); then supervised teacher training
 (scripts/run_vanilla.sh's command line, TEACHER_ARGS) and the seven
 comparison distillers of scripts/run_comparison.sh from that teacher;
 then the CLIs' default run on CIFAR-100 (a resnet32x4 teacher, resnet8x4
-kd / crd / MoMA students) and one step of each backbone family.
+kd / crd / MoMA students) and one step of each backbone family.  After the
+MoCo path, the data axis: --grad_accum, one rank under NCCL through
+torch.distributed.run, and two ranks sharing the card.
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -59,7 +61,20 @@ Phases (each prints its own lines):
   6 main paths : `python -m moma_tpu_torch.cli.train_student ...` in-process,
                  MoCo, MoCoAtt, then MoCo with --fused_teacher on; finite
                  losses, queue pointer, launch counts (set to 0 just before
-                 each path), step time, img/s, peak memory
+                 each path), step time, img/s, peak memory.  Between MoCo
+                 and MoCoAtt the data axis: (a) MoCo with --grad_accum 1, 2
+                 and 4 and run_vanilla.sh's step with 1 and 2 (launch
+                 counts, step time, peak); (b) `python -m
+                 torch.distributed.run --standalone --nproc_per_node 1` of
+                 the MoCo path with --bn local (NCCL; step losses equal to
+                 the run without a group, rank 0's checkpoints, step time);
+                 (c) two ranks sharing the card, each a spawned process in
+                 a gloo group: which collectives gloo takes on CUDA
+                 tensors, the MoCo path at 32 rows a rank with --bn local
+                 and --bn sync (step times, peak, the bytes gathered and
+                 reduced a step), and at 64^2 f32 the 2-rank 'local' step
+                 against --grad_accum 2 and the 2-rank 'sync' / 'global'
+                 steps against one process
  6b packed     : a seeded JPEG tree (imagefolder, 384 train and 64 val
                  images of 600^2) packed by the port at 512^2 and 224^2:
                  the decoder's route (native libjpeg, or PIL where
@@ -1155,10 +1170,13 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
         f"diff {worst:.2e}; queue max diff {qerr:.2e}")
 
 
-def expected_launches(state, n, flash_per_step=0, fused=False, ra=2):
+def expected_launches(state, n, flash_per_step=0, fused=False, ra=2,
+                      accum=1):
     """The kernel launches of an epoch of n steps of the 'exact' schedule
     on the state's model (and the number of its student's BatchNorms);
-    `ra` RandAugment layers a step (0 on the CIFAR augment)."""
+    `ra` RandAugment layers a step (0 on the CIFAR augment).  `accum`: the
+    --grad_accum microbatches, each its own augment and its own student,
+    KL and key forwards."""
     n_bn = sum(1 for m in state.student.modules()
                if type(m).__name__ == "FusedBatchNorm")
     # first batch: eval-BN KL forward ('exact'), so student + key forwards;
@@ -1166,9 +1184,9 @@ def expected_launches(state, n, flash_per_step=0, fused=False, ra=2):
     # forwards and 2n teacher forwards in all.  Cross-arch: the student and
     # the EMA copy's key forward a step, the fixed teacher in eval mode
     teacher_train = n if state.ema is not None else 2 * n - 1
-    want = {"channel_sums": n_bn * n + n_bn * teacher_train,
-            "grad_channel_sums": n_bn * n,
-            "ra_layer": ra * n, "ra_layer_kernels": 2 * ra * n,
+    want = {"channel_sums": accum * (n_bn * n + n_bn * teacher_train),
+            "grad_channel_sums": accum * n_bn * n,
+            "ra_layer": accum * ra * n, "ra_layer_kernels": 2 * accum * ra * n,
             "flash_fwd": flash_per_step * n,
             "flash_dq": flash_per_step * n, "flash_dkv": flash_per_step * n,
             "k1_expand_stats": 0, "k2_depthwise": 0, "k4_project": 0}
@@ -1191,12 +1209,13 @@ MAIN_RUNS = {}
 
 
 def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
-                    fused=False, steps=4, remat=False):
+                    fused=False, steps=4, remat=False, accum=1):
     """Drive the CLI with `args`; `flash_per_step` launches of each
     flash-attention kernel are expected per step (0 on the MoCo path, whose
     attentions see 64 tokens and stay dense); `fused`: both teacher forwards
     run the fused EfficientNet forward; `remat`: the student's train-mode
-    BatchNorms run once more a step, in the backward's replay."""
+    BatchNorms run once more a step, in the backward's replay; `accum`:
+    args hold --grad_accum `accum`."""
     import torch
 
     from moma_tpu_torch.cli import train_student
@@ -1224,7 +1243,8 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
         raise AssertionError(f"main path ran {n} steps, expected {steps}")
     if state.queue.ptr != (64 * n) % 16384:
         raise AssertionError(f"queue_ptr {state.queue.ptr} != {64 * n}")
-    want, n_bn = expected_launches(state, n, flash_per_step, fused)
+    want, n_bn = expected_launches(state, n, flash_per_step, fused,
+                                   accum=accum)
     if remat:
         want["channel_sums"] += n_bn * n
     log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} BNs)")
@@ -2665,6 +2685,401 @@ def phase_zoo(results):
     return counts
 
 
+# ------------------------------------------------------------- data axis
+# phase_grad_accum: the MoCo main path and run_vanilla.sh's step at these
+# --grad_accum values
+ACCUM_MS = (1, 2, 4)
+TEACHER_ACCUM_MS = (1, 2)
+# the ranks' own processes: a hard limit, then every one is killed
+RANK_TIMEOUT_S = 420
+# phase_two_ranks (b): one f32 step at 64^2, 4 rows a rank (TF32 off):
+# losses, and every tensor of the state to 1e-3 of its scale
+DP_RTOL = 1e-3
+DP_SMALL = ["--distill", "moma", "--dataset", "prostate_hv", "--model_s",
+            "effiB0", "--model_t", "effiB0", "--image_size", "64",
+            "--batch_size", "8", "--nce_k", "64", "--feat_dim", "32",
+            "--head", "mlp", "--mem", "MoCo", "--attn", "self", "-b", "1",
+            "--fp32", "--epochs", "1", "--kl_teacher_bn", "train"]
+DP_PERM = (5, 2, 7, 0, 3, 6, 1, 4)   # crosses the rank boundary
+
+
+def phase_grad_accum():
+    """--grad_accum M on the MoCo main path (M = 1, 2, 4; 4 steps each,
+    every microbatch its own augment and its own KL, key and student
+    forward) and on run_vanilla.sh's step (M = 1, 2; one augment a step):
+    the launch counts, checked, the steady step time and the peak
+    memory.  Returns the M = 2 MoCo run's launch counts."""
+    from moma_tpu_torch.cli import train_teacher
+
+    for m in ACCUM_MS:
+        label = f"accum{m}"
+        phase_main_path(MAIN_ARGS + ["--grad_accum", str(m), "--trial", label],
+                        label, accum=m)
+        r = MAIN_RUNS[label]
+        # a steady step's launches: two steps' minus the first's (checked
+        # over the run by phase_main_path)
+        two, one = (expected_launches(r["state"], n, accum=m)[0]
+                    for n in (2, 1))
+        log(f"[grad_accum] MoCo M={m}: steady step {r['steady'] * 1e3:.1f} "
+            f"ms, peak {r['peak'] / 2 ** 30:.2f} GiB; launches a steady step "
+            + ", ".join(f"{k} {two[k] - one[k]}" for k in sorted(two)
+                        if two[k] - one[k]))
+        # its modules would stay on the card under later phases' peaks
+        del r["state"]
+    for m in TEACHER_ACCUM_MS:
+        def expect(state, n, m=m):
+            n_bn = _n_bn(state.model)
+            return {"channel_sums": m * n_bn * n,
+                    "grad_channel_sums": m * n_bn * n, "ra_layer": 2 * n,
+                    "ra_layer_kernels": 4 * n, "flash_fwd": 0,
+                    "k1_expand_stats": 0}
+
+        phase_drive(train_teacher.main,
+                    TEACHER_ARGS + ["--grad_accum", str(m), "--trial",
+                                    f"accum{m}"],
+                    f"teacher_accum{m}", lambda s: [s.model], expect=expect)
+    return MAIN_RUNS["accum2"]["counts"]
+
+
+def _run_group(cmd, timeout_s):
+    """Run `cmd` in its own process group; on timeout kill the group (the
+    launcher and every worker it started).  Returns (rc, stdout, stderr)."""
+    import signal
+
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise AssertionError(f"{cmd[:6]}... outlasted {timeout_s} s (killed): "
+                             f"{out[-2000:]}\n{err[-2000:]}")
+    return p.returncode, out, err
+
+
+def _peak_reset(dev):
+    import torch
+
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev):
+    """Peak device memory since _peak_reset (0 for a CPU rehearsal)."""
+    import torch
+
+    if dev != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def rank_main(out_json, argv):
+    """`chip_smoke.py --rank-main OUT ARGS...` under torch.distributed.run:
+    cli.train_student.main(ARGS) on this rank; rank 0 writes the run's
+    step times, run directory, peak memory, launch and collective counts
+    to OUT."""
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.core.mesh import comm_counts
+    from moma_tpu_torch.runtime import launch_counts
+
+    dev = argv[argv.index("--device") + 1]
+    _peak_reset(dev)
+    state, result = train_student.main(argv)
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(out_json, "w") as f:
+            json.dump({"batch_times": result["train"]["batch_times"],
+                       "run_dir": result["run_dir"],
+                       "queue_ptr": state.queue.ptr, "peak": _peak(dev),
+                       "launches": launch_counts(), "comm": comm_counts()},
+                      f)
+    return 0
+
+
+def phase_nccl_one_rank(args=MAIN_ARGS):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1`
+    of cli.train_student with MAIN_ARGS and --bn local (4 steps): NCCL
+    starts on the card and every collective of the step runs through it
+    (one rank: the results are copies); the per-step losses equal the run
+    without a process group (MAIN_RUNS['main']) to STEP_LOSS_RTOL, its
+    steady step beside the plain one; rank 0 writes the checkpoints."""
+    out_json = os.path.join(SAVE_ROOT, "nccl1.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--rank-main",
+           out_json, *args, "--bn", "local", "--save_dir",
+           os.path.join(SAVE_ROOT, "nccl1")]
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(cmd, RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"one-rank NCCL run exited {rc}:\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    with open(out_json) as f:
+        r = json.load(f)
+    plain = MAIN_RUNS["main"]
+    gap = _check_losses(_step_losses(r["run_dir"]), plain["losses"], "nccl1")
+    for tag in ("latest", "best_acc"):
+        if not os.path.exists(os.path.join(r["run_dir"], "ckpt",
+                                           f"{tag}.pt")):
+            raise AssertionError(f"nccl1: rank 0 wrote no {tag}.pt")
+    if r["queue_ptr"] != plain["state"].queue.ptr:
+        raise AssertionError(f"nccl1: queue_ptr {r['queue_ptr']}")
+    steady = statistics.median(r["batch_times"][1:])
+    want, _ = expected_launches(plain["state"], len(r["batch_times"]))
+    if "cuda" not in args:   # a CPU rehearsal: plain versions, no launches
+        want = {}
+    for k, v in want.items():
+        if r["launches"].get(k, 0) != v:
+            raise AssertionError(f"nccl1: launch count {k}: "
+                                 f"{r['launches'].get(k, 0)} != {v}")
+    log(f"[nccl1] torch.distributed.run, 1 rank, NCCL, --bn local: "
+        f"{len(r['batch_times'])} steps in {wall:.1f} s (launcher and start "
+        f"included); step losses rel gap to the plain run {gap:.2e}; steady "
+        f"step {steady * 1e3:.1f} ms vs {plain['steady'] * 1e3:.1f} ms "
+        f"plain ({100 * (steady / plain['steady'] - 1):+.1f}%); peak "
+        f"{r['peak'] / 2 ** 30:.2f} GiB; collectives over the run "
+        f"{r['comm']}; checkpoints written by rank 0")
+
+
+def _rank_probe(rank, world, dev="cuda"):
+    """Which collectives gloo runs on `dev` tensors, and their values."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device=dev)
+    out = {}
+
+    def gather():
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts).tolist() == sum(
+            ([float(r + 1)] * 4 for r in range(world)), [])
+
+    def reduce(op, want):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        return y.tolist() == [want] * 4
+
+    for name, fn in (("all_gather", gather),
+                     ("all_reduce_sum", lambda: reduce(
+                         dist.ReduceOp.SUM, float(world * (world + 1) // 2))),
+                     ("all_reduce_max", lambda: reduce(
+                         dist.ReduceOp.MAX, float(world))),
+                     ("barrier", lambda: dist.barrier() or True)):
+        try:
+            out[name] = "ok" if fn() else "wrong values"
+        except Exception as e:  # reported by name, then the phase fails
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def _wrapped_comm(record):
+    """_wrapped_steps that puts the collective counts of the second step
+    into `record`."""
+    from moma_tpu_torch.core.mesh import comm_counts, reset_comm_counts
+
+    def before(state, n):
+        if n == 2:
+            reset_comm_counts()
+
+    def after(state, n):
+        if n == 2:
+            record.update(comm_counts())
+    return _wrapped_steps(before=before, after=after)
+
+
+def _rank_full_width(rank, world, save_root, args):
+    """cli.train_student with `args` (MAIN_ARGS) on this rank's half of
+    each global batch, --bn local then --bn sync: step times, peak
+    memory, launch counts, the second step's collectives."""
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    _set_root(save_root)
+    dev = args[args.index("--device") + 1]
+    out = {}
+    for bn in ("local", "sync"):
+        _peak_reset(dev)
+        reset_launch_counts()
+        comm = {}
+        with _wrapped_comm(comm):
+            state, result = train_student.main(
+                args + ["--bn", bn, "--trial", f"dp2_{bn}",
+                        "--save_dir", save_root])
+        out[bn] = {"batch_times": result["train"]["batch_times"],
+                   "loss": result["train"]["loss"],
+                   "val_acc": result["val"]["acc"],
+                   "queue_ptr": state.queue.ptr, "peak": _peak(dev),
+                   "launches": launch_counts(), "comm_step": comm,
+                   "n_bn": _n_bn(state.student)}
+    return out
+
+
+def _small_batch_dp():
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    return {"image": rs.randint(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+            "label": rs.randint(0, 4, (8,)).astype(np.int32),
+            "shuffle_perm": np.array(DP_PERM, np.int64)}
+
+
+def _dp_step(bn, accum, augment, rank=0, world=1, dev="cuda", attn="self"):
+    """One MoMA step of DP_SMALL (with --attn `attn`) on `dev` from
+    build_state's seeded weights: this rank's rows of the batch; returns
+    (metrics, the state's tensors on the CPU)."""
+    import torch
+
+    from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.train.loop import to_device
+    from moma_tpu_torch.train.moma import (build_state, full_state,
+                                           make_moma_train_step)
+    from moma_tpu_torch.train.teacher import augment_fns
+
+    cfg = parse_student_args(
+        with_flags(DP_SMALL, attn=attn) + ["--bn", bn, "--grad_accum",
+                                           str(accum), "--device", dev])
+    dev = torch.device(dev)
+    state = build_state(cfg, dev, 4, seed=0)
+    step = make_moma_train_step(cfg, augment_fns(cfg)[0] if augment else None,
+                                kl_train_bn_override=True)
+    batch = _small_batch_dp()
+    b = 8 // world
+    rows = {k: (v if k == "shuffle_perm" else v[rank * b:(rank + 1) * b])
+            for k, v in batch.items()}
+    state, m = step(state, to_device(rows, dev),
+                    torch.Generator().manual_seed(5))
+    full = full_state(state)
+    cpu = {g: {k: v.detach().cpu() for k, v in full[g].items()}
+           for g in ("student", "teacher", "heads")}
+    cpu["queue"] = {k: v.cpu() for k, v in full["queue"]["memory"].items()}
+    return {k: float(v) for k, v in m.items()}, cpu
+
+
+def _rank_small(rank, world, dev="cuda"):
+    """The three modes' 2-rank steps of DP_SMALL: 'local' with the
+    augmentation (each rank its own stream); 'sync' without attention
+    modules (whose batch-token attention mixes a rank's rows there and the
+    global batch's under 'global': a difference by design); 'global'."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {"local": _dp_step("local", 1, True, rank, world, dev),
+            "sync": _dp_step("sync", 1, False, rank, world, dev, "none"),
+            "global": _dp_step("global", 1, False, rank, world, dev)}
+
+
+def _dp_compare(got, want, label, exact=False):
+    (mg, sg), (mw, sw) = got, want
+    for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+        a, b = mg[k], mw[k]
+        if not abs(a - b) <= DP_RTOL * abs(b) + 1e-6:
+            raise AssertionError(f"{label}: {k} {a} vs {b}")
+    gap, where = _state_gap(sg, sw)
+    if not gap <= DP_RTOL:
+        raise AssertionError(f"{label}: state gap {gap:.2e} at {where}")
+    log(f"[dp2] {label}: loss {mg['loss']:.6f} vs {mw['loss']:.6f}, "
+        f"loss_kd {mg['loss_kd']:.6f} vs {mw['loss_kd']:.6f}; state max rel "
+        f"gap {gap:.2e}{' at ' + where if where else ''}")
+
+
+def phase_two_ranks(dev="cuda", args=MAIN_ARGS):
+    """Two ranks sharing the card, each its own spawned process in a gloo
+    group (NCCL refuses two ranks on one device): which collectives gloo
+    takes on CUDA tensors (the phase fails naming any it refuses); (a)
+    MAIN_ARGS through cli.train_student, 32 rows a rank, --bn local and
+    --bn sync: each rank's step times and peak memory, launch counts, and
+    the bytes gathered and reduced in a step; (b) DP_SMALL's f32 step at
+    64^2, 4 rows a rank: the 2-rank 'local' step (augmented) against
+    --grad_accum 2 in this process, and the 2-rank 'sync' (--attn none)
+    and 'global' steps against the one-process 'global' step, to
+    DP_RTOL.  Two ranks on
+    one card give no data-parallel speed: (a)'s times are those of two
+    processes taking turns on one device.  Returns rank 0's 'local' launch
+    counts."""
+    import torch
+
+    from moma_tpu_torch.core.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    probe = spawn_ranks(_rank_probe, 2, (dev,), backend="gloo",
+                        timeout_s=RANK_TIMEOUT_S)
+    log(f"[dp2] gloo on {dev} tensors, 2 ranks on one device: {probe[0]}")
+    refused = sorted({k for p in probe for k, v in p.items() if v != "ok"})
+    if refused:
+        raise AssertionError(f"gloo refuses on {dev} tensors: {refused}: "
+                             f"{probe}")
+
+    save = os.path.join(SAVE_ROOT, "dp2")
+    ranks = spawn_ranks(_rank_full_width, 2, (save, list(args)),
+                        backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    B = int(args[args.index("--batch_size") + 1])
+    K = int(args[args.index("--nce_k") + 1])
+    for bn in ("local", "sync"):
+        a, b = ranks[0][bn], ranks[1][bn]
+        if not (a["loss"] == b["loss"] and a["queue_ptr"] == b["queue_ptr"]
+                and math.isfinite(a["loss"])):
+            raise AssertionError(f"dp2 {bn}: ranks disagree or diverge: "
+                                 f"{a['loss']} / {b['loss']}")
+        if a["queue_ptr"] != (B * len(a["batch_times"])) % K:
+            raise AssertionError(f"dp2 {bn}: queue_ptr {a['queue_ptr']}")
+        n, n_bn = len(a["batch_times"]), a["n_bn"]
+        want = ({"channel_sums": n_bn * n + n_bn * (2 * n - 1),
+                 "grad_channel_sums": n_bn * n, "ra_layer": 2 * n}
+                if dev == "cuda" else {})
+        for r, res in enumerate((a, b)):
+            for k, v in want.items():
+                if res["launches"].get(k, 0) != v:
+                    raise AssertionError(
+                        f"dp2 {bn} rank {r}: launch count {k}: "
+                        f"{res['launches'].get(k, 0)} != {v}")
+            steady = statistics.median(res["batch_times"][1:])
+            log(f"[dp2] {bn} rank {r}: {B // 2} rows of {B}, steady step "
+                f"{steady * 1e3:.1f} ms, step times (s) "
+                f"{[round(t, 4) for t in res['batch_times']]}, peak "
+                f"{res['peak'] / 2 ** 30:.2f} GiB, launches "
+                f"{res['launches']}")
+        c = a["comm_step"]
+        log(f"[dp2] {bn}: one step's collectives on a rank: "
+            f"{c.get('all_gather', 0)} all_gather, "
+            f"{c.get('all_gather_bytes', 0) / 1e6:.2f} MB sent in; "
+            f"{c.get('all_reduce', 0)} all_reduce, "
+            f"{c.get('all_reduce_bytes', 0) / 1e6:.2f} MB reduced; train "
+            f"loss {a['loss']:.4f}, val acc {a['val_acc']:.2f}")
+
+    # TF32 off for the f32 oracles, then back as it was: later phases
+    # compare their runs with runs made before this one
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        small = spawn_ranks(_rank_small, 2, (dev,), backend="gloo",
+                            timeout_s=RANK_TIMEOUT_S)
+        accum = _dp_step("global", 2, True, dev=dev)
+        one = _dp_step("global", 1, False, dev=dev)
+        one_none = _dp_step("global", 1, False, dev=dev, attn="none")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for bn in ("local", "sync", "global"):
+        gap, where = _state_gap(small[1][bn][1], small[0][bn][1])
+        if small[0][bn][0] != small[1][bn][0] or gap != 0.0:
+            raise AssertionError(f"dp2 {bn}: ranks 0 and 1 differ ({gap:.2e}"
+                                 f" at {where})")
+    _dp_compare(small[0]["local"], accum,
+                "2-rank 'local' (augmented) vs --grad_accum 2, 64^2 f32")
+    _dp_compare(small[0]["sync"], one_none,
+                "2-rank 'sync' vs one-process 'global', --attn none, 64^2 "
+                "f32")
+    _dp_compare(small[0]["global"], one,
+                "2-rank 'global' vs one-process 'global', 64^2 f32")
+    log(f"[dp2] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return ranks[0]["local"]["launches"]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2702,6 +3117,9 @@ def _run(name_power, t0) -> int:
     phase_step_parity(extra=("--fused_teacher", "on"))
     phase_step_parity(extra=("--model_t", "vit_small_patch16_224"))
     counts = phase_main_path()
+    accum_counts = phase_grad_accum()
+    phase_nccl_one_rank()
+    dp_counts = phase_two_ranks()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
     packed_counts = phase_packed()
@@ -2711,8 +3129,9 @@ def _run(name_power, t0) -> int:
     cmp_counts = phase_comparison(teacher_best)
     zoo_counts = phase_zoo(results)
     # a kernel's launches: those of the first main path that runs it
-    for later in (att_counts, fused_counts, packed_counts, cross_counts,
-                  teacher_counts, cmp_counts, zoo_counts):
+    for later in (accum_counts, dp_counts, att_counts, fused_counts,
+                  packed_counts, cross_counts, teacher_counts, cmp_counts,
+                  zoo_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
@@ -2738,4 +3157,7 @@ def _run(name_power, t0) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-main"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -25,8 +25,10 @@ fused-kernel phases again with the host's work in the times (SPIN_CYCLES =
 with chip_smoke.py's effiB0@512 flags for `--mem MoCoAtt --attn all`,
 `--attn dual`, `--mem MoCo` and `--mem MoCo --fused_teacher on`, and with
 its cross-arch flags (CROSS_ARGS: ViT-S/16 teacher, effiB0 student, 224^2,
-batch 64, `--mem MoCo`).  `--configs` picks the profiled configurations
-(a checkout older than the cross-arch port has no `cross_arch`), and
+batch 64, `--mem MoCo`); `moco_accum2` / `moco_accum4` are `--mem MoCo`
+with `--grad_accum 2` / `4`, not in the default set.  `--configs` picks
+the profiled configurations (a checkout older than the cross-arch port
+has no `cross_arch`, one older than the data axis no `moco_accum*`), and
 `--steps_only` skips the kernel phases.  Each run is a process of its
 own; the kernels are built once per directory.
 Writes `<out>/ab_runs.json` (every run's kernel lines and profile summary,
@@ -97,6 +99,8 @@ def _configs():
             "mocoatt_dual": [swap.get(a, a) for a in base],
             "moco": moco,
             "moco_fused": moco + ["--fused_teacher", "on"],
+            "moco_accum2": moco + ["--grad_accum", "2"],
+            "moco_accum4": moco + ["--grad_accum", "4"],
             "cross_arch": profile_args(chip_smoke.CROSS_ARGS)}
 
 

@@ -24,6 +24,13 @@ preset tag ($MOMA_PRETRAIN_REGISTRY, $MOMA_PRETRAIN_DIR).
 
 --device cuda (default) runs on the GPU and fails when there is none;
 --device cpu runs everything on the CPU with the kernels' plain versions.
+
+On N GPUs of one host, one process per GPU (NCCL; gloo with --device cpu):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m moma_tpu_torch.cli.train_student ... --batch_size <global batch>
+
+Without torchrun's variables the run is one process with no group.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import sys
 
 from moma_tpu_torch.core.config import parse_student_args
+from moma_tpu_torch.core.mesh import init_distributed, shutdown
 from moma_tpu_torch.train.student import run_student
 
 
@@ -41,7 +49,12 @@ def main(argv=None):
     if synthetic:
         argv.remove("--synthetic")
     cfg = parse_student_args(argv)
-    state, result = run_student(cfg, synthetic=synthetic)
+    grouped = init_distributed(cfg.run.device)
+    try:
+        state, result = run_student(cfg, synthetic=synthetic)
+    finally:
+        if grouped:
+            shutdown()
     print(f"done: best val acc {result['best_acc']:.2f} "
           f"f1 {result['best_f1']:.4f} (trial {cfg.run.trial}) "
           f"run_dir {result['run_dir']}", flush=True)

@@ -14,6 +14,11 @@ logic read it; `exists` asks for both).  Saves are synchronous: `wait`
 stays for the interface of the JAX package, whose saves may commit on a
 background thread.  Restores load onto the run's device (`map_location`),
 never silently onto another one.
+
+In a process group (core/mesh.py) every rank holds the same state: rank 0
+writes the checkpoint and the stat files, then every rank meets at a
+barrier, so a rank-0 checkpoint is a one-process checkpoint; every rank
+restores from the file.  The other ranks' StatsWriters write nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from moma_tpu_torch.core.mesh import data_axis
 from moma_tpu_torch.core.tb_writer import TBWriter
 
 
@@ -53,14 +59,17 @@ class CheckpointManager:
         """Saves are synchronous: nothing is ever in flight."""
 
     def save(self, tag: str, state: Any, meta: Optional[dict] = None) -> None:
-        # the old sidecar goes first: until the new one is written, the tag
-        # holds no complete checkpoint rather than a mismatched pair
-        if os.path.exists(self._meta_path(tag)):
-            os.remove(self._meta_path(tag))
-        tmp = self.path(tag) + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self.path(tag))
-        _write_json(self._meta_path(tag), meta or {}, default=float)
+        ax = data_axis()
+        if ax.rank == 0:
+            # the old sidecar goes first: until the new one is written, the
+            # tag holds no complete checkpoint rather than a mismatched pair
+            if os.path.exists(self._meta_path(tag)):
+                os.remove(self._meta_path(tag))
+            tmp = self.path(tag) + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, self.path(tag))
+            _write_json(self._meta_path(tag), meta or {}, default=float)
+        ax.barrier()
 
     def restore(self, tag: str) -> Any:
         return torch.load(self.path(tag), map_location=self.map_location,
@@ -84,6 +93,9 @@ class StatsWriter:
     JAX package."""
 
     def __init__(self, directory: str):
+        self.enabled = data_axis().rank == 0
+        if not self.enabled:
+            return
         os.makedirs(directory, exist_ok=True)
         self.stat_path = os.path.join(directory, "stat.json")
         self.scalar_path = os.path.join(directory, "scalars.jsonl")
@@ -94,6 +106,8 @@ class StatsWriter:
         self._tb = TBWriter(os.path.join(directory, "tb"))
 
     def update_epoch(self, epoch: int, values: dict):
+        if not self.enabled:
+            return
         self._stats[str(epoch)] = {
             k: (float(v) if isinstance(v, (int, float, np.floating)) else v)
             for k, v in values.items()
@@ -106,6 +120,8 @@ class StatsWriter:
         self._tb.flush()
 
     def scalar(self, step: int, **values):
+        if not self.enabled:
+            return
         with open(self.scalar_path, "a") as f:
             f.write(json.dumps({"step": step, **{k: float(v) for k, v in
                                                  values.items()}}) + "\n")
@@ -113,8 +129,11 @@ class StatsWriter:
 
     def write_params_json(self, directory: str, payload: dict):
         """parameters.json: the run's flags and best metrics."""
+        if not self.enabled:
+            return
         with open(os.path.join(directory, "parameters.json"), "w") as f:
             json.dump(payload, f, indent=2, default=str)
 
     def close(self):
-        self._tb.close()
+        if self.enabled:
+            self._tb.close()

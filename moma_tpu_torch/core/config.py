@@ -7,14 +7,15 @@ name), `parse_student_args` for the flags of scripts/run_moma.sh and
 scripts/run_comparison.sh, and `parse_teacher_args` for those of
 scripts/run_vanilla.sh, each plus --fp32, --synthetic and --device.
 
-The port runs these slices of moma_tpu so far, with global-batch BN on one
-device: supervised training of any backbone of the port's registry; MoMA
-distillation with a same-arch teacher or (cross-arch EmaTec mode) any
-other backbone, every memory variant (MoCo, MoCoAtt, MoCoST, MoCoSSTT),
-attention mode and projection head; the 17 comparison distillers
-(`DISTILLERS`); each with the run around the step (checkpoints,
---resume, pretrained weights, the resized crop, folds, the optimizer's
-options).  `check_slice` rejects every other choice with
+The port runs these slices of moma_tpu so far: supervised training of any
+backbone of the port's registry; MoMA distillation with a same-arch
+teacher or (cross-arch EmaTec mode) any other backbone, every memory
+variant (MoCo, MoCoAtt, MoCoST, MoCoSSTT), attention mode and projection
+head; the 17 comparison distillers (`DISTILLERS`), on one process; each
+with the run around the step (checkpoints, --resume, pretrained weights,
+the resized crop, folds, the optimizer's options) and --grad_accum; the
+supervised and MoMA runs also data-parallel over a process group
+(core/mesh.py), MoMA with --bn global|local|sync.  `check_slice` rejects every other choice with
 NotImplementedError rather than training something else than asked.
 """
 
@@ -211,10 +212,14 @@ class Config:
 
 def check_slice(cfg: Config, supervised: bool = False) -> None:
     """Raise NotImplementedError for any choice outside the ported slice;
-    `supervised`: a teacher run's config (no teacher, no distiller)."""
+    `supervised`: a teacher run's config (no teacher, no distiller).  The
+    world size is the process group's, or torchrun's WORLD_SIZE before the
+    group starts (core/mesh.py)."""
+    from moma_tpu_torch.core.mesh import env_world
     from moma_tpu_torch.models import NOT_PORTED
 
     m, r, method = cfg.moma, cfg.run, cfg.distill.distill
+    world = env_world()
     bad = []
     if not supervised:
         if method not in ("moma",) + DISTILLERS:
@@ -230,19 +235,25 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
         if method == "moma":
             # the comparison distillers raise ValueError for these, as in
             # the JAX package (train/student.py)
-            if r.bn != "global":
-                bad.append(f"--bn {r.bn} (multi-GPU, Queue 1 item 5)")
             if (r.model_parallel > 1 or r.sequence_parallel
                     or r.pp_microbatch):
                 bad.append("--model_parallel / --sequence_parallel / "
-                           "--pp_microbatch (Queue 1 items 5-6)")
+                           "--pp_microbatch (the model axis, Queue 1 item "
+                           "[5b])")
+            if r.grad_accum > 1 and world > 1:
+                bad.append(f"--grad_accum with world_size {world} (virtual "
+                           "ranks inside real ones, Queue 1 item [5a-rest])")
+        elif world > 1:
+            # several of their losses couple rows across the batch: they
+            # need gathers that carry gradients
+            bad.append(f"--distill {method} at world_size {world} (the "
+                       "comparison distillers on several ranks, Queue 1 "
+                       "item [5c])")
         if m.teacher_quant != "none":
             bad.append("--teacher_quant (Queue 1 item 6)")
     for mc in (cfg.model_s, cfg.model_t):
         if mc is not None and mc.name in NOT_PORTED:
             bad.append(f"model {mc.name} ({NOT_PORTED[mc.name]})")
-    if r.grad_accum > 1:
-        bad.append("--grad_accum > 1 (Queue 1 item 5)")
     if bad:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): "
@@ -301,9 +312,17 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device: cuda (default; an error if absent) "
                         "or cpu")
     p.add_argument("--bn", type=str, default="global",
-                   choices=["global", "local", "sync"])
+                   choices=["global", "local", "sync"],
+                   help="BN across the ranks of a torch.distributed run "
+                        "(--distill moma): 'global' the global batch's "
+                        "statistics, 'local' each rank's own with a "
+                        "Shuffle-BN over the global batch, 'sync' local "
+                        "with synced statistics")
     p.add_argument("--model_parallel", type=int, default=1)
-    p.add_argument("--grad_accum", type=int, default=1)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="split each batch into M microbatches, one SGD "
+                        "step on their averaged gradients (a microbatch "
+                        "is a virtual rank)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--resume", action="store_true",
                    help="continue from <run dir>/ckpt/latest.pt")

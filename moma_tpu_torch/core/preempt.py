@@ -7,6 +7,12 @@ the in-flight step, the runner checkpoints full state to `latest` and
 exits cleanly, so `--resume` continues from at most one step's loss of
 work.  A second SIGINT falls through to the default handler (hard
 stop).
+
+In a process group (core/mesh.py) a signal reaches one rank, and a rank
+that leaves the loop while another waits in a collective hangs the run:
+`AgreedStop` makes the ranks agree, an all_reduce MAX of their flags at
+every step boundary, read one boundary later so that the host stays a
+step ahead of the device, and once more, waiting, at the epoch's end.
 """
 
 from __future__ import annotations
@@ -65,6 +71,36 @@ class GracefulStop:
     def request(self):
         """Programmatic stop (tests, external watchdogs)."""
         self._event.set()
+
+
+class AgreedStop:
+    """A stop guard's flag as all ranks of the process group agree on it:
+    `poll()` at each step boundary returns the agreement of the previous
+    boundary and starts this one's; `now()` agrees and waits.  In one
+    process both read the guard itself."""
+
+    def __init__(self, guard, device):
+        from moma_tpu_torch.core.mesh import data_axis
+
+        self.guard, self.device = guard, device
+        self.ax = data_axis()
+        self.pending = None
+
+    def poll(self) -> bool:
+        if self.ax.world == 1:
+            return self.guard.stopping
+        import torch
+        import torch.distributed as dist
+
+        before = self.pending
+        self.pending = torch.tensor([float(self.guard.stopping)],
+                                    device=self.device)
+        dist.all_reduce(self.pending, op=dist.ReduceOp.MAX,
+                        group=self.ax.group)
+        return before is not None and bool(before.item() > 0)
+
+    def now(self) -> bool:
+        return self.ax.any(self.guard.stopping, self.device)
 
 
 class _NeverStop:

@@ -10,6 +10,15 @@ prefetcher (data/native/batcher.cpp), 4 batches ahead, as moma_tpu does;
 on a CUDA run it has them assembled straight into a ring of pinned host
 buffers and copies each to the card asynchronously.  Eval loaders and
 datasets held in RAM gather with numpy fancy indexing.
+
+Data-parallel (moma_tpu/train/loop.py:25-31 `shard_batch`): a Loader of
+rank r of `world` walks the same seeded global order as every other rank
+and yields its b = B / world rows of each global batch (mesh.rank_rows:
+rows [r*b, (r+1)*b), or under `grad_accum` M its share of each of the
+batch's M contiguous chunks), so the global batch is the one-process
+batch; the prefetcher gathers only those rows.  An eval Loader splits each
+padded global batch into contiguous shares, its 'mask' marking the
+padding.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import os
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from moma_tpu_torch.core.mesh import local_batch_size, rank_rows
 
 # batches the native prefetcher assembles ahead (moma_tpu's depth)
 PREFETCH_DEPTH = 4
@@ -101,9 +112,15 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, train: bool, seed: int = 0,
                  extras: Optional[Dict[str, np.ndarray]] = None,
-                 num_workers: int = 8, device=None):
+                 num_workers: int = 8, device=None, rank: int = 0,
+                 world: int = 1, grad_accum: int = 1):
         self.ds = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size   # the global batch
+        self.rank, self.world = rank, world
+        # the train step's microbatches (mesh.rank_rows); eval takes
+        # contiguous shares
+        self.grad_accum = grad_accum if train else 1
+        self.local_batch = local_batch_size(batch_size, world)
         self.train = train
         self.seed = seed
         self.epoch = 0
@@ -130,6 +147,10 @@ class Loader:
             return n // self.batch_size
         return math.ceil(n / self.batch_size)
 
+    def _rows(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch's indices."""
+        return rank_rows(idx, self.rank, self.world, self.grad_accum)
+
     def _batch(self, idx: np.ndarray, images=None) -> dict:
         batch = {"image": self.ds.images[idx] if images is None else images,
                  "label": self.ds.labels[idx], "index": idx.astype(np.int32)}
@@ -146,14 +167,14 @@ class Loader:
             self._batcher = NativeBatcher(self.ds.bin_path, len(self.ds), row)
             # threads beyond the core count only add contention
             self._batcher.start(
-                self.batch_size, depth=PREFETCH_DEPTH,
+                self.local_batch, depth=PREFETCH_DEPTH,
                 threads=max(1, min(self.num_workers, os.cpu_count() or 1)))
             if str(self.device).split(":")[0] == "cuda":
                 # in flight: PREFETCH_DEPTH being assembled, the batch
                 # just yielded and the one before, whose copies may still
                 # run
                 self._ring = PinnedRing(PREFETCH_DEPTH + 2,
-                                        (self.batch_size, *row),
+                                        (self.local_batch, *row),
                                         self.device)
         return self._batcher, self._ring
 
@@ -163,7 +184,7 @@ class Loader:
         bs = self.batch_size
 
         def submit(j):
-            idx = order[j * bs:(j + 1) * bs]
+            idx = self._rows(order[j * bs:(j + 1) * bs])
             if ring is None:
                 batcher.submit(idx)
             else:
@@ -184,7 +205,8 @@ class Loader:
                 if hi < n_batches:
                     submit(hi)
                     hi += 1
-                yield self._batch(order[i * bs:(i + 1) * bs], images)
+                yield self._batch(self._rows(order[i * bs:(i + 1) * bs]),
+                                  images)
         finally:
             # an abandoned iteration: take back what is still submitted
             for _ in range(hi - done):
@@ -200,7 +222,7 @@ class Loader:
                 yield from self._native_iter(order, self.start_batch, n // bs)
                 return
             for i in range(self.start_batch, n // bs):
-                yield self._batch(order[i * bs:(i + 1) * bs])
+                yield self._batch(self._rows(order[i * bs:(i + 1) * bs]))
         else:
             for i in range(math.ceil(n / bs)):
                 idx = np.arange(i * bs, min((i + 1) * bs, n))
@@ -209,4 +231,5 @@ class Loader:
                 if pad:
                     mask[idx.shape[0]:] = False
                     idx = np.concatenate([idx, np.zeros(pad, dtype=idx.dtype)])
-                yield {**self._batch(idx), "mask": mask}
+                yield {**self._batch(self._rows(idx)),
+                       "mask": self._rows(mask)}

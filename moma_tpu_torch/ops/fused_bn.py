@@ -25,6 +25,18 @@ its batch statistics as always but writes no running statistics: the
 replay of a rematerialized forward (models/remat.py), whose first run
 already wrote them once, as JAX keeps the forward's batch_stats and drops
 the replay's.
+
+Inside `sync_stats(axis)` every train-mode FusedBatchNorm takes its
+statistics over the ranks of a data axis (core/mesh.py; sync-BN; the counterpart of
+`bn_axis_name`, fused_bn.py:84-110, and its pmean path :405-418): the
+forward packs this rank's sum x, sum x^2 (from `channel_sums`) and its row
+count into one buffer and all-reduces it, so mean and variance are the
+global batch's (variance clipped at 0, the biased one in the running
+update, as in JAX); the backward all-reduces `grad_channel_sums`' sum dy
+and sum dy*(x-mean) the same way before dx is computed.  dscale and dbias
+stay this rank's own sums, which the step's gradient average then adds up
+(torch.nn.SyncBatchNorm does the same).  The axis is taken when the
+forward runs, so a rematerialized replay and the backward use it too.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from moma_tpu_torch.core.mesh import all_reduce_sum_
 from moma_tpu_torch.ops import _build
 from moma_tpu_torch.runtime import count_launch
 
@@ -192,21 +205,32 @@ class FusedBNTrain(torch.autograd.Function):
     """Train-mode batch norm over the last (channel) axis of a contiguous
     (..., C) tensor; returns (y, mean, var).  mean/var are the f32 batch
     statistics for the running update and carry no gradient
-    (fused_bn.py:314-358)."""
+    (fused_bn.py:314-358).  `axis`: a core.mesh data axis whose ranks'
+    batches the statistics span (sync-BN), or None."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, out_dtype):
-        mean, var = channel_stats(x)
+    def forward(ctx, x, scale, bias, eps: float, out_dtype, axis=None):
+        C = x.shape[-1]
+        s, q = channel_sums(x)
+        n = x.numel() // C
+        if axis is not None:
+            # the global row count stays on the device: no host sync
+            buf = torch.cat([s, q, s.new_full((1,), float(n))])
+            all_reduce_sum_(buf, axis.group)
+            s, q, n = buf[:C], buf[C:2 * C], buf[2 * C]
+        mean = s / n
+        var = torch.clamp(q / n - mean * mean, min=0.0)
         invstd = torch.rsqrt(var + eps)
         y = _normalize(x, mean, var, scale, bias, eps, out_dtype)
         ctx.save_for_backward(x, scale, mean, invstd)
+        ctx.n, ctx.axis = n, axis
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _d_mean, _d_var):
         x, scale, mean, invstd = ctx.saved_tensors
-        n = x.numel() // x.shape[-1]
+        n = ctx.n
         # autograd may hand the cotangent in another layout; the kernel
         # reads (R, C) rows, so bring it to x's (a no-op when it matches)
         dy = dy.contiguous()
@@ -215,14 +239,39 @@ class FusedBNTrain(torch.autograd.Function):
         g = scale.to(acc) * invstd
         dscale = (sum_dy_xm * invstd).to(scale.dtype)
         dbias = sum_dy.to(scale.dtype)
+        if ctx.axis is not None:
+            C = x.shape[-1]
+            buf = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xm]),
+                                  ctx.axis.group)
+            sum_dy, sum_dy_xm = buf[:C], buf[C:]
         t1 = sum_dy / n
         t2 = (sum_dy_xm / n) * (invstd * invstd)
         dx = g * (dy.to(acc) - t1 - (x.to(acc) - mean) * t2)
-        return dx.to(x.dtype), dscale, dbias, None, None
+        return dx.to(x.dtype), dscale, dbias, None, None, None
 
 
 def fused_bn_train(x, scale, bias, eps: float, out_dtype):
-    return FusedBNTrain.apply(x, scale, bias, eps, out_dtype)
+    return FusedBNTrain.apply(x, scale, bias, eps, out_dtype, None)
+
+
+_SYNC = {"axis": None}
+
+
+class sync_stats:
+    """Context: train-mode FusedBatchNorms take their statistics over the
+    ranks of `axis` (a core.mesh data axis of several ranks); None, or a
+    one-process axis, leaves them as they are."""
+
+    def __init__(self, axis):
+        self.axis = axis if axis is not None and axis.world > 1 else None
+
+    def __enter__(self):
+        self.prev = _SYNC["axis"]
+        _SYNC["axis"] = self.axis
+        return self
+
+    def __exit__(self, *exc):
+        _SYNC["axis"] = self.prev
 
 
 _FROZEN = threading.local()
@@ -277,7 +326,8 @@ class FusedBatchNorm(nn.Module):
                            self.weight, self.bias, self.eps, out_dtype)
         else:
             y, mean, var = FusedBNTrain.apply(
-                xc, self.weight, self.bias, self.eps, out_dtype)
+                xc, self.weight, self.bias, self.eps, out_dtype,
+                _SYNC["axis"])
             m = self.momentum
             if not getattr(_FROZEN, "on", False):
                 with torch.no_grad():

@@ -25,12 +25,14 @@ import torch
 from torch import nn
 
 from moma_tpu_torch.core.config import DISTILLERS, Config
+from moma_tpu_torch.core.mesh import data_axis
 from moma_tpu_torch.losses import aux as A
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.losses.crd import CRDMemory, crd_loss
 from moma_tpu_torch.models import remat as rm
 from moma_tpu_torch.train.state import DistillState, sgd_step
-from moma_tpu_torch.train.steps import accuracy, eval_sums
+from moma_tpu_torch.train.steps import (accuracy, average_grads, eval_sums,
+                                        mean_metrics, microbatches)
 
 STATELESS = {"kd", "attention", "similarity", "nst", "rkd", "pkt", "kdsvd",
              "ab", "fsp", "ft"}
@@ -218,21 +220,22 @@ def make_distill_train_step(distiller: Distiller,
     batch: {'image', 'label'} on the run's device, plus 'index' and
     'contrast_idx' for crd.  `remat` recomputes the student forward in
     the backward (models/remat.py; the frozen teacher's forward is
-    gradient-free and holds nothing).  `grad_accum > 1` is not ported
-    (ROADMAP Queue 1 item 5) and raises."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "--grad_accum > 1 is not ported to moma_tpu_torch yet (ROADMAP "
-            "Queue 1 item 5)")
+    gradient-free and holds nothing).  `grad_accum = M > 1` runs the
+    augmented batch as M equal microbatches, one SGD step on the averaged
+    gradients (distill.py:329-475): BatchNorm (student and aux modules)
+    sees each microbatch's statistics, the running statistics and the CRD
+    banks chain from one microbatch to the next (each sample's bank row
+    written once a step)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     cfg = distiller.cfg
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     kd_T = cfg.distill.kd_T
 
-    def step(state: DistillState, batch, generator: torch.Generator):
-        images = batch["image"]
-        if augment_fn is not None:
-            images = augment_fn(images, generator)
-        labels = batch["label"].long()
+    def microbatch(state: DistillState, mb: dict):
+        """The microbatch's backward (gradients added to .grad) and its
+        metrics."""
+        images, labels = mb["image"], mb["label"].long()
         with torch.no_grad():
             state.teacher.eval()
             feat_t, logit_t = state.teacher(images)
@@ -243,17 +246,27 @@ def make_distill_train_step(distiller: Distiller,
         loss_cls = F.cross_entropy(logit_s, labels)
         loss_div = F.kd_kl(logit_s, logit_t, kd_T)
         loss_kd, metric_logits = distiller.loss(
-            state.aux, state.extra, feat_s, feat_t, logit_s, logit_t, batch,
+            state.aux, state.extra, feat_s, feat_t, logit_s, logit_t, mb,
             make_classifier_apply(state.teacher))
         total = c * loss_cls + dv * loss_div + b * loss_kd
-        state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        logits = metric_logits if metric_logits is not None else logit_s
+        return {"loss": total.detach(), "loss_cls": loss_cls.detach(),
+                "loss_div": loss_div.detach(), "loss_kd": loss_kd.detach(),
+                **accuracy(logits, labels)}
+
+    def step(state: DistillState, batch, generator: torch.Generator):
+        batch = dict(batch)
+        if augment_fn is not None:
+            batch["image"] = augment_fn(batch["image"], generator)
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics = [microbatch(state, {k: v[rows] for k, v in batch.items()})
+                   for rows in microbatches(batch["image"].shape[0],
+                                            grad_accum)]
+        ax = data_axis()
+        average_grads(state.trainable_params(), ax, grad_accum)
         sgd_step(state.optimizer, state.schedule(state.step))
         state.step += 1
-        logits = metric_logits if metric_logits is not None else logit_s
-        return state, {"loss": total.detach(), "loss_cls": loss_cls.detach(),
-                       "loss_div": loss_div.detach(),
-                       "loss_kd": loss_kd.detach(),
-                       **accuracy(logits, labels)}
+        return state, mean_metrics(metrics, ax)
 
     return step

@@ -10,6 +10,16 @@ epoch end.  An
 epoch can start mid-way (`start_step`, for a resume from a preemption
 save) and stops between steps when its `stop` guard is set.
 
+Data-parallel (core/mesh.py): every rank runs the same epochs on its
+rows of the same global batches.  A stop is agreed over the ranks
+(core/preempt.AgreedStop) at each step boundary and at the epoch's end,
+so no rank leaves the loop while another waits in a collective; the
+step's metrics are already averaged over the ranks, so the NaN guard sees
+the same loss everywhere.  Evaluation sums each rank's loss, count and
+confusion matrix with one all_reduce, which keeps the masked counts of the
+padded tail exact.  Rank 0 writes the checkpoints and stat files (the
+others wait at a barrier); every rank reads `latest` on --resume.
+
 `resume_point` and `run_epochs` are the part the three training runs
 share (moma_tpu/train/teacher.py:166-305, student.py:176-363,
 moma.py:1440-1640, which repeat it): the resume point read from `latest`
@@ -28,8 +38,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from moma_tpu_torch.core.mesh import data_axis, is_main
 from moma_tpu_torch.core.metrics import EvalAccumulator, Meter
-from moma_tpu_torch.core.preempt import GracefulStop
+from moma_tpu_torch.core.preempt import AgreedStop, GracefulStop
 from moma_tpu_torch.core.profiling import trace
 
 
@@ -73,6 +84,7 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
     called at print points (StatsWriter.scalar)."""
     loader.set_epoch(epoch)
     loader.set_start_batch(start_step)
+    agreed = AgreedStop(stop, device) if stop is not None else None
     meters = {k: Meter() for k in ("loss", "acc1", "acc5", "batch_time",
                                    "data_time")}
     bs = loader.batch_size
@@ -81,7 +93,7 @@ def train_one_epoch(state, loader, step_fn: Callable, device: torch.device,
     batch_times, data_times = [], []
     t0 = time.perf_counter()
     for i, batch in enumerate(loader, start=start_step):
-        if stop is not None and stop.stopping:
+        if agreed is not None and agreed.poll():
             break
         t1 = time.perf_counter()
         meters["data_time"].update(t1 - t0)
@@ -137,6 +149,8 @@ def evaluate(model: torch.nn.Module, loader, eval_step: Callable,
         else:
             tot = [tot[0] + loss_sum, tot[1] + n, tot[2] + cm]
     if tot is not None:
+        # the ranks' sums: every rank then holds the split's metrics
+        data_axis().sum_(tot)
         acc.update(float(tot[0]), float(tot[1]), tot[2].cpu().numpy())
     return {"loss": acc.loss, "acc": acc.acc, "f1": acc.f1,
             "conf_mat": acc.conf_mat.tolist(), "n": acc.n}
@@ -180,6 +194,7 @@ def run_epochs(cfg, state, *, epoch_step: Callable, evaluate_fn: Callable,
     in the epoch's printed line."""
     start_epoch, resume_step, best_acc, best_f1 = start
     guard = stop if stop is not None else GracefulStop()
+    say = print if is_main() else (lambda *a, **k: None)
     t_start = time.time()
     history = []
     tr = val = None
@@ -206,17 +221,17 @@ def run_epochs(cfg, state, *, epoch_step: Callable, evaluate_fn: Callable,
             except NonFiniteLossError as e:
                 # 'latest' (the end of the last finite epoch) is the resume
                 # point
-                print(f"[nan-guard] {e}; stopping — resume from the last "
+                say(f"[nan-guard] {e}; stopping — resume from the last "
                       f"epoch-end checkpoint (epoch {epoch - 1})", flush=True)
                 stats.update_epoch(epoch, {"nan_aborted": True})
                 return result(nan_aborted=True)
-            if guard.stopping:
+            if AgreedStop(guard, device).now():
                 # preemption: the full state and the exact batch index, so
                 # --resume continues this epoch where it stopped
                 ckpt.save("latest", full_state(state),
                           {"epoch": epoch - 1, "preempted": True,
                            "resume_step": tr["steps"]})
-                print(f"[preempt] checkpointed at epoch {epoch} step "
+                say(f"[preempt] checkpointed at epoch {epoch} step "
                       f"{tr['steps']}/{len(train_loader)}; exiting",
                       flush=True)
                 return result(preempted=True)
@@ -234,7 +249,7 @@ def run_epochs(cfg, state, *, epoch_step: Callable, evaluate_fn: Callable,
                 row.update(test_acc=test["acc"], test_f1=test["f1"])
             stats.update_epoch(epoch, row)
             history.append({"epoch": epoch, **row})
-            print(f"epoch {epoch}: {line} {tr['loss']:.4f} acc "
+            say(f"epoch {epoch}: {line} {tr['loss']:.4f} acc "
                   f"{tr['acc1']:.2f} | val acc {val['acc']:.2f} f1 "
                   f"{val['f1']:.4f} | {tr['ips']:.1f} img/s", flush=True)
             saved = full_state(state)

@@ -74,6 +74,13 @@ the backward instead of holding its activations (train/moma.py:519-523,
 models/remat.py): its BN running statistics are written once, by the
 first forward; every teacher and momentum-encoder forward is
 gradient-free and holds nothing.
+
+The data axis (make_moma_train_step): `--grad_accum M` runs the step as M
+virtual ranks in one process, holding one microbatch's activations at a
+time; under `python -m torch.distributed.run --nproc_per_node N` the run
+is data-parallel over N processes (core/mesh.py), one per GPU, with
+`--bn global|local|sync` and a Shuffle-BN permutation of the global
+batch.  Rank 0 writes the run directory; every rank holds the same state.
 """
 
 from __future__ import annotations
@@ -82,30 +89,34 @@ import contextlib
 import copy
 import os
 import warnings
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
 
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_slice
+from moma_tpu_torch.core.mesh import data_axis, rank_generator
 from moma_tpu_torch.core.schedules import lr_schedule
-from moma_tpu_torch.data.pipeline import Loader
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
 from moma_tpu_torch.models import remat as rm
 from moma_tpu_torch.models.pretrained import load_pretrained
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
-                                       random_memory, step_moco,
-                                       step_moco_att, step_moco_sstt,
-                                       step_moco_st)
+                                       queue_update, random_memory,
+                                       step_moco, step_moco_att,
+                                       step_moco_sstt, step_moco_st)
 from moma_tpu_torch.ops import fused_effnet
+from moma_tpu_torch.ops.fused_bn import FusedBatchNorm, sync_stats
 from moma_tpu_torch.runtime import resolve_device
 from moma_tpu_torch.train.loop import evaluate, resume_point, run_epochs
 from moma_tpu_torch.train.state import MomaState, make_sgd, sgd_step
-from moma_tpu_torch.train.steps import accuracy, make_eval_step
-from moma_tpu_torch.train.teacher import augment_fns, build_datasets
+from moma_tpu_torch.train.steps import (accuracy, average_grads,
+                                        make_eval_step, mean_metrics,
+                                        microbatches, step_augment_generator)
+from moma_tpu_torch.train.teacher import (augment_fns, build_datasets,
+                                          make_loaders)
 
 
 @torch.no_grad()
@@ -185,15 +196,75 @@ def make_teacher_forward(cfg: Config):
     return forward
 
 
+def _bn_buffers(*modules) -> List[torch.Tensor]:
+    """The BN running statistics (running_mean, running_var of every
+    FusedBatchNorm) of the modules."""
+    return [b for mod in modules if mod is not None
+            for m in mod.modules() if isinstance(m, FusedBatchNorm)
+            for b in (m.running_mean, m.running_var)]
+
+
+@torch.no_grad()
+def _snapshot(bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+    # one multi-tensor copy: a clone per buffer would cost a launch each
+    return torch._foreach_mul(bufs, 1.0) if bufs else []
+
+
+@torch.no_grad()
+def _restore(bufs: List[torch.Tensor], saved: List[torch.Tensor]) -> None:
+    if bufs:
+        torch._foreach_copy_(bufs, saved)
+
+
+@torch.no_grad()
+def _mean_of(snaps: List[List[torch.Tensor]]) -> List[torch.Tensor]:
+    """Per buffer, the mean over two or more snapshots
+    (train/moma.py:1044-1050), in multi-tensor operations."""
+    total = torch._foreach_add(snaps[0], snaps[1])
+    for snap in snaps[2:]:
+        torch._foreach_add_(total, snap)
+    torch._foreach_div_(total, float(len(snaps)))
+    return total
+
+
 def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                          kl_train_bn_override: Optional[bool] = None,
                          cross_arch: bool = False):
     """step(state, batch, generator) -> (state, metrics).
 
     batch: {'image': NHWC on the run's device, 'label': (B,) int, optional
-    'shuffle_perm': (B,) int}.  `generator` (CPU) drives the augmentation
-    and the Shuffle-BN permutation.  `cross_arch`: the EmaTec step, for a
-    state with its EMA copy (`state.ema`, build_state)."""
+    'shuffle_perm': (B_global,) int}, this rank's rows in a process group.
+    `generator` (CPU) is the step's, the same on every rank: it draws the
+    Shuffle-BN permutation, and one process's augmentation (a rank's and a
+    microbatch's come from mesh.rank_generator).  `cross_arch`: the EmaTec
+    step, for a state with its EMA copy (`state.ema`, build_state).
+
+    `--bn` (cfg.run.bn) in a group of several ranks (core/mesh.py):
+    'local' gives each rank's BatchNorms its own statistics and makes the
+    Shuffle-BN permutation cross ranks (train/moma.py:393-415, :466-482):
+    the ranks' augmented images are gathered, one permutation of the
+    global batch is shared, each rank runs the key forward on its slice of
+    the permuted batch, then the keys are gathered and unshuffled;
+    atts_q / atts_k mix a rank's own rows, the keys entering the queue are
+    the gathered ones and the pointer advances by the global batch;
+    gradients, BN running statistics (student and momentum encoder) and
+    metrics are averaged over the ranks (:656-692).  'sync' is 'local'
+    with sync-BN statistics (fused_bn.sync_stats, :1129-1135).  'global' is
+    JAX's global-batch step: sync-BN statistics, and the batch-token
+    attention over the global rows, whose inputs are gathered with their
+    gradient; each rank keeps its rows of the logits.  In one process the
+    three are the same step.
+
+    `cfg.run.grad_accum = M > 1` (one process) is JAX's accumulated step
+    (train/moma.py:721-1107): microbatch i is virtual rank i of the 'local'
+    step.  Phase A runs the M teacher KL forwards, each from the pre-step
+    running statistics; phase B the post-EMA momentum-encoder key forwards
+    over the Shuffle-BN-permuted global batch, microbatch i being rows
+    perm[i*mb:(i+1)*mb], keeping only the (B, D) keys; phase C the
+    student's forward and backward a microbatch at a time against the full
+    keys and the pre-update queue.  Then one SGD step on the averaged
+    gradients, one queue advance by B, and the BN running statistics
+    averaged over the microbatches."""
     check_slice(cfg)
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     remat = cfg.run.remat
@@ -206,6 +277,9 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     # embed_t is EMA-tracked for the mlp heads only (train/moma.py:382-389)
     ema_head = cfg.moma.head in ("mlp", "mlp_byol")
     shuffle_bn = cfg.moma.shuffle_bn
+    bn_mode = cfg.run.bn
+    M = int(cfg.run.grad_accum)
+    use_fused = cfg.moma.fused_teacher == "on" and not cross_arch
     if cross_arch:
         # the KL teacher is not the momentum encoder: no forward to share,
         # and the fused forward's EfficientNet teacher path is off
@@ -229,19 +303,134 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         kl_train_bn = True
     else:
         kl_train_bn = kl_bn_mode == "train"
+    # the JAX package's refusals (train/moma.py:243-274), its messages
+    if M > 1:
+        if bn_mode != "global":
+            raise ValueError(
+                "--grad_accum with --bn local/sync would nest two rank "
+                "semantics (microbatches ARE the virtual DDP ranks); use "
+                "bn='global' with grad_accum, or bn='local' alone")
+        if use_fused:
+            raise ValueError("--grad_accum does not compose with "
+                             "fused_teacher (single-chip jit optimization)")
+        if fast_teacher:
+            raise ValueError("--grad_accum does not compose with "
+                             "fast_teacher (per-rank KL/key forwards are "
+                             "distinct passes in the accumulated step)")
+    if bn_mode not in ("global", "local", "sync"):
+        raise ValueError(f"unknown bn mode {bn_mode!r}")
+    if bn_mode != "global" and use_fused:
+        raise ValueError("fused_teacher is a single-chip jit-path "
+                         "optimization; use bn='global'")
+    need_kt = cross_arch and mem in ("MoCoST", "MoCoSSTT")
+
+    def contrast(queue: QueueState, fns, q, qt, k, kt, all_k, gather):
+        """(the logit sets of the loss, the queue after the enqueue) of the
+        memory variant: q / qt the queries (qt: MoCoSSTT's second view),
+        k / kt the positive keys of q's rows (kt: cross-arch memory_t's),
+        all_k the global keys (MoCo's and MoCoAtt's enqueue); `gather`
+        maps MoCoST / MoCoSSTT's per-rank keys to those entering the
+        queue."""
+        self_attn = attn == "self" and bool(fns)
+        if mem == "MoCoAtt":
+            logits, new_queue = step_moco_att(queue, q, k, all_k, nce_t,
+                                              attn, fns)
+            return [logits], new_queue
+        if mem in ("MoCoST", "MoCoSSTT"):
+            # same-arch: the momentum encoder's keys fill both banks;
+            # cross-arch: the fixed teacher's fill memory_t.  The
+            # teacher-side keys stay the raw ones (train/moma.py:560-561);
+            # atts_k mixes only q's own rows
+            q_in, k_in = q, k
+            kt_in = kt if kt is not None else k
+            if self_attn:
+                q_in = fns["atts_q"](q_in)
+                with torch.no_grad():
+                    k_in = fns["atts_k"](k_in)
+            if mem == "MoCoSSTT":
+                qt_in = fns["atts_q"](qt) if self_attn else qt
+                *logits_list, new_queue = step_moco_sstt(
+                    queue, q_in, k_in, qt_in, kt_in, gather(k_in),
+                    gather(kt_in), nce_t)
+                return logits_list, new_queue
+            logits_ss, _, new_queue = step_moco_st(
+                queue, q_in, k_in, kt_in, gather(k_in), gather(kt_in), nce_t)
+            # the loss takes the first logit set only
+            return [logits_ss], new_queue
+        # MoCo: atts_queue transforms the keys ENTERING the queue, not the
+        # queue memory
+        q_in, k_in, keys_in = q, k, all_k
+        if self_attn:
+            q_in = fns["atts_q"](q_in)
+            with torch.no_grad():
+                k_in = fns["atts_k"](k)
+                keys_in = fns["atts_queue"](all_k)
+        logits, new_queue = step_moco(queue, q_in, k_in, keys_in, nce_t)
+        return [logits], new_queue
+
+    def student_losses(state, images, labels, logit_t):
+        """Student forward: (feat_s, logit_s, loss_cls, loss_div, q)."""
+        student, heads = state.student, state.heads
+        student.train()
+        heads.embed_s.train()
+        feat_s, logit_s = (rm.checkpoint(student, images) if remat
+                           else student(images))
+        loss_cls = F.cross_entropy(logit_s, labels)
+        loss_div = F.kd_kl(logit_s, logit_t, kd_T)
+        return logit_s, loss_cls, loss_div, heads.embed_s(feat_s[-1])
+
+    def second_view(state, images2):
+        """MoCoSSTT's query on the second view; the view's BN running
+        statistics are discarded (train/moma.py:573)."""
+        with _buffers_restored(state.student, state.heads.embed_s):
+            feat_s2, _ = (rm.checkpoint(state.student, images2) if remat
+                          else state.student(images2))
+            return state.heads.embed_s(feat_s2[-1])
+
+    def ema_step(state, momentum, key_head):
+        ema_update(momentum, state.student, alpha)
+        if ema_head:
+            ema_update(key_head, state.heads.embed_s, alpha)
+
+    def finish(state, ax, metrics, new_queue):
+        """Average the gradients and the metrics (microbatches, then
+        ranks), one SGD step, the queue advance."""
+        average_grads(state.trainable_params(), ax, len(metrics))
+        sgd_step(state.optimizer, state.schedule(state.step))
+        state.queue = new_queue
+        state.step += 1
+        return state, {**mean_metrics(metrics, ax), "queue_ptr": new_queue.ptr}
+
+    def step_metrics(total, loss_cls, loss_div, loss_kd, logit_s, labels):
+        return {"loss": total.detach(), "loss_cls": loss_cls.detach(),
+                "loss_div": loss_div.detach(), "loss_kd": loss_kd.detach(),
+                **accuracy(logit_s, labels)}
 
     def step(state: MomaState, batch, generator: torch.Generator):
-        student, teacher, heads = state.student, state.teacher, state.heads
         if cross_arch != (state.ema is not None):
             raise ValueError(
                 f"a {'cross' if cross_arch else 'same'}-arch step for a "
                 f"state {'without' if cross_arch else 'with'} an EMA copy")
+        if M > 1:
+            return accum_step(state, batch, generator)
+        ax = data_axis()
+        if ax.world > 1 and use_fused:
+            raise ValueError(
+                "--fused_teacher on runs the teacher forwards on one "
+                "process (its kernels take per-process BN statistics); "
+                "drop it for world_size > 1")
+        with sync_stats(ax if bn_mode in ("sync", "global") else None):
+            return rank_step(state, batch, generator, ax)
+
+    def rank_step(state, batch, generator, ax):
+        student, teacher, heads = state.student, state.teacher, state.heads
         # the momentum encoder and its key head
         momentum = state.ema if cross_arch else teacher
         key_head = heads.embed_ema if cross_arch else heads.embed_t
+        g_aug = step_augment_generator(generator, ax)
         images = batch["image"]
         if augment_fn is not None:
-            images = augment_fn(images, generator)
+            images = augment_fn(images, g_aug)
         labels = batch["label"].long()
         B = images.shape[0]
 
@@ -253,20 +442,21 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                     teacher, images, kl_train_bn and not cross_arch)
 
         # 2. EMA from the pre-step student
-        ema_update(momentum, student, alpha)
-        if ema_head:
-            ema_update(key_head, heads.embed_s, alpha)
+        ema_step(state, momentum, key_head)
 
-        # 3. keys through the post-EMA teacher, BN in train mode
+        # 3. keys through the post-EMA momentum encoder, BN in train mode,
+        # on this rank's slice of the permuted global batch
         with torch.no_grad():
             if shuffle_bn:
+                all_images = ax.gather(images)
                 if "shuffle_perm" in batch:
                     perm = batch["shuffle_perm"].to(images.device).long()
                 else:
-                    perm = torch.randperm(B, generator=generator).to(
-                        images.device)
+                    perm = torch.randperm(all_images.shape[0],
+                                          generator=generator).to(
+                                              images.device)
                 inv = torch.argsort(perm)
-                key_images = images[perm]
+                key_images = all_images[ax.local_slice(perm, B)]
             else:
                 key_images = images
             pooled_key, logit_key = teacher_forward(momentum, key_images,
@@ -274,87 +464,158 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
             key_head.eval()  # the momentum head runs in eval mode
             k_emb = key_head(pooled_key)
             if shuffle_bn:
-                k_emb = k_emb[inv]
-                logit_key = logit_key[inv]
+                all_k = ax.gather(k_emb)[inv]
+                k_emb = ax.local_slice(all_k, B)
+            else:
+                all_k = ax.gather(k_emb)
             if fast_teacher:
                 # post-EMA teacher, train-mode BN: a documented deviation
-                logit_t = logit_key
-            kt_emb = None
-            if cross_arch and mem in ("MoCoST", "MoCoSSTT"):
+                logit_t = (ax.local_slice(ax.gather(logit_key)[inv], B)
+                           if shuffle_bn else logit_key)
+            kt_emb = all_kt = None
+            if need_kt:
                 # the fixed teacher's keys for memory_t
                 heads.embed_t.eval()
                 kt_emb = heads.embed_t(pooled_t)
+                all_kt = ax.gather(kt_emb)
         # MoCoSSTT's second view, drawn after the permutation as in JAX
         images2 = None
         if mem == "MoCoSSTT":
-            images2 = (augment_fn(batch["image"], generator)
+            images2 = (augment_fn(batch["image"], g_aug)
                        if augment_fn is not None else images)
 
         # 4-6. student, contrast against the pre-update queue, SGD
-        student.train()
-        heads.embed_s.train()
-        feat_s, logit_s = (rm.checkpoint(student, images) if remat
-                           else student(images))
-        loss_cls = F.cross_entropy(logit_s, labels)
-        loss_div = F.kd_kl(logit_s, logit_t, kd_T)
-        q = heads.embed_s(feat_s[-1])
+        logit_s, loss_cls, loss_div, q = student_losses(state, images,
+                                                        labels, logit_t)
+        qt = second_view(state, images2) if images2 is not None else None
         fns = heads.attn_fns()
-        self_attn = attn == "self" and bool(fns)
-        if mem == "MoCoAtt":
-            logits, new_queue = step_moco_att(state.queue, q, k_emb, k_emb,
-                                              nce_t, attn, fns)
-            logits_list = [logits]
-        elif mem in ("MoCoST", "MoCoSSTT"):
-            # same-arch: the momentum encoder's keys fill both banks;
-            # cross-arch: the fixed teacher's fill memory_t.  The
-            # teacher-side keys stay the raw ones (train/moma.py:560-561)
-            q_in, k_in = q, k_emb
-            kt_in = kt_emb if kt_emb is not None else k_emb
-            if self_attn:
-                q_in = fns["atts_q"](q_in)
-                with torch.no_grad():
-                    k_in = fns["atts_k"](k_in)
-            if mem == "MoCoSSTT":
-                with _buffers_restored(student, heads.embed_s):
-                    feat_s2, _ = (rm.checkpoint(student, images2) if remat
-                                  else student(images2))
-                    qt_in = heads.embed_s(feat_s2[-1])
-                if self_attn:
-                    qt_in = fns["atts_q"](qt_in)
-                *logits_list, new_queue = step_moco_sstt(
-                    state.queue, q_in, k_in, qt_in, kt_in, k_in, kt_in, nce_t)
-            else:
-                logits_ss, _, new_queue = step_moco_st(
-                    state.queue, q_in, k_in, kt_in, k_in, kt_in, nce_t)
-                # the loss takes the first logit set only
-                logits_list = [logits_ss]
-        else:  # MoCo
-            q_in, k_in, keys_in = q, k_emb, k_emb
-            if self_attn:
-                # atts_queue transforms the keys ENTERING the queue, not
-                # the queue memory
-                q_in = fns["atts_q"](q_in)
-                with torch.no_grad():
-                    k_in = fns["atts_k"](k_emb)
-                    keys_in = fns["atts_queue"](k_emb)
-            logits, new_queue = step_moco(state.queue, q_in, k_in, keys_in,
-                                          nce_t)
-            logits_list = [logits]
+        if bn_mode == "global" and ax.world > 1:
+            # the global batch's contrast, as one process would run it,
+            # with the queries gathered with their gradient; each rank
+            # keeps its rows of the logits
+            logits_list, new_queue = contrast(
+                state.queue, fns, ax.gather_grad(q),
+                ax.gather_grad(qt) if qt is not None else None, all_k,
+                all_kt, all_k, lambda x: x)
+            logits_list = [ax.local_slice(lg, B) for lg in logits_list]
+        else:
+            logits_list, new_queue = contrast(state.queue, fns, q, qt,
+                                              k_emb, kt_emb, all_k, ax.gather)
         loss_kd = sum(contrast_ce(lg) for lg in logits_list) / len(
             logits_list)
         total = c * loss_cls + dv * loss_div + b * loss_kd
 
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        sgd_step(state.optimizer, state.schedule(state.step))
-        state.queue = new_queue
-        state.step += 1
+        if bn_mode == "local":
+            # per-rank running statistics -> their mean (the EMA write is
+            # linear and every rank starts from the same statistics)
+            ax.pmean_(_bn_buffers(student, heads.embed_s, momentum))
+        return finish(state, ax, [step_metrics(
+            total, loss_cls, loss_div, loss_kd, logit_s, labels)], new_queue)
 
-        metrics = {"loss": total.detach(), "loss_cls": loss_cls.detach(),
-                   "loss_div": loss_div.detach(),
-                   "loss_kd": loss_kd.detach(),
-                   **accuracy(logit_s, labels), "queue_ptr": new_queue.ptr}
-        return state, metrics
+    def accum_step(state, batch, generator):
+        student, teacher, heads = state.student, state.teacher, state.heads
+        momentum = state.ema if cross_arch else teacher
+        key_head = heads.embed_ema if cross_arch else heads.embed_t
+        raw = batch["image"]
+        labels = batch["label"].long()
+        B = raw.shape[0]
+        rows = microbatches(B, M)
+        gens = [rank_generator(generator, i) for i in range(M)]
+        m_bufs = _bn_buffers(momentum)
+        pre = _snapshot(m_bufs)
+        kl_writes = kl_train_bn and not cross_arch
+
+        # phase A: augment + teacher KL forward per virtual rank, each from
+        # the pre-step running statistics
+        images, logit_t, pooled_t, after_kl = [], [], [], []
+        with torch.no_grad():
+            for i, r in enumerate(rows):
+                im = (augment_fn(raw[r], gens[i]) if augment_fn is not None
+                      else raw[r])
+                if kl_writes:
+                    _restore(m_bufs, pre)
+                p_t, l_t = teacher_forward(teacher, im, kl_writes)
+                if kl_writes:
+                    after_kl.append(_snapshot(m_bufs))
+                images.append(im)
+                logit_t.append(l_t)
+                pooled_t.append(p_t)
+
+        ema_step(state, momentum, key_head)
+
+        # phase B: the momentum encoder's key forwards over the permuted
+        # global batch, rank i's statistics continuing from its KL forward
+        # (cross-arch: the EMA copy's pre-step ones); only the keys stay
+        with torch.no_grad():
+            all_images = torch.cat(images)
+            if shuffle_bn:
+                if "shuffle_perm" in batch:
+                    perm = batch["shuffle_perm"].to(raw.device).long()
+                else:
+                    perm = torch.randperm(B, generator=generator).to(
+                        raw.device)
+                inv = torch.argsort(perm)
+            keys, after_key = [], []
+            for i, r in enumerate(rows):
+                _restore(m_bufs, after_kl[i] if after_kl else pre)
+                key_images = all_images[perm[r]] if shuffle_bn else images[i]
+                pooled_key, _ = teacher_forward(momentum, key_images, True)
+                key_head.eval()  # the momentum head runs in eval mode
+                keys.append(key_head(pooled_key))
+                after_key.append(_snapshot(m_bufs))
+            del all_images
+            _restore(m_bufs, _mean_of(after_key))
+            all_k = torch.cat(keys)
+            if shuffle_bn:
+                all_k = all_k[inv]
+            all_kt = None
+            if need_kt:
+                heads.embed_t.eval()
+                all_kt = heads.embed_t(torch.cat(pooled_t))
+
+        # phase C: the student's gradients per virtual rank against the
+        # full keys and the pre-update queue
+        s_bufs = _bn_buffers(student, heads.embed_s)
+        s_pre = _snapshot(s_bufs)
+        fns = heads.attn_fns()
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics, after_s = [], []
+        for i, r in enumerate(rows):
+            _restore(s_bufs, s_pre)
+            logit_s, loss_cls, loss_div, q = student_losses(
+                state, images[i], labels[r], logit_t[i])
+            qt = None
+            if mem == "MoCoSSTT":
+                im2 = (augment_fn(raw[r], gens[i]) if augment_fn is not None
+                       else images[i])
+                qt = second_view(state, im2)
+            logits_list, new_queue = contrast(
+                state.queue, fns, q, qt, all_k[r],
+                all_kt[r] if all_kt is not None else None, all_k,
+                lambda x: x)
+            loss_kd = sum(contrast_ce(lg) for lg in logits_list) / len(
+                logits_list)
+            total = c * loss_cls + dv * loss_div + b * loss_kd
+            total.backward()
+            after_s.append(_snapshot(s_bufs))
+            metrics.append(step_metrics(total, loss_cls, loss_div, loss_kd,
+                                        logit_s, labels[r]))
+        _restore(s_bufs, _mean_of(after_s))
+
+        # one queue advance by the global key count, with the pre-step
+        # attention parameters (train/moma.py:1052-1080): MoCo's and
+        # MoCoAtt's is the last contrast call's, which enqueued the global
+        # keys; MoCoST / MoCoSSTT's atts_k mixes only a virtual rank's rows
+        if mem in ("MoCoST", "MoCoSSTT"):
+            with torch.no_grad():
+                k_in = (torch.cat([fns["atts_k"](all_k[r]) for r in rows])
+                        if attn == "self" and fns else all_k)
+                new_queue = queue_update(state.queue, {
+                    "memory_s": k_in,
+                    "memory_t": all_kt if all_kt is not None else all_k})
+        return finish(state, data_axis(), metrics, new_queue)
 
     return step
 
@@ -488,12 +749,8 @@ def run_moma(cfg: Config, synthetic: bool = False, stop=None):
     ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
                              map_location=device)
     n_cls = cfg.model_s.n_cls
-    train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
-    train_loader = Loader(train_ds, cfg.data.batch_size, train=True,
-                          seed=cfg.run.seed,
-                          num_workers=cfg.data.num_workers, device=device)
-    val_loader = Loader(val_ds, cfg.data.eval_batch_size, train=False)
-    test_loader = Loader(test_ds, cfg.data.eval_batch_size, train=False)
+    _, train_loader, val_loader, test_loader = make_loaders(
+        cfg, synthetic, device, datasets=build_datasets(cfg, synthetic))
     state = build_state(cfg, device, len(train_loader), cfg.run.seed)
 
     train_aug, eval_norm = augment_fns(cfg)

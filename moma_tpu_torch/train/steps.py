@@ -11,20 +11,35 @@ on the device, so an epoch fetches once.
 
 `remat` recomputes the train-mode forward in the backward instead of
 holding its activations (models/remat.py; BN running statistics written
-once, by the first forward).  `grad_accum > 1` is not ported (ROADMAP
-Queue 1 item 5) and raises.
+once, by the first forward).  `grad_accum = M > 1` splits the (augmented)
+batch into M equal microbatches, each a forward and a backward, with one
+SGD step on the gradients averaged over them (steps.py:83-123): each
+microbatch is a virtual DDP rank whose BatchNorms see its own statistics,
+and the running statistics chain from one microbatch to the next (the
+in-place running update does that by itself), as in JAX.
+
+In a process group of several ranks (core/mesh.py) each rank runs its
+rows of the global batch with sync-BN statistics, and the gradients and
+metrics are averaged over the ranks: JAX's global-batch step on N devices
+(`--bn global`).  Each rank draws its augmentation from its own stream
+(mesh.rank_generator).  Under `grad_accum` the Loader hands each rank its
+share of every microbatch (mesh.rank_rows), so microbatch i, its
+statistics synced over the ranks, is the global batch's i-th contiguous
+chunk, as in JAX and in one process.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from moma_tpu_torch.core.mesh import data_axis, rank_generator
 from moma_tpu_torch.losses.functional import cross_entropy
 from moma_tpu_torch.models import remat as rm
+from moma_tpu_torch.ops.fused_bn import sync_stats
 from moma_tpu_torch.train.state import TrainState, sgd_step
 
 
@@ -47,31 +62,81 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> dict:
             .any(-1).float().mean() * 100.0}
 
 
+def microbatches(n_rows: int, grad_accum: int):
+    """The row slices of `grad_accum` equal microbatches of a batch; raises
+    when the batch does not split evenly (the JAX package's message)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if n_rows % grad_accum != 0:
+        raise ValueError(f"batch size {n_rows} not divisible by "
+                         f"grad_accum={grad_accum}")
+    mb = n_rows // grad_accum
+    return [slice(i * mb, (i + 1) * mb) for i in range(grad_accum)]
+
+
+def step_augment_generator(generator: torch.Generator, ax):
+    """The generator a rank augments its rows with: the step's own in one
+    process, its rank's stream in a group (mesh.rank_generator)."""
+    return generator if ax.world == 1 else rank_generator(generator,
+                                                          ax.rank)
+
+
+def average_grads(params, ax, grad_accum: int = 1) -> None:
+    """Gradients summed over `grad_accum` microbatches -> their mean, then
+    averaged over the ranks (one bucketed all_reduce)."""
+    if grad_accum == 1 and ax.world == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    if grad_accum > 1 and grads:
+        torch._foreach_div_(grads, float(grad_accum))
+    ax.pmean_(grads)
+
+
+def mean_metrics(metrics: List[Dict[str, torch.Tensor]], ax) -> dict:
+    """A step's metrics: the microbatches' dicts of scalars averaged over
+    them, then over the ranks (one all_reduce); one microbatch in one
+    process is returned as it is."""
+    if len(metrics) == 1 and ax.world == 1:
+        return metrics[0]
+    names = list(metrics[0])
+    mean = torch.stack([torch.stack([m[k].float() for k in names])
+                        for m in metrics]).mean(0)
+    ax.pmean_([mean])
+    return dict(zip(names, mean.unbind()))
+
+
 def make_vanilla_train_step(augment_fn: Optional[Callable] = None,
                             grad_accum: int = 1, remat: bool = False):
     """step(state, batch, generator) -> (state, {'loss', 'acc1', 'acc5'}).
 
     batch: {'image': NHWC on the run's device, 'label': (B,) int};
     `augment_fn(images, generator)` maps them to float images."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "--grad_accum > 1 is not ported to moma_tpu_torch yet (ROADMAP "
-            "Queue 1 item 5)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def step(state: TrainState, batch, generator: torch.Generator):
+        ax = data_axis()
         images = batch["image"]
         if augment_fn is not None:
-            images = augment_fn(images, generator)
+            images = augment_fn(images, step_augment_generator(generator,
+                                                               ax))
         labels = batch["label"].long()
         model = state.model
         model.train()
-        _, logits = rm.checkpoint(model, images) if remat else model(images)
-        loss = cross_entropy(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        metrics = []
+        with sync_stats(ax):
+            for rows in microbatches(images.shape[0], grad_accum):
+                _, logits = (rm.checkpoint(model, images[rows]) if remat
+                             else model(images[rows]))
+                loss = cross_entropy(logits, labels[rows])
+                loss.backward()
+                metrics.append({"loss": loss.detach(),
+                                **accuracy(logits, labels[rows])})
+        average_grads(model.parameters(), ax, grad_accum)
         sgd_step(state.optimizer, state.schedule(state.step))
         state.step += 1
-        return state, {"loss": loss.detach(), **accuracy(logits, labels)}
+        return state, mean_metrics(metrics, ax)
 
     return step
 

@@ -11,7 +11,12 @@ loop (train/loop.py): run directory `<save_dir>/teacher_<run_name>` with
 (strict, or without the classifier under --not_strict / --pre_strict),
 `--resume` (mid-epoch after a preemption save), SIGTERM / Ctrl-C
 checkpoint and exit, the `--skip_validation` pre-flight, the NaN guard and
-`--profile_dir`.  Its checkpoint holds the model under `teacher`, which
+`--profile_dir`, and `--grad_accum`.  In a process group of several ranks
+(core/mesh.py, `torch.distributed.run`) each rank trains on its rows of
+the global batch with sync-BN statistics and averaged gradients: JAX's
+global-batch step on N devices (with --grad_accum too: the Loader hands
+each rank its share of every microbatch).  Its checkpoint holds the model under
+`teacher`, which
 models/pretrained.load_pretrained reads, so `--path_t` / `--tec_pre` /
 `--std_pre` / `--pretrain` take a teacher run's `best_acc.pt`.
 """
@@ -24,6 +29,7 @@ import torch
 
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_slice
+from moma_tpu_torch.core.mesh import data_axis
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.data import augment as aug
 from moma_tpu_torch.data.cifar import cifar100_available, load_cifar100
@@ -93,18 +99,24 @@ def check_data_parallel_only(cfg: Config, what: str) -> None:
                          f"{what} runs global-batch BN")
 
 
-def make_loaders(cfg: Config, synthetic: bool, device=None, extras=None):
-    """(train set, train, val and test loaders) of a run.  The train
-    loader takes --num_workers gather threads and, over a packed dataset
-    on a CUDA `device`, copies its batches to the card from pinned
-    memory."""
-    train_ds, val_ds, test_ds = build_datasets(cfg, synthetic)
+def make_loaders(cfg: Config, synthetic: bool, device=None, extras=None,
+                 datasets=None):
+    """(train set, train, val and test loaders) of a run's `datasets`
+    (build_datasets' by default), each loader yielding this rank's rows of
+    the global batches (data/pipeline.py; the train loader's split follows
+    --grad_accum).  The train loader takes --num_workers gather threads
+    and, over a packed dataset on a CUDA `device`, copies its batches to
+    the card from pinned memory."""
+    train_ds, val_ds, test_ds = datasets or build_datasets(cfg, synthetic)
+    ax = data_axis()
+    shard = dict(rank=ax.rank, world=ax.world)
     return (train_ds,
             Loader(train_ds, cfg.data.batch_size, train=True,
                    seed=cfg.run.seed, extras=extras,
-                   num_workers=cfg.data.num_workers, device=device),
-            Loader(val_ds, cfg.data.eval_batch_size, train=False),
-            Loader(test_ds, cfg.data.eval_batch_size, train=False))
+                   num_workers=cfg.data.num_workers, device=device,
+                   grad_accum=cfg.run.grad_accum, **shard),
+            Loader(val_ds, cfg.data.eval_batch_size, train=False, **shard),
+            Loader(test_ds, cfg.data.eval_batch_size, train=False, **shard))
 
 
 def build_teacher_state(cfg: Config, device: torch.device,

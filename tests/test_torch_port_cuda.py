@@ -1092,3 +1092,80 @@ def test_packed_loader_through_the_pinned_ring(dev, tmp_path, consumer):
                                           w["image"])
             np.testing.assert_array_equal(g["index"], w["index"])
     assert all(b.is_pinned() for b in ld._ring.bufs)
+
+
+# ------------------------------------------------------------ data axis
+
+def test_sync_bn_through_the_kernels_on_two_ranks(dev):
+    """Two gloo ranks sharing the card, each a FusedBatchNorm on its rows
+    under sync statistics: the channel-sum kernels run on each rank (their
+    sums all-reduced), and y, dx, the summed dscale / dbias and the running
+    statistics equal the plain version on the concatenated batch in one
+    process."""
+    import torch_dist_workers as W
+    from moma_tpu_torch.core.mesh import spawn_ranks
+    from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 40, 9, 9, generator=g) * 2 + 0.5
+    w = torch.randn(8, 40, 9, 9, generator=g)
+    r0, r1 = spawn_ranks(W.sync_bn, 2, (x, w, "cuda"), backend="gloo",
+                         timeout_s=240)
+    for r in (r0, r1):
+        assert r["launches"] == {"channel_sums": 1, "grad_channel_sums": 1}
+    xc = x.clone().requires_grad_(True)
+    bn = FusedBatchNorm(40)
+    with torch.no_grad():
+        bn.weight.copy_(torch.linspace(0.5, 1.5, 40))
+        bn.bias.copy_(torch.linspace(-0.2, 0.2, 40))
+    y = bn(xc)
+    (y * w).sum().backward()
+    got = {"y": torch.cat([r0["y"], r1["y"]]),
+           "dx": torch.cat([r0["dx"], r1["dx"]]),
+           "dscale": r0["dscale"] + r1["dscale"],
+           "dbias": r0["dbias"] + r1["dbias"],
+           "running_mean": r0["running_mean"],
+           "running_var": r0["running_var"]}
+    want = {"y": y.detach(), "dx": xc.grad, "dscale": bn.weight.grad,
+            "dbias": bn.bias.grad, "running_mean": bn.running_mean,
+            "running_var": bn.running_var}
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=1e-5, atol=1e-5)
+
+
+def test_two_rank_gloo_step_on_cuda_equals_the_accumulated_step(dev):
+    """The 2-rank 'local' MoMA step on CUDA tensors (gloo, both ranks on
+    the card; the RandAugment layer from each rank's stream) equals
+    --grad_accum 2 in one process on the card, and the 2-rank 'global'
+    step the one-process step: losses and every tensor of the state to
+    1e-3 of its scale (floored at 1e-3 of its group's)."""
+    import torch_dist_workers as W
+    from moma_tpu_torch.core.mesh import spawn_ranks
+
+    argv = ["--distill", "moma", "--dataset", "prostate_hv", "--model_s",
+            "effiB0", "--model_t", "effiB0", "--image_size", "64",
+            "--batch_size", "8", "--nce_k", "64", "--feat_dim", "32",
+            "--head", "mlp", "--attn", "self", "-b", "1", "--fp32",
+            "--kl_teacher_bn", "train", "--device", "cuda"]
+    for bn, augment in (("local", True), ("global", False)):
+        ranks = spawn_ranks(W.built_moma_step, 2,
+                            (argv + ["--bn", bn], augment), backend="gloo",
+                            timeout_s=300)
+        want = W.built_moma_step(0, 1, argv + ["--grad_accum", "2" if
+                                               bn == "local" else "1"],
+                                 augment)
+        (mg, sg), (mw, sw) = ranks[0], want
+        for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+            assert abs(mg[k] - mw[k]) <= 1e-3 * abs(mw[k]), (bn, k)
+        for part in sw:
+            # tensors that are zero up to float noise (a bias feeding a
+            # train-mode BN) are held to 1e-3 of their group's largest
+            floor = 1e-3 * max(float(v.abs().max()) for v in sw[part].values()
+                               if v.is_floating_point())
+            for k, v in sw[part].items():
+                if not v.is_floating_point():
+                    continue
+                scale = max(float(v.abs().max()), floor)
+                gap = float((sg[part][k] - v).abs().max()) / scale
+                assert gap <= 1e-3, (bn, part, k, gap)
+                assert torch.equal(sg[part][k], ranks[1][1][part][k])

@@ -60,8 +60,8 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy, quick_jit,
-                                walk_pairs)
+                                make_init_ordered, ordered_numpy,
+                                quick_compiled, quick_jit, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -342,8 +342,9 @@ def _jax_run(backbones, setup, cfg, programs, batches, augment):
     for flag in set(programs):
         key = (cfg.moma.mem, cfg.moma.attn, cfg.moma.nce_k, flag)
         if augment is not None or key not in _JAX_PROGRAMS:
-            step = j_make_step(cfg, jheads, augment_fn=augment, donate=False,
-                               kl_train_bn_override=flag)
+            step = quick_compiled(j_make_step(
+                cfg, jheads, augment_fn=augment, donate=False,
+                kl_train_bn_override=flag))
             if augment is not None:
                 steps[flag] = step
                 continue

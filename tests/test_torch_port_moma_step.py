@@ -74,7 +74,8 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy, walk_pairs)
+                                make_init_ordered, ordered_numpy,
+                                quick_compiled, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -161,9 +162,9 @@ def _jax_run(init_vars, programs, batches, fused="off", fast=False,
     for flag in set(programs):
         key = (id(jheads), fused, fast, remat, flag)
         if key not in _JAX_PROGRAMS:
-            _JAX_PROGRAMS[key] = j_make_step(
+            _JAX_PROGRAMS[key] = quick_compiled(j_make_step(
                 jc, jheads, augment_fn=None, donate=False,
-                kl_train_bn_override=flag)
+                kl_train_bn_override=flag))
         steps[flag] = _JAX_PROGRAMS[key]
     metrics, teacher_bs = [], []
     for flag, b in zip(programs, batches):

@@ -299,10 +299,12 @@ def test_cli_trains_a_vit_teacher(small_sets, tmp_path):
 
 @pytest.mark.parametrize("extra,exc", [
     (["--bn", "local"], ValueError), (["--model_parallel", "2"], ValueError),
-    (["--grad_accum", "2"], NotImplementedError),
+    (["--grad_accum", "3"], ValueError),
     (["--model", "vit_small_moe_patch16_224"], NotImplementedError),
 ])
 def test_teacher_refusals(extra, exc, tmp_path):
+    """The JAX package's refusals; --grad_accum 3 splits no batch of 4
+    (its ValueError)."""
     with pytest.raises(exc):
         _run(tmp_path, 1, *extra)
 

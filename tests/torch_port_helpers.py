@@ -14,11 +14,13 @@ others load it (an effiB0 init compiles in 5-10 s, and every worker used
 to compile its own).
 
 `make_init_ordered` and `quick_jit` compile with the CPU backend's LLVM
-optimisation off (QUICK_COMPILE): the same XLA program, compiled in a
-fraction of the time (effiB0's init: 6.5 s -> 1.3 s), its values within
-float32 rounding of the optimised build's; for references computed once or
-twice.  (A train step that runs several times gains nothing from it: 5.5 s
--> 4.6 s to compile, 0.64 s -> 1.45 s a run.)
+optimisation off and LLVM's expensive passes skipped (QUICK_COMPILE): the
+same XLA program, compiled in a fraction of the time (effiB0's init: 6.5 s
+-> 1.3 s), its values within float32 rounding of the optimised build's;
+for references computed once or twice.  An effiB0 MoMA train step at 64^2
+(MoCoAtt 'all'): 9.8 s to compile and 1.0 s a run optimised, 6.8 s and
+2.1 s quick (7.9 s and 2.7 s with the optimisation off alone), so a step
+run up to 3 times gains from it too.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ def _rebuild(skel, values):
     return {k: _rebuild(s, values[k]) for k, s in skel}
 
 
-QUICK_COMPILE = {"xla_backend_optimization_level": 0}
+QUICK_COMPILE = {"xla_backend_optimization_level": 0,
+                 "xla_llvm_disable_expensive_passes": True}
 
 
 def quick_compiled(jitted):
@@ -120,6 +123,28 @@ def make_init_ordered(model, sample_shape, dtype=np.float32):
             return v
 
     return shared
+
+
+def run_once(name: str, fn):
+    """fn(), computed once for the workers of one pytest-xdist run: the
+    first worker to need it computes it and leaves it (torch.save) in the
+    run's directory under the temporary directory, the others load it.
+    Without xdist, fn().  For a module fixture whose cost would otherwise
+    repeat on every worker its tests land on."""
+    if _RUN is None:
+        return fn()
+    from filelock import FileLock
+
+    root = os.path.join(tempfile.gettempdir(), f"moma_port_inits_{_RUN}")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, name + ".pt")
+    with FileLock(path + ".lock"):
+        if os.path.exists(path):
+            return torch.load(path, weights_only=False)
+        value = fn()
+        torch.save(value, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return value
 
 
 def _make_init_ordered(model, sample_shape, dtype):
