@@ -2861,12 +2861,26 @@ def _rank_probe(rank, world, dev="cuda"):
         dist.all_reduce(y, op=op)
         return y.tolist() == [want] * 4
 
+    def ppermute():
+        # the model axis's ring hop, to rank + 1 from rank - 1.  gloo's own
+        # send / recv of a CUDA tensor is not probed: it writes the device
+        # address as host memory and the process aborts ("writev ... Bad
+        # address"), so a gloo group's hops go through pinned host buffers
+        from moma_tpu_torch.core.mesh import create_mesh, model_axis
+
+        create_mesh(world)
+        y = model_axis().ppermute([x])[0]
+        create_mesh(1)
+        return (y.device == x.device
+                and y.tolist() == [float((rank - 1) % world + 1)] * 4)
+
     for name, fn in (("all_gather", gather),
                      ("all_reduce_sum", lambda: reduce(
                          dist.ReduceOp.SUM, float(world * (world + 1) // 2))),
                      ("all_reduce_max", lambda: reduce(
                          dist.ReduceOp.MAX, float(world))),
-                     ("barrier", lambda: dist.barrier() or True)):
+                     ("barrier", lambda: dist.barrier() or True),
+                     ("ppermute", ppermute)):
         try:
             out[name] = "ok" if fn() else "wrong values"
         except Exception as e:  # reported by name, then the phase fails
@@ -2925,28 +2939,35 @@ def _small_batch_dp():
             "shuffle_perm": np.array(DP_PERM, np.int64)}
 
 
-def _dp_step(bn, accum, augment, rank=0, world=1, dev="cuda", attn="self"):
-    """One MoMA step of DP_SMALL (with --attn `attn`) on `dev` from
-    build_state's seeded weights: this rank's rows of the batch; returns
-    (metrics, the state's tensors on the CPU)."""
+def _dp_step(bn, accum, augment, dev="cuda", attn="self", mem="MoCo",
+             mp=1):
+    """One MoMA step of DP_SMALL (with --attn `attn`, --mem `mem`,
+    --model_parallel `mp`: the grid made here) on `dev` from build_state's
+    seeded weights: this data rank's rows of the batch (its share of each
+    microbatch under --grad_accum); returns (metrics, the state's tensors
+    on the CPU, the bank whole)."""
     import torch
 
     from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.core.mesh import create_mesh, data_axis, rank_rows
     from moma_tpu_torch.train.loop import to_device
     from moma_tpu_torch.train.moma import (build_state, full_state,
                                            make_moma_train_step)
     from moma_tpu_torch.train.teacher import augment_fns
 
     cfg = parse_student_args(
-        with_flags(DP_SMALL, attn=attn) + ["--bn", bn, "--grad_accum",
-                                           str(accum), "--device", dev])
+        with_flags(DP_SMALL, attn=attn, mem=mem)
+        + ["--bn", bn, "--grad_accum", str(accum), "--device", dev,
+           "--model_parallel", str(mp)])
+    create_mesh(mp)
+    ax = data_axis()
     dev = torch.device(dev)
     state = build_state(cfg, dev, 4, seed=0)
     step = make_moma_train_step(cfg, augment_fns(cfg)[0] if augment else None,
                                 kl_train_bn_override=True)
     batch = _small_batch_dp()
-    b = 8 // world
-    rows = {k: (v if k == "shuffle_perm" else v[rank * b:(rank + 1) * b])
+    rows = {k: (v if k == "shuffle_perm"
+                else rank_rows(v, ax.rank, ax.world, accum))
             for k, v in batch.items()}
     state, m = step(state, to_device(rows, dev),
                     torch.Generator().manual_seed(5))
@@ -2966,9 +2987,9 @@ def _rank_small(rank, world, dev="cuda"):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return {"local": _dp_step("local", 1, True, rank, world, dev),
-            "sync": _dp_step("sync", 1, False, rank, world, dev, "none"),
-            "global": _dp_step("global", 1, False, rank, world, dev)}
+    return {"local": _dp_step("local", 1, True, dev),
+            "sync": _dp_step("sync", 1, False, dev, "none"),
+            "global": _dp_step("global", 1, False, dev)}
 
 
 def _dp_compare(got, want, label, exact=False):
@@ -3080,6 +3101,277 @@ def phase_two_ranks(dev="cuda", args=MAIN_ARGS):
     return ranks[0]["local"]["launches"]
 
 
+# phase_model_axis: --model_parallel 2, ranks sharing the card over gloo
+MA_MP = 2
+# (b) the ring oracle: Nb = 2B rows alike on the ranks, the K=16384 bank
+# split over 2 ranks, feat_dim 512, 4 heads; tolerances of the forward and
+# of the gradients, of each tensor's scale (the flash kernels are float32-
+# accurate; bf16 rounds each hop's output and every product's operands)
+RING_SHAPE = (128, 16384, 512, 4)   # (Nb, K, C, H)
+RING_RTOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 5e-2)}
+
+
+def _rank_ma_full(rank, world, save_root, runs):
+    """cli.train_student for each (label, args) of `runs` with
+    --model_parallel 2 (data 1 x model 2): step times, peak memory, launch
+    counts, the second step's collectives, step losses."""
+    from moma_tpu_torch.cli import train_student
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    _set_root(save_root)
+    out = {}
+    for label, args in runs:
+        dev = args[args.index("--device") + 1]
+        _peak_reset(dev)
+        reset_launch_counts()
+        comm = {}
+        with _wrapped_comm(comm):
+            state, result = train_student.main(
+                args + ["--model_parallel", str(MA_MP), "--trial",
+                        f"mp_{label}", "--save_dir", save_root])
+        out[label] = {"batch_times": result["train"]["batch_times"],
+                      "loss": result["train"]["loss"],
+                      "losses": _step_losses(result["run_dir"]),
+                      "val_acc": result["val"]["acc"],
+                      "queue_ptr": state.queue.ptr,
+                      "bank_rows": state.queue.memory[
+                          next(iter(state.queue.memory))].shape[0],
+                      "peak": _peak(dev), "launches": launch_counts(),
+                      "comm_step": comm, "n_bn": _n_bn(state.student)}
+    return out
+
+
+def _ring_inputs(dtype, dev, shape):
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    n, C = shape[0] + shape[1], shape[2]
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+    return {"x": r(n, C), "kern": [r(C, 3 * C, scale=C ** -0.5),
+                                   r(3 * C, scale=0.02),
+                                   r(C, C, scale=C ** -0.5), r(C, scale=0.02)],
+            "w": r(n, C)}
+
+
+def _ring_loss_grads(dtype, dev, ring, shape=RING_SHAPE):
+    """The ring attention's (ring: this rank's rows, a 1 x 2 grid) or one
+    process's batch_token_attention_big outputs at `shape` (Nb, K, C, H)
+    and the gradients of sum(out * w) (the ring's out_loc through
+    all_gather + _grad_div), on the CPU in float32; and the flash launches
+    of the call."""
+    import torch
+
+    from moma_tpu_torch.core.mesh import model_axis
+    from moma_tpu_torch.moma.queue import _grad_div
+    from moma_tpu_torch.ops.flash_attention import batch_token_attention_big
+    from moma_tpu_torch.ops.ring_attention import ring_batch_token_attention
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    nb, _, _, heads = shape
+    inp = _ring_inputs(dtype, dev, shape)
+    kern = [t.clone().requires_grad_(True) for t in inp["kern"]]
+    w = inp["w"]
+    reset_launch_counts()
+    if ring:
+        mx = model_axis()
+        x_rep = inp["x"][:nb].clone().requires_grad_(True)
+        x_loc = mx.shard_rows(inp["x"][nb:]).clone().requires_grad_(True)
+        out_rep, out_loc = ring_batch_token_attention(
+            x_rep, x_loc, *kern, heads, mx)
+        full = mx.all_gather_grad(_grad_div(out_loc, mx), 0)
+        loss = ((out_rep * w[:nb]).float().sum()
+                + (full * w[nb:]).float().sum())
+        loss.backward()
+        outs = [out_rep, out_loc]
+        grads = [x_rep.grad, x_loc.grad] + [t.grad for t in kern]
+    else:
+        x = inp["x"].clone().requires_grad_(True)
+        out = batch_token_attention_big(x, *kern, heads)
+        (out * w).float().sum().backward()
+        outs = [out[:nb], out[nb:]]
+        grads = [x.grad[:nb], x.grad[nb:]] + [t.grad for t in kern]
+    torch.cuda.synchronize() if dev != "cpu" else None
+    return ([o.detach().float().cpu() for o in outs],
+            [g.detach().float().cpu() for g in grads], launch_counts())
+
+
+def _rank_ma_small(rank, world, dev="cuda", ring_shape=RING_SHAPE):
+    """The f32 oracles of a grid of `world` ranks at --model_parallel 2
+    (TF32 off): MoCo (--attn self; 'sync' with --attn none) and MoCoAtt
+    'all' under --bn local (augmented), sync and global; on 2 ranks also
+    the ring at RING_* in both dtypes and, on a (2 x 1) grid, --bn global
+    --grad_accum 2."""
+    import torch
+
+    from moma_tpu_torch.core.mesh import create_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"moco_local": _dp_step("local", 1, True, dev, mp=MA_MP),
+           "moco_sync": _dp_step("sync", 1, False, dev, "none", mp=MA_MP),
+           "moco_global": _dp_step("global", 1, False, dev, mp=MA_MP),
+           "att_local": _dp_step("local", 1, True, dev, "all", "MoCoAtt",
+                                 mp=MA_MP),
+           "att_global": _dp_step("global", 1, False, dev, "all", "MoCoAtt",
+                                  mp=MA_MP)}
+    if world == 2:
+        create_mesh(MA_MP)
+        for dt in (torch.float32, torch.bfloat16):
+            out[f"ring_{dt}"] = _ring_loss_grads(dt, dev, True, ring_shape)
+        out["accum"] = _dp_step("global", 2, False, dev)
+    create_mesh(1)
+    return out
+
+
+def _close_scaled(got, want, rtol, label):
+    d = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not d <= rtol * scale:
+        raise AssertionError(f"{label}: max |diff| {d:.3e} > {rtol} x scale "
+                             f"{scale:.3e}")
+    return d / max(scale, 1e-30)
+
+
+def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
+    """--model_parallel 2: the negative bank split over two model ranks, the
+    ranks sharing the card through gloo.  (a) MAIN_ARGS and MOCOATT_ARGS
+    through cli.train_student on a (1 x 2) grid: each rank's steady step
+    and peak memory, launch counts (MoCoAtt 'all': MA_MP each of flash_fwd,
+    flash_dq and flash_dkv a step, the ring's hops; MoCo none), the bytes
+    all-gathered, sent in ring hops and reduced in a step, losses (the two
+    ranks' alike); (b) at 64^2 f32, TF32 off, on a (2 x 2) and a (1 x 2)
+    grid, MoCo and MoCoAtt 'all' under --bn local / sync / global against
+    the one-process steps (--grad_accum 2 for 'local', --attn none for
+    'sync'), the bank whole, every rank's state bit for bit; the ring at
+    (Nb 128, K 16384, C 512, H 4), float32 and bfloat16, on 2 ranks against
+    one process's batch_token_attention_big, forward and every gradient,
+    to RING_RTOL (`ring_shape`, RING_SHAPE by default); (c) 2 data ranks, --bn global --grad_accum 2, against the
+    one-process --grad_accum 2 step.  Two ranks taking turns on one card
+    give no model-parallel speed.  Returns rank 0's MoCoAtt launch
+    counts."""
+    import torch
+
+    from moma_tpu_torch.core.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    runs = runs or (("moco", list(MAIN_ARGS)), ("mocoatt", list(MOCOATT_ARGS)))
+    save = os.path.join(SAVE_ROOT, "mp2")
+    full = spawn_ranks(_rank_ma_full, MA_MP, (save, runs), backend="gloo",
+                       timeout_s=RANK_TIMEOUT_S)
+    log("[mp2] two model ranks share one card: their step times are those "
+        "of two processes taking turns, no model-parallel speed")
+    for label, args in runs:
+        a, b = full[0][label], full[1][label]
+        B = int(args[args.index("--batch_size") + 1])
+        K = int(args[args.index("--nce_k") + 1])
+        n = len(a["batch_times"])
+        if not (a["loss"] == b["loss"] and math.isfinite(a["loss"])):
+            raise AssertionError(f"mp2 {label}: ranks disagree or diverge: "
+                                 f"{a['loss']} / {b['loss']}")
+        if a["queue_ptr"] != (B * n) % K or a["bank_rows"] != K // MA_MP:
+            raise AssertionError(f"mp2 {label}: queue_ptr {a['queue_ptr']}, "
+                                 f"{a['bank_rows']} bank rows a rank")
+        n_bn = a["n_bn"]
+        flash = MA_MP if "MoCoAtt" in args else 0
+        want = ({"channel_sums": n_bn * n + n_bn * (2 * n - 1),
+                 "grad_channel_sums": n_bn * n, "ra_layer": 2 * n,
+                 "flash_fwd": flash * n, "flash_dq": flash * n,
+                 "flash_dkv": flash * n} if dev == "cuda" else {})
+        for r, res in enumerate((a, b)):
+            for k, v in want.items():
+                if res["launches"].get(k, 0) != v:
+                    raise AssertionError(
+                        f"mp2 {label} rank {r}: launch count {k}: "
+                        f"{res['launches'].get(k, 0)} != {v}")
+            steady = statistics.median(res["batch_times"][1:])
+            log(f"[mp2] {label} rank {r}: {K // MA_MP} of {K} bank rows, "
+                f"{B} rows a step, steady step {steady * 1e3:.1f} ms, step "
+                f"times (s) {[round(t, 4) for t in res['batch_times']]}, "
+                f"peak {res['peak'] / 2 ** 30:.2f} GiB, launches "
+                f"{res['launches']}")
+        c = a["comm_step"]
+        log(f"[mp2] {label}: one step's collectives on a rank: "
+            f"{c.get('model_all_gather', 0)} model all_gather, "
+            f"{c.get('model_all_gather_bytes', 0) / 1e6:.2f} MB sent in; "
+            f"{c.get('ppermute', 0)} ring hops, "
+            f"{c.get('ppermute_bytes', 0) / 1e6:.2f} MB sent; "
+            f"{c.get('model_all_reduce', 0) + c.get('all_reduce', 0)} "
+            f"all_reduce, {(c.get('model_all_reduce_bytes', 0) + c.get('all_reduce_bytes', 0)) / 1e6:.2f}"
+            f" MB reduced ({c}); step losses {a['losses']}, val acc "
+            f"{a['val_acc']:.2f}")
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        grids = {w: spawn_ranks(_rank_ma_small, w, (dev, ring_shape),
+                                backend="gloo", timeout_s=RANK_TIMEOUT_S)
+                 for w in (2 * MA_MP, MA_MP)}
+        one = {"moco_local": _dp_step("global", 2, True, dev),
+               "moco_sync": _dp_step("global", 1, False, dev, "none"),
+               "moco_global": _dp_step("global", 1, False, dev),
+               "att_local": _dp_step("global", 2, True, dev, "all",
+                                     "MoCoAtt"),
+               "att_global": _dp_step("global", 1, False, dev, "all",
+                                      "MoCoAtt"),
+               "moco_aug": _dp_step("global", 1, True, dev),
+               "att_aug": _dp_step("global", 1, True, dev, "all", "MoCoAtt"),
+               "accum": _dp_step("global", 2, False, dev)}
+        ring_one = {dt: _ring_loss_grads(dt, dev, False, ring_shape)
+                    for dt in (torch.float32, torch.bfloat16)}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    # on one data row (1 x 2) every --bn is the one-process global step
+    one_row = {"moco_local": "moco_aug", "att_local": "att_aug"}
+    for w, res in grids.items():
+        grid = f"({w // MA_MP} x {MA_MP})"
+        for case in res[0]:
+            if case.startswith("ring") or case == "accum":
+                continue  # held below
+            for r in range(1, w):
+                gap, where = _state_gap(res[r][case][1], res[0][case][1])
+                if res[r][case][0] != res[0][case][0] or gap != 0.0:
+                    raise AssertionError(f"mp2 {grid} {case}: ranks 0 and {r} "
+                                         f"differ ({gap:.2e} at {where})")
+            ref = one[case] if w > MA_MP else one[one_row.get(case, case)]
+            _dp_compare(res[0][case], ref,
+                        f"{grid} grid {case} vs one process, 64^2 f32")
+    _dp_compare(grids[MA_MP][0]["accum"], one["accum"],
+                "(2 x 1) grid --bn global --grad_accum 2 vs one process")
+    r0, r1 = grids[MA_MP][0], grids[MA_MP][1]
+    for dt, (w_outs, w_grads, w_launch) in ring_one.items():
+        f_rtol, g_rtol = RING_RTOL[str(dt).split(".")[-1]]
+        outs, grads, launches = r0[f"ring_{dt}"]
+        outs1, grads1, _ = r1[f"ring_{dt}"]
+        # the ranks' rows of the bank tokens, in model order
+        got_o = [outs[0], torch.cat([outs[1], outs1[1]])]
+        got_g = [grads[0], torch.cat([grads[1], grads1[1]])] + grads[2:]
+        errs = [_close_scaled(g, w_, f_rtol, f"ring {dt} out{i}")
+                for i, (g, w_) in enumerate(zip(got_o, w_outs))]
+        names = ("x_rep", "x_loc", "qkv_kernel", "qkv_bias", "proj_kernel",
+                 "proj_bias")
+        errs += [_close_scaled(g, w_, g_rtol, f"ring {dt} d{n}")
+                 for n, g, w_ in zip(names, got_g, w_grads)]
+        want = {"flash_fwd": MA_MP, "flash_dq": MA_MP,
+                "flash_dkv": MA_MP} if dev == "cuda" else {}
+        for k, v in want.items():
+            if launches.get(k, 0) != v:
+                raise AssertionError(f"ring {dt}: {k} {launches.get(k, 0)} "
+                                     f"!= {v}")
+        log(f"[mp2] ring {dt} (Nb {ring_shape[0]}, K {ring_shape[1]} over "
+            f"{MA_MP} ranks, C {ring_shape[2]}, H {ring_shape[3]}) vs one "
+            "process's "
+            f"batch_token_attention_big: max rel gaps out {errs[:2]}, grads "
+            f"{[f'{e:.2e}' for e in errs[2:]]} (rtol {f_rtol} / {g_rtol}); "
+            f"launches a rank {launches} (one process: {w_launch})")
+    log(f"[mp2] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return full[0]["mocoatt"]["launches"] if "mocoatt" in full[0] else {}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3120,6 +3412,7 @@ def _run(name_power, t0) -> int:
     accum_counts = phase_grad_accum()
     phase_nccl_one_rank()
     dp_counts = phase_two_ranks()
+    mp_counts = phase_model_axis()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
     packed_counts = phase_packed()
@@ -3131,7 +3424,7 @@ def _run(name_power, t0) -> int:
     # a kernel's launches: those of the first main path that runs it
     for later in (accum_counts, dp_counts, att_counts, fused_counts,
                   packed_counts, cross_counts, teacher_counts, cmp_counts,
-                  zoo_counts):
+                  zoo_counts, mp_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

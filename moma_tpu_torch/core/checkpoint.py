@@ -15,10 +15,12 @@ stays for the interface of the JAX package, whose saves may commit on a
 background thread.  Restores load onto the run's device (`map_location`),
 never silently onto another one.
 
-In a process group (core/mesh.py) every rank holds the same state: rank 0
-writes the checkpoint and the stat files, then every rank meets at a
-barrier, so a rank-0 checkpoint is a one-process checkpoint; every rank
-restores from the file.  The other ranks' StatsWriters write nothing.
+In a process group (core/mesh.py) every rank holds the same state (a
+split negative bank is gathered whole before the save, train/moma.py
+`full_state`): rank 0 writes the checkpoint and the stat files, then every
+rank meets at a barrier, so a rank-0 checkpoint is a one-process
+checkpoint; every rank restores from the file.  The other ranks'
+StatsWriters write nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from moma_tpu_torch.core.mesh import data_axis
+from moma_tpu_torch.core.mesh import world_axis
 from moma_tpu_torch.core.tb_writer import TBWriter
 
 
@@ -59,7 +61,7 @@ class CheckpointManager:
         """Saves are synchronous: nothing is ever in flight."""
 
     def save(self, tag: str, state: Any, meta: Optional[dict] = None) -> None:
-        ax = data_axis()
+        ax = world_axis()
         if ax.rank == 0:
             # the old sidecar goes first: until the new one is written, the
             # tag holds no complete checkpoint rather than a mismatched pair
@@ -93,7 +95,7 @@ class StatsWriter:
     JAX package."""
 
     def __init__(self, directory: str):
-        self.enabled = data_axis().rank == 0
+        self.enabled = world_axis().rank == 0
         if not self.enabled:
             return
         os.makedirs(directory, exist_ok=True)

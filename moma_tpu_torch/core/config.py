@@ -15,7 +15,9 @@ head; the 17 comparison distillers (`DISTILLERS`), on one process; each
 with the run around the step (checkpoints, --resume, pretrained weights,
 the resized crop, folds, the optimizer's options) and --grad_accum; the
 supervised and MoMA runs also data-parallel over a process group
-(core/mesh.py), MoMA with --bn global|local|sync.  `check_slice` rejects every other choice with
+(core/mesh.py), MoMA with --bn global|local|sync and, same-arch, with
+--model_parallel (the negative bank split over the model ranks).
+`check_slice` and `check_model_axis` reject every other choice with
 NotImplementedError rather than training something else than asked.
 """
 
@@ -233,16 +235,12 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
         if cfg.model_t is None:
             bad.append("distillation without a teacher")
         if method == "moma":
-            # the comparison distillers raise ValueError for these, as in
-            # the JAX package (train/student.py)
-            if (r.model_parallel > 1 or r.sequence_parallel
-                    or r.pp_microbatch):
-                bad.append("--model_parallel / --sequence_parallel / "
-                           "--pp_microbatch (the model axis, Queue 1 item "
-                           "[5b])")
-            if r.grad_accum > 1 and world > 1:
-                bad.append(f"--grad_accum with world_size {world} (virtual "
-                           "ranks inside real ones, Queue 1 item [5a-rest])")
+            # the comparison distillers raise ValueError for the model
+            # axis, as in the JAX package (train/student.py); the cross-arch
+            # teachers' parallelism is check_model_axis's
+            if r.grad_accum > 1 and r.model_parallel > 1:
+                bad.append("--grad_accum with --model_parallel (microbatches "
+                           "over a split bank, Queue 1 item [5b-accum])")
         elif world > 1:
             # several of their losses couple rows across the batch: they
             # need gathers that carry gradients
@@ -258,6 +256,46 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): "
             + "; ".join(bad))
+
+
+def check_model_axis(cfg: Config, cross_arch: bool) -> None:
+    """The JAX package's refusals around --model_parallel in a MoMA run
+    (train/moma.py:1273-1331), its messages as ValueError, then, by name,
+    what is not ported: the model axis of a cross-arch run (the tensor-,
+    pipeline- and expert-parallel ViT teachers, --sequence_parallel,
+    --pp_microbatch)."""
+    r = cfg.run
+    if r.pp_microbatch and r.teacher_parallel != "pipeline":
+        raise ValueError(
+            "--pp_microbatch only applies with --teacher_parallel pipeline")
+    mp = r.model_parallel
+    if mp > 1:
+        if r.bn != "global" and cross_arch:
+            raise ValueError(
+                "bn='local'/'sync' with --model_parallel does not compose "
+                "with the cross-arch TP/PP/EP teachers: those shard via "
+                "GSPMD NamedSharding annotations, which cannot appear "
+                "inside a shard_map body (per-device code).  Use "
+                "bn='global' for cross-arch model-parallel runs.")
+        if r.sequence_parallel and not cross_arch:
+            raise ValueError(
+                "--sequence_parallel applies to the tensor-parallel ViT "
+                "teacher (cross-arch/EmaTec mode only)")
+        if r.teacher_parallel != "tensor" and not cross_arch:
+            raise ValueError(
+                f"--teacher_parallel {r.teacher_parallel} applies to the "
+                "ViT KL-teacher (cross-arch/EmaTec mode only)")
+        if cfg.moma.nce_k % mp != 0:
+            raise ValueError(f"nce_k={cfg.moma.nce_k} not divisible by "
+                             f"model_parallel={mp}")
+    if cross_arch and (mp > 1 or r.sequence_parallel or r.pp_microbatch
+                       or r.teacher_parallel != "tensor"):
+        raise NotImplementedError(
+            "not ported to moma_tpu_torch yet (see ROADMAP.md): the model "
+            "axis of a cross-arch run (--model_parallel, "
+            "--sequence_parallel, --teacher_parallel, --pp_microbatch: the "
+            "tensor-, pipeline- and expert-parallel ViT teachers, Queue 1 "
+            "item [5b-teachers])")
 
 
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -318,7 +356,14 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                         "statistics, 'local' each rank's own with a "
                         "Shuffle-BN over the global batch, 'sync' local "
                         "with synced statistics")
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="--distill moma: split the negative bank over MP "
+                        "ranks of each data row (a (data N/MP x model MP) "
+                        "grid of the N ranks)")
+    p.add_argument("--sequence_parallel", action="store_true")
+    p.add_argument("--teacher_parallel", type=str, default="tensor",
+                   choices=["tensor", "pipeline", "expert"])
+    p.add_argument("--pp_microbatch", type=int, default=0)
     p.add_argument("--grad_accum", type=int, default=1,
                    help="split each batch into M microbatches, one SGD "
                         "step on their averaged gradients (a microbatch "
@@ -350,7 +395,10 @@ def _cfg_from_common(a) -> Config:
         epochs=a.epochs, seed=a.seed, print_freq=a.print_freq,
         save_dir=a.save_dir, trial=a.trial, skip_test=a.skip_test,
         preflight_eval=a.skip_validation, half_precision=not a.fp32,
-        bn=a.bn, model_parallel=a.model_parallel, grad_accum=a.grad_accum,
+        bn=a.bn, model_parallel=a.model_parallel,
+        sequence_parallel=a.sequence_parallel,
+        teacher_parallel=a.teacher_parallel, pp_microbatch=a.pp_microbatch,
+        grad_accum=a.grad_accum,
         remat=a.remat, resume=a.resume, profile_dir=a.profile_dir,
         device=a.device)
     return cfg

@@ -80,10 +80,10 @@ class AgreedStop:
     process both read the guard itself."""
 
     def __init__(self, guard, device):
-        from moma_tpu_torch.core.mesh import data_axis
+        from moma_tpu_torch.core.mesh import world_axis
 
         self.guard, self.device = guard, device
-        self.ax = data_axis()
+        self.ax = world_axis()
         self.pending = None
 
     def poll(self) -> bool:

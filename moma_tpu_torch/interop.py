@@ -31,6 +31,10 @@ its own value, or a JAX leaf left unread, raises.
       module's top (VID's `log_scale`) crosses by its name.
   jax_aux_variables(aux, params, batch_stats)  port -> JAX layout, the
       inverse, shaped like the given trees.
+  bank_shard(bank, index, size) / bank_join(shards)
+      a JAX negative bank (its global (K, D) array, numpy) -> model rank
+      `index`'s rows of a bank split over `size` ranks, and the ranks'
+      rows, in model order, -> the whole bank.
 """
 
 from __future__ import annotations
@@ -251,3 +255,18 @@ def jax_aux_variables(aux: torch.nn.ModuleDict, params: Dict[str, Any],
         if name in batch_stats:
             out_bs[name] = conv["batch_stats"]
     return out_p, out_bs
+
+
+def bank_shard(bank: np.ndarray, index: int, size: int) -> np.ndarray:
+    """Model rank `index`'s rows [index*K/size, (index+1)*K/size) of a
+    (K, D) negative bank (moma_tpu_torch.core.mesh model_axis.shard_rows)."""
+    n = bank.shape[0] // size
+    if n * size != bank.shape[0]:
+        raise ValueError(f"a bank of {bank.shape[0]} rows does not split "
+                         f"over {size} ranks")
+    return bank[index * n:(index + 1) * n]
+
+
+def bank_join(shards) -> np.ndarray:
+    """The whole (K, D) bank from its model ranks' rows, in model order."""
+    return np.concatenate([np.asarray(s) for s in shards], 0)

@@ -1,6 +1,6 @@
 """Backbone registry: every name of moma_tpu/models/__init__.py (:13-91),
 aliases included, but the two Mixture-of-Experts ViTs (ROADMAP Queue 1
-item 6).  `create_model(name, ...)` is the one construction entry point;
+item [5b-teachers]: the expert-parallel teacher).  `create_model(name, ...)` is the one construction entry point;
 imports are lazy."""
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ _VITS = {name: name for name in (
 _VITS.update({"vit_timm_base_patch16_224": "vit_base_patch16_224",
               "vit_timm_tiny_patch16_224": "vit_tiny_patch16_224"})
 # registered in moma_tpu, not ported: name -> ROADMAP label
-NOT_PORTED = {"vit_tiny_moe_patch16_224": "Queue 1 item 6",
-              "vit_small_moe_patch16_224": "Queue 1 item 6"}
+NOT_PORTED = {"vit_tiny_moe_patch16_224": "Queue 1 item [5b-teachers]",
+              "vit_small_moe_patch16_224": "Queue 1 item [5b-teachers]"}
 
 
 def available_models():

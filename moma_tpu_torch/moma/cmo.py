@@ -15,10 +15,9 @@ A plain `BatchTokenAttention` over more than `DENSE_MAX_TOKENS` tokens
 (MoCoAtt 'all' / 'dual' attend over 2B+K) goes through the streaming
 flash-attention kernels (ops/flash_attention.py), as `CMOHeads.attn_fns`
 routes it in the JAX package (:202-233); the `Attention2` modes stay dense
-at any size, as there.
-
-Waiting for a later slice: `ring_attn_fns` (the sharded bank, ROADMAP
-Queue 1 item 5).  'self_viz' trains exactly as 'self'.
+at any size, as there.  `CMOHeads.ring_attn_fns` (:235-268) gives the same
+modules over a negative bank split across the model ranks, through ring
+attention (ops/ring_attention.py).  'self_viz' trains exactly as 'self'.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from moma_tpu_torch.losses.functional import l2_normalize
 from moma_tpu_torch.models.common import TorchLinear, default_generator
 from moma_tpu_torch.ops.flash_attention import batch_token_attention_big
 from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
+from moma_tpu_torch.ops.ring_attention import ring_batch_token_attention
 
 # attention-set layouts per --attn (cmo.py:119-141)
 ATTN_SETS = {
@@ -175,6 +175,32 @@ class CMOHeads(nn.Module):
         """{name: callable} over the live attention modules, the argument
         `step_moco_att` takes (cmo.py:202-233)."""
         return dict(self.attn.items())
+
+    def ring_attn_fns(self, axis) -> Dict[str, Callable]:
+        """{name: fn(x_rep, x_loc) -> (out_rep, out_loc)} for a bank split
+        over the model axis `axis` (cmo.py:235-268): attention over the
+        tokens [x_rep alike on every rank; x_loc this rank's bank rows]
+        by ring attention, the whole bank never gathered.  The Attention2
+        modes add the residual and LayerNorm after the ring, per token
+        (both are row-local, so they commute with the split)."""
+
+        def make(mod):
+            is2 = isinstance(mod, BatchTokenAttention2)
+            att = mod.attn_layer if is2 else mod
+
+            def fn(x_rep, x_loc):
+                out_rep, out_loc = ring_batch_token_attention(
+                    x_rep, x_loc, att.qkv.weight.t(), att.qkv.bias,
+                    att.proj.weight.t(), att.proj.bias, att.num_heads,
+                    axis)
+                if is2:
+                    out_rep, out_loc = (
+                        mod.norm((o + x).float()).to(o.dtype)
+                        for o, x in ((out_rep, x_rep), (out_loc, x_loc)))
+                return out_rep, out_loc
+            return fn
+
+        return {name: make(mod) for name, mod in self.attn.items()}
 
     def attn_maps(self, inputs: Dict[str, torch.Tensor]
                   ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:

@@ -76,11 +76,21 @@ first forward; every teacher and momentum-encoder forward is
 gradient-free and holds nothing.
 
 The data axis (make_moma_train_step): `--grad_accum M` runs the step as M
-virtual ranks in one process, holding one microbatch's activations at a
-time; under `python -m torch.distributed.run --nproc_per_node N` the run
-is data-parallel over N processes (core/mesh.py), one per GPU, with
+virtual ranks, holding one microbatch's activations at a time; under
+`python -m torch.distributed.run --nproc_per_node N` the run is
+data-parallel over N processes (core/mesh.py), one per GPU, with
 `--bn global|local|sync` and a Shuffle-BN permutation of the global
 batch.  Rank 0 writes the run directory; every rank holds the same state.
+
+The model axis (`--model_parallel MP`, train/moma.py:270-300, :539-665,
+:1276-1331): the N ranks form a (data N/MP x model MP) grid
+(mesh.create_mesh) and the negative bank is split by rows over the model
+ranks of a data row (the `*_sharded` steps of moma/queue.py; MoCoAtt's
+queue-consuming modes through ring attention, ops/ring_attention.py).
+The model ranks of a data row see the same batch and the same draws:
+the Loader's rows, the augmentation streams and the Shuffle-BN slice
+follow the data index.  Checkpoints hold the whole bank, so a run
+resumes at any --model_parallel.
 """
 
 from __future__ import annotations
@@ -95,8 +105,9 @@ import torch
 from torch import nn
 
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
-from moma_tpu_torch.core.config import Config, check_slice
-from moma_tpu_torch.core.mesh import data_axis, rank_generator
+from moma_tpu_torch.core.config import Config, check_model_axis, check_slice
+from moma_tpu_torch.core.mesh import (create_mesh, data_axis, model_axis,
+                                      rank_generator, world_axis)
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
@@ -105,8 +116,11 @@ from moma_tpu_torch.models.pretrained import load_pretrained
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        queue_update, random_memory,
-                                       step_moco, step_moco_att,
-                                       step_moco_sstt, step_moco_st)
+                                       step_moco,
+                                       step_moco_att, step_moco_att_sharded,
+                                       step_moco_sharded, step_moco_sstt,
+                                       step_moco_sstt_sharded, step_moco_st,
+                                       step_moco_st_sharded)
 from moma_tpu_torch.ops import fused_effnet
 from moma_tpu_torch.ops.fused_bn import FusedBatchNorm, sync_stats
 from moma_tpu_torch.runtime import resolve_device
@@ -255,7 +269,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     gradient; each rank keeps its rows of the logits.  In one process the
     three are the same step.
 
-    `cfg.run.grad_accum = M > 1` (one process) is JAX's accumulated step
+    `cfg.run.grad_accum = M > 1` is JAX's accumulated step
     (train/moma.py:721-1107): microbatch i is virtual rank i of the 'local'
     step.  Phase A runs the M teacher KL forwards, each from the pre-step
     running statistics; phase B the post-EMA momentum-encoder key forwards
@@ -264,7 +278,23 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     student's forward and backward a microbatch at a time against the full
     keys and the pre-update queue.  Then one SGD step on the averaged
     gradients, one queue advance by B, and the BN running statistics
-    averaged over the microbatches."""
+    averaged over the microbatches.  On W data ranks (`--bn global` only,
+    as in JAX) each rank holds its B/(M*W) rows of every microbatch
+    (mesh.rank_rows): microbatch i spans every rank, its BN statistics
+    synced over them and its batch-token attention over its gathered
+    rows, so the step is the one-process step (JAX's runs its microbatches
+    over the whole mesh: M virtual ranks, whatever W is).
+
+    `cfg.run.model_parallel = MP > 1` splits the bank over the model ranks
+    (mesh.create_mesh must have made the grid): the `*_sharded` steps of
+    moma/queue.py, MoCoAtt's queue-consuming modes through ring attention
+    (CMOHeads.ring_attn_fns).  The gradients are averaged over every rank
+    of the grid: over the data ranks as without it, and over the model
+    ranks, which JAX does for the ring modes only (:657-665).  The other
+    modes' model ranks compute alike, but a card's nondeterministic
+    backward kernels (cuDNN's weight gradients) would let their replicas
+    drift; the mean of MP equal values changes nothing for MP a power of
+    2."""
     check_slice(cfg)
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     remat = cfg.run.remat
@@ -323,18 +353,29 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         raise ValueError("fused_teacher is a single-chip jit-path "
                          "optimization; use bn='global'")
     need_kt = cross_arch and mem in ("MoCoST", "MoCoSSTT")
+    mp = int(cfg.run.model_parallel)
+    check_model_axis(cfg, cross_arch)
+    sharded = mp > 1
 
-    def contrast(queue: QueueState, fns, q, qt, k, kt, all_k, gather):
+    def contrast(queue: QueueState, fns, q, qt, k, kt, all_k, gather,
+                 ring_fns=None):
         """(the logit sets of the loss, the queue after the enqueue) of the
         memory variant: q / qt the queries (qt: MoCoSSTT's second view),
         k / kt the positive keys of q's rows (kt: cross-arch memory_t's),
         all_k the global keys (MoCo's and MoCoAtt's enqueue); `gather`
         maps MoCoST / MoCoSSTT's per-rank keys to those entering the
-        queue."""
+        queue.  With the bank split over the model axis the `*_sharded`
+        steps run, MoCoAtt's through `ring_fns`."""
         self_attn = attn == "self" and bool(fns)
+        mx = model_axis()
         if mem == "MoCoAtt":
-            logits, new_queue = step_moco_att(queue, q, k, all_k, nce_t,
-                                              attn, fns)
+            if sharded:
+                logits, new_queue = step_moco_att_sharded(
+                    queue, q, k, all_k, nce_t, attn, fns, mx,
+                    ring_fns=ring_fns)
+            else:
+                logits, new_queue = step_moco_att(queue, q, k, all_k, nce_t,
+                                                  attn, fns)
             return [logits], new_queue
         if mem in ("MoCoST", "MoCoSSTT"):
             # same-arch: the momentum encoder's keys fill both banks;
@@ -347,14 +388,18 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 q_in = fns["atts_q"](q_in)
                 with torch.no_grad():
                     k_in = fns["atts_k"](k_in)
+            extra = (mx,) if sharded else ()
             if mem == "MoCoSSTT":
                 qt_in = fns["atts_q"](qt) if self_attn else qt
-                *logits_list, new_queue = step_moco_sstt(
+                *logits_list, new_queue = (
+                    step_moco_sstt_sharded if sharded else step_moco_sstt)(
                     queue, q_in, k_in, qt_in, kt_in, gather(k_in),
-                    gather(kt_in), nce_t)
+                    gather(kt_in), nce_t, *extra)
                 return logits_list, new_queue
-            logits_ss, _, new_queue = step_moco_st(
-                queue, q_in, k_in, kt_in, gather(k_in), gather(kt_in), nce_t)
+            logits_ss, _, new_queue = (
+                step_moco_st_sharded if sharded else step_moco_st)(
+                queue, q_in, k_in, kt_in, gather(k_in), gather(kt_in), nce_t,
+                *extra)
             # the loss takes the first logit set only
             return [logits_ss], new_queue
         # MoCo: atts_queue transforms the keys ENTERING the queue, not the
@@ -365,7 +410,11 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
             with torch.no_grad():
                 k_in = fns["atts_k"](k)
                 keys_in = fns["atts_queue"](all_k)
-        logits, new_queue = step_moco(queue, q_in, k_in, keys_in, nce_t)
+        if sharded:
+            logits, new_queue = step_moco_sharded(queue, q_in, k_in, keys_in,
+                                                  nce_t, mx)
+        else:
+            logits, new_queue = step_moco(queue, q_in, k_in, keys_in, nce_t)
         return [logits], new_queue
 
     def student_losses(state, images, labels, logit_t):
@@ -393,8 +442,10 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
             ema_update(key_head, state.heads.embed_s, alpha)
 
     def finish(state, ax, metrics, new_queue):
-        """Average the gradients and the metrics (microbatches, then
-        ranks), one SGD step, the queue advance."""
+        """Average the gradients and the metrics (microbatches, then the
+        ranks: every rank of the grid, whose model ranks' ring orders
+        differ in float rounding), one SGD step, the queue advance."""
+        ax = world_axis() if sharded else ax
         average_grads(state.trainable_params(), ax, len(metrics))
         sgd_step(state.optimizer, state.schedule(state.step))
         state.queue = new_queue
@@ -411,9 +462,15 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
             raise ValueError(
                 f"a {'cross' if cross_arch else 'same'}-arch step for a "
                 f"state {'without' if cross_arch else 'with'} an EMA copy")
-        if M > 1:
-            return accum_step(state, batch, generator)
+        if model_axis().size != mp:
+            raise ValueError(
+                f"--model_parallel {mp} needs the (data, model) grid of "
+                f"mesh.create_mesh({mp}); the grid's model axis has "
+                f"{model_axis().size} rank(s)")
         ax = data_axis()
+        if M > 1:
+            with sync_stats(ax):
+                return accum_step(state, batch, generator, ax)
         if ax.world > 1 and use_fused:
             raise ValueError(
                 "--fused_teacher on runs the teacher forwards on one "
@@ -489,6 +546,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                                                         labels, logit_t)
         qt = second_view(state, images2) if images2 is not None else None
         fns = heads.attn_fns()
+        ring = heads.ring_attn_fns(model_axis()) if sharded else None
         if bn_mode == "global" and ax.world > 1:
             # the global batch's contrast, as one process would run it,
             # with the queries gathered with their gradient; each rank
@@ -496,11 +554,12 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
             logits_list, new_queue = contrast(
                 state.queue, fns, ax.gather_grad(q),
                 ax.gather_grad(qt) if qt is not None else None, all_k,
-                all_kt, all_k, lambda x: x)
+                all_kt, all_k, lambda x: x, ring)
             logits_list = [ax.local_slice(lg, B) for lg in logits_list]
         else:
             logits_list, new_queue = contrast(state.queue, fns, q, qt,
-                                              k_emb, kt_emb, all_k, ax.gather)
+                                              k_emb, kt_emb, all_k, ax.gather,
+                                              ring)
         loss_kd = sum(contrast_ce(lg) for lg in logits_list) / len(
             logits_list)
         total = c * loss_cls + dv * loss_div + b * loss_kd
@@ -514,15 +573,22 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         return finish(state, ax, [step_metrics(
             total, loss_cls, loss_div, loss_kd, logit_s, labels)], new_queue)
 
-    def accum_step(state, batch, generator):
+    def accum_step(state, batch, generator, ax):
         student, teacher, heads = state.student, state.teacher, state.heads
         momentum = state.ema if cross_arch else teacher
         key_head = heads.embed_ema if cross_arch else heads.embed_t
         raw = batch["image"]
         labels = batch["label"].long()
-        B = raw.shape[0]
-        rows = microbatches(B, M)
-        gens = [rank_generator(generator, i) for i in range(M)]
+        W = ax.world
+        # this rank's rows: its B/(M*W) of each microbatch (mesh.rank_rows)
+        rows = microbatches(raw.shape[0], M)
+        lb = raw.shape[0] // M
+        mb = lb * W
+        B = mb * M
+        # rank r's share of microbatch i: global rows i*mb + r*lb + [0, lb)
+        own = [slice(i * mb + ax.rank * lb, i * mb + (ax.rank + 1) * lb)
+               for i in range(M)]
+        gens = [rank_generator(generator, i * W + ax.rank) for i in range(M)]
         m_bufs = _bn_buffers(momentum)
         pre = _snapshot(m_bufs)
         kl_writes = kl_train_bn and not cross_arch
@@ -549,7 +615,8 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         # global batch, rank i's statistics continuing from its KL forward
         # (cross-arch: the EMA copy's pre-step ones); only the keys stay
         with torch.no_grad():
-            all_images = torch.cat(images)
+            all_images = _microbatch_major(ax.gather(torch.cat(images)), W,
+                                           M)
             if shuffle_bn:
                 if "shuffle_perm" in batch:
                     perm = batch["shuffle_perm"].to(raw.device).long()
@@ -558,22 +625,24 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                         raw.device)
                 inv = torch.argsort(perm)
             keys, after_key = [], []
-            for i, r in enumerate(rows):
+            for i in range(M):
                 _restore(m_bufs, after_kl[i] if after_kl else pre)
-                key_images = all_images[perm[r]] if shuffle_bn else images[i]
+                key_images = (all_images[perm[own[i]]] if shuffle_bn
+                              else images[i])
                 pooled_key, _ = teacher_forward(momentum, key_images, True)
                 key_head.eval()  # the momentum head runs in eval mode
                 keys.append(key_head(pooled_key))
                 after_key.append(_snapshot(m_bufs))
             del all_images
             _restore(m_bufs, _mean_of(after_key))
-            all_k = torch.cat(keys)
+            all_k = _microbatch_major(ax.gather(torch.cat(keys)), W, M)
             if shuffle_bn:
                 all_k = all_k[inv]
             all_kt = None
             if need_kt:
                 heads.embed_t.eval()
-                all_kt = heads.embed_t(torch.cat(pooled_t))
+                all_kt = _microbatch_major(
+                    ax.gather(heads.embed_t(torch.cat(pooled_t))), W, M)
 
         # phase C: the student's gradients per virtual rank against the
         # full keys and the pre-update queue
@@ -591,10 +660,15 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 im2 = (augment_fn(raw[r], gens[i]) if augment_fn is not None
                        else images[i])
                 qt = second_view(state, im2)
+            # microbatch i's contrast over its rows on every rank, the
+            # queries gathered with their gradient; this rank keeps its own
+            g = slice(i * mb, (i + 1) * mb)
             logits_list, new_queue = contrast(
-                state.queue, fns, q, qt, all_k[r],
-                all_kt[r] if all_kt is not None else None, all_k,
+                state.queue, fns, ax.gather_grad(q),
+                ax.gather_grad(qt) if qt is not None else None, all_k[g],
+                all_kt[g] if all_kt is not None else None, all_k,
                 lambda x: x)
+            logits_list = [ax.local_slice(lg, lb) for lg in logits_list]
             loss_kd = sum(contrast_ce(lg) for lg in logits_list) / len(
                 logits_list)
             total = c * loss_cls + dv * loss_div + b * loss_kd
@@ -610,14 +684,25 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         # keys; MoCoST / MoCoSSTT's atts_k mixes only a virtual rank's rows
         if mem in ("MoCoST", "MoCoSSTT"):
             with torch.no_grad():
-                k_in = (torch.cat([fns["atts_k"](all_k[r]) for r in rows])
+                k_in = (torch.cat([fns["atts_k"](all_k[i * mb:(i + 1) * mb])
+                                   for i in range(M)])
                         if attn == "self" and fns else all_k)
                 new_queue = queue_update(state.queue, {
                     "memory_s": k_in,
                     "memory_t": all_kt if all_kt is not None else all_k})
-        return finish(state, data_axis(), metrics, new_queue)
+        return finish(state, ax, metrics, new_queue)
 
     return step
+
+
+def _microbatch_major(t: torch.Tensor, world: int, M: int) -> torch.Tensor:
+    """Rows gathered rank by rank, each rank's M microbatch shares in
+    turn, put back in the global batch's order (microbatch by
+    microbatch, rank by rank within it)."""
+    if world == 1:
+        return t
+    return t.reshape(world, M, -1, *t.shape[1:]).transpose(0, 1).reshape(
+        t.shape)
 
 
 def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
@@ -642,6 +727,7 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
         if mc.pretrain:
             load_pretrained(model, mc.pretrain, strict=mc.strict)
     cross_arch = is_cross_arch(student, teacher)
+    check_model_axis(cfg, cross_arch)
     if cross_arch:
         print(f"[moma] cross-arch ({cfg.model_t.name} teacher -> "
               f"{cfg.model_s.name} student): EmaTec momentum-encoder mode",
@@ -674,9 +760,11 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
     banks = (("memory_s", "memory_t")
              if cfg.moma.mem in ("MoCoST", "MoCoSSTT") else ("memory",))
     g_queue = gen(3)
-    queue = QueueState({name: random_memory(cfg.moma.nce_k, feat_dim,
-                                            g_queue, device)
-                        for name in banks})
+    # the whole seed-made bank, of which each model rank keeps its rows:
+    # the same bank at any --model_parallel
+    mx = model_axis()
+    queue = QueueState({name: mx.shard_rows(random_memory(
+        cfg.moma.nce_k, feat_dim, g_queue, device)) for name in banks})
     state = MomaState(student=student, teacher=teacher, heads=heads,
                       queue=queue, optimizer=None, ema=ema,
                       schedule=lr_schedule(
@@ -695,12 +783,15 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
 def full_state(state: MomaState) -> dict:
     """The checkpointable state: both backbones with their BN buffers, in
     cross-arch runs the EMA copy with its own (train/moma.py:1468-1481),
-    the heads, every queue bank and its pointer, the optimizer's buffers
-    and the step."""
+    the heads, every queue bank whole (a split bank gathered over the
+    model ranks, as JAX's file holds the global array) and its pointer,
+    the optimizer's buffers and the step.  Every rank calls it."""
+    mx = model_axis()
     out = {"student": state.student.state_dict(),
            "teacher": state.teacher.state_dict(),
            "heads": state.heads.state_dict(),
-           "queue": {"memory": dict(state.queue.memory),
+           "queue": {"memory": {k: mx.all_gather(v, 0)
+                                for k, v in state.queue.memory.items()},
                      "ptr": state.queue.ptr},
            "optimizer": state.optimizer.state_dict(),
            "step": state.step}
@@ -711,10 +802,10 @@ def full_state(state: MomaState) -> dict:
 
 def load_full_state(state: MomaState, saved: dict) -> MomaState:
     """Copy a `full_state` dict into `state` in place (the modules keep
-    their storage, so views taken of them stay valid).  A cross-arch
-    checkpoint without the EMA copy restores the rest and warns: the
-    momentum encoder keeps the copy made at start (train/moma.py:
-    1485-1500)."""
+    their storage, so views taken of them stay valid); each model rank
+    takes its rows of the whole bank.  A cross-arch checkpoint without the
+    EMA copy restores the rest and warns: the momentum encoder keeps the
+    copy made at start (train/moma.py:1485-1500)."""
     if state.ema is not None:
         if "ema" in saved:
             state.ema.load_state_dict(saved["ema"])
@@ -729,7 +820,9 @@ def load_full_state(state: MomaState, saved: dict) -> MomaState:
     if set(mem) != set(state.queue.memory):
         raise ValueError(f"checkpoint queue banks {sorted(mem)} differ from "
                          f"the run's {sorted(state.queue.memory)}")
-    state.queue = QueueState(dict(mem), int(saved["queue"]["ptr"]))
+    mx = model_axis()
+    state.queue = QueueState({k: mx.shard_rows(v) for k, v in mem.items()},
+                             int(saved["queue"]["ptr"]))
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     return state
@@ -744,6 +837,8 @@ def run_moma(cfg: Config, synthetic: bool = False, stop=None):
     run_moma installs for SIGTERM / SIGINT."""
     check_slice(cfg)
     device = resolve_device(cfg.run.device)
+    # the (data, model) grid; the Loaders shard by the data index
+    create_mesh(cfg.run.model_parallel)
     run_dir = os.path.join(cfg.run.save_dir, f"moma_{cfg.run_name}")
     os.makedirs(run_dir, exist_ok=True)
     ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
@@ -755,6 +850,10 @@ def run_moma(cfg: Config, synthetic: bool = False, stop=None):
 
     train_aug, eval_norm = augment_fns(cfg)
     cross_arch = state.ema is not None
+    if cfg.run.model_parallel > 1 and world_axis().rank == 0:
+        print(f"[moma] negative queue (K={cfg.moma.nce_k}) split over the "
+              f"model axis: {cfg.moma.nce_k // cfg.run.model_parallel} rows "
+              f"on each of {cfg.run.model_parallel} model ranks", flush=True)
     if cfg.moma.kl_teacher_bn == "exact":
         step_fn = tuple(
             make_moma_train_step(cfg, train_aug, kl_train_bn_override=flag,

@@ -89,14 +89,32 @@ def augment_fns(cfg):
 
 def check_data_parallel_only(cfg: Config, what: str) -> None:
     """The JAX package's refusals of model parallelism and per-device BN
-    outside --distill moma (train/teacher.py:80-95, student.py:68-85)."""
+    outside --distill moma (train/teacher.py:82-107, student.py:70-96),
+    with its messages; `what` is "teacher training" or "the comparison
+    distillers"."""
     r = cfg.run
+    teacher = what == "teacher training"
     if r.model_parallel > 1:
-        raise ValueError(f"--model_parallel > 1 is only wired for --distill "
-                         f"moma; {what} is pure data-parallel")
+        raise ValueError(
+            "--model_parallel > 1 is only wired for --distill moma (it "
+            + ("shards the negative queue); teacher training is pure "
+               "data-parallel" if teacher else
+               "shards the negative queue over the 'model' axis); the "
+               "comparison distillers are pure data-parallel"))
     if r.bn != "global":
-        raise ValueError(f"--bn {r.bn} is only wired for --distill moma; "
-                         f"{what} runs global-batch BN")
+        raise ValueError(
+            f"--bn {r.bn} is only wired for --distill moma (shard_map "
+            f"per-device execution); {what} "
+            + ("runs jitted global-batch BN" if teacher else
+               "run jitted global-batch BN"))
+    if (r.sequence_parallel or r.teacher_parallel != "tensor"
+            or r.pp_microbatch):
+        raise ValueError(
+            "--sequence_parallel / --teacher_parallel pipeline / "
+            "--pp_microbatch apply to the MoMA cross-arch ViT teacher "
+            "(--distill moma); "
+            + ("teacher training has no model parallelism" if teacher else
+               "the comparison distillers replicate their fixed teacher"))
 
 
 def make_loaders(cfg: Config, synthetic: bool, device=None, extras=None,

@@ -79,7 +79,7 @@ from moma_tpu_torch.train.steps import make_vanilla_train_step
 import torch_dist_workers as W
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (ReluInputs, assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy,
+                                heads_init, make_init_ordered, ordered_numpy,
                                 quick_compiled, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -137,7 +137,7 @@ def moma_init():
     vs, vt = init(jax.random.PRNGKey(0)), init(jax.random.PRNGKey(1))
     jh = JHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=S_DIM,
                 t_dim=S_DIM)
-    p, bs = jh.init(jax.random.PRNGKey(2))
+    p, bs = heads_init(jh, 2)
     hv = ordered_numpy({"params": p, "batch_stats": bs})
     rs = np.random.RandomState(MOMA_SEED)
     images = rs.rand(B, HW, HW, 3).astype(np.float32)

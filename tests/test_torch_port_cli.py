@@ -86,9 +86,10 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
 
 @pytest.mark.parametrize("extra", [
     ["--distill", "kd_zoo"], ["--attn", "selff"],
-    ["--bn", "local", "--model_parallel", "2"],
+    ["--model_parallel", "2", "--grad_accum", "2"],
     ["--model_s", "vit_small_moe_patch16_224"], ["--teacher_quant", "int8"],
-    ["--model_parallel", "2"], ["--model_t", "vit_tiny_moe_patch16_224"],
+    ["--bn", "local", "--model_parallel", "4", "--grad_accum", "4"],
+    ["--model_t", "vit_tiny_moe_patch16_224"],
 ])
 def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag

@@ -63,7 +63,7 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                jax_template, make_init_ordered,
+                                heads_init, jax_template, make_init_ordered,
                                 ordered_numpy, quick_compiled, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -129,7 +129,7 @@ def _init(teacher, mem):
             jax.random.PRNGKey(4))
         jheads = jcmo.CMOHeads(head="mlp", attn="self", feat_dim=FEAT,
                                s_dim=1280, t_dim=t_dim, include_ema=True)
-        cmo_params, _ = jheads.init(jax.random.PRNGKey(2))
+        cmo_params, _ = heads_init(jheads, 2)
         rs = np.random.RandomState(3)
         banks = ("memory_s", "memory_t") if mem == "MoCoST" else ("memory",)
         mem_rows = {}
@@ -336,7 +336,7 @@ def test_rff_head_matches_jax():
 def test_attn_maps_match_jax():
     jheads = jcmo.CMOHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=48,
                            t_dim=40)
-    params, _ = jheads.init(jax.random.PRNGKey(0))
+    params, _ = heads_init(jheads, 0)
     heads = cmo.CMOHeads("mlp", "self", FEAT, s_dim=48, t_dim=40)
     load_jax_variables(heads, ordered_numpy({"params": params}))
     rs = np.random.RandomState(1)
@@ -359,7 +359,7 @@ def test_attn_maps_match_jax():
     j2 = jcmo.CMOHeads(head="mlp", attn="selfv2", feat_dim=FEAT, s_dim=48,
                        t_dim=40)
     with pytest.raises(ValueError, match="Attention2"):
-        j2.attn_maps(j2.init(jax.random.PRNGKey(0))[0],
+        j2.attn_maps(heads_init(j2, 0)[0],
                      {"atts_q": inputs["atts_q"]})
     t2 = cmo.CMOHeads("mlp", "selfv2", FEAT, s_dim=48, t_dim=40)
     with pytest.raises(ValueError, match="Attention2"):
@@ -369,7 +369,7 @@ def test_attn_maps_match_jax():
 def test_ema_tec_heads_embed_like_jax():
     jheads = jcmo.CMOEmaTecHeads(head="mlp", feat_dim=FEAT, s_dim=48,
                                  t_dim=40)
-    params, _ = jheads.init(jax.random.PRNGKey(0))
+    params, _ = heads_init(jheads, 0)
     heads = cmo.CMOEmaTecHeads("mlp", FEAT, s_dim=48, t_dim=40)
     load_jax_variables(heads, ordered_numpy({"params": params}))
     rs = np.random.RandomState(2)

@@ -1169,3 +1169,56 @@ def test_two_rank_gloo_step_on_cuda_equals_the_accumulated_step(dev):
                 gap = float((sg[part][k] - v).abs().max()) / scale
                 assert gap <= 1e-3, (bn, part, k, gap)
                 assert torch.equal(sg[part][k], ranks[1][1][part][k])
+
+
+# ------------------------------------------------------------ model axis
+
+def test_ring_attention_through_the_flash_kernels_on_two_ranks(dev):
+    """The ring attention on two gloo ranks sharing the card (a 1 x 2
+    grid, bank rows split over them): each rank runs flash_fwd twice on
+    the forward (home keys, then the visiting shard) and flash_dq /
+    flash_dkv twice on the backward; its outputs and every gradient equal
+    dense attention over all the tokens in float64 on the CPU, to 1e-4 of
+    each tensor's scale (the kernels are float32-accurate, TF32 off)."""
+    import torch_model_axis_workers as W
+    from moma_tpu_torch.core.mesh import spawn_ranks
+
+    g = torch.Generator().manual_seed(3)
+    nb, K, C, H = 24, 512, 64, 4
+    inp = {"NB": nb, "H": H, "x_all": torch.randn(nb + K, C, generator=g),
+           "kern": [torch.randn(C, 3 * C, generator=g) / C ** 0.5,
+                    torch.randn(3 * C, generator=g) * 0.1,
+                    torch.randn(C, C, generator=g) / C ** 0.5,
+                    torch.randn(C, generator=g) * 0.1],
+           "w_rep": torch.randn(nb, C, generator=g),
+           "w_loc": torch.randn(K, C, generator=g)}
+    r0, r1 = spawn_ranks(W.ring_on_grid, 2,
+                         (inp, 2, nb, torch.float32, "cuda"),
+                         backend="gloo", timeout_s=240)
+    for r in (r0, r1):
+        assert r["launches"] == {"flash_fwd": 2, "flash_dq": 2,
+                                 "flash_dkv": 2}, r["launches"]
+    x = inp["x_all"].double().requires_grad_(True)
+    kern = [t.double().requires_grad_(True) for t in inp["kern"]]
+    hd = C // H
+    qkv = (x @ kern[0] + kern[1]).reshape(-1, 3, H, hd).permute(1, 2, 0, 3)
+    att = torch.softmax(qkv[0] @ qkv[1].transpose(1, 2) * hd ** -0.5, -1)
+    out = (att @ qkv[2]).permute(1, 0, 2).reshape(-1, C) @ kern[2] + kern[3]
+    ((out[:nb] * inp["w_rep"].double()).sum()
+     + (out[nb:] * inp["w_loc"].double()).sum()).backward()
+    got = {"out_rep": r0["out_rep"],
+           "out_loc": torch.cat([r0["out_loc"], r1["out_loc"]]),
+           "dx_rep": r0["grads"][0],
+           "dx_loc": torch.cat([r0["grads"][1], r1["grads"][1]])}
+    want = {"out_rep": out[:nb], "out_loc": out[nb:], "dx_rep": x.grad[:nb],
+            "dx_loc": x.grad[nb:]}
+    # each rank's parameter gradients are whole (its ring order differs,
+    # so the two agree up to float reassociation)
+    for i, t in enumerate(kern):
+        for r, res in enumerate((r0, r1)):
+            got[f"dkern{i}_{r}"] = res["grads"][2 + i]
+            want[f"dkern{i}_{r}"] = t.grad
+    for k, w in want.items():
+        w = w.detach().float()
+        gap = float((got[k] - w).abs().max()) / float(w.abs().max())
+        assert gap <= 1e-4, (k, gap)

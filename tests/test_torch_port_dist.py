@@ -62,7 +62,7 @@ from moma_tpu_torch.moma.cmo import CMOHeads
 import torch_dist_workers as W
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (ReluInputs, assert_close_scaled,
-                                group_floor, make_init_ordered,
+                                group_floor, heads_init, make_init_ordered,
                                 ordered_numpy, quick_compiled, run_once,
                                 walk_pairs)
 
@@ -101,7 +101,7 @@ def init():
     for head in ("mlp", "mlp_byol"):
         jh = JHeads(head=head, attn="self", feat_dim=FEAT, s_dim=S_DIM,
                     t_dim=S_DIM)
-        p, bs = jh.init(jax.random.PRNGKey(2))
+        p, bs = heads_init(jh, 2)
         heads[head] = (jh, ordered_numpy({"params": p, "batch_stats": bs}))
     rs = np.random.RandomState(302)   # see _check_kinks
     images = rs.rand(B, HW, HW, 3).astype(np.float32)
@@ -165,14 +165,15 @@ def ranks(init, tmp_path_factory):
     """Both ranks' results of every mode: one spawn for the module (and for
     the workers of a pytest-xdist run)."""
     path = str(tmp_path_factory.mktemp("dist") / "inputs.pt")
-    inp = _inputs(init)
-    _check_kinks(inp)
 
     def spawn():
+        # the inputs too: a worker that loads the results builds nothing
+        inp = _inputs(init)
+        _check_kinks(inp)
         torch.save(inp, path)
-        return spawn_ranks(W.moma_modes, 2, (path,), backend="gloo",
-                           timeout_s=WORKER_TIMEOUT_S)
-    return inp, run_once("test_torch_port_dist.ranks", spawn)
+        return inp, spawn_ranks(W.moma_modes, 2, (path,), backend="gloo",
+                                timeout_s=WORKER_TIMEOUT_S)
+    return run_once("test_torch_port_dist.ranks", spawn)
 
 
 def _jax_step(init, bn, head, perm=PERM):

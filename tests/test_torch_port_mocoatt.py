@@ -60,7 +60,7 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy,
+                                heads_init, make_init_ordered, ordered_numpy,
                                 quick_compiled, quick_jit, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -79,7 +79,7 @@ def _heads_pair(head, attn, seed=0):
     feat = FEAT_SMALL if head != "None" else S_DIM
     jh = JHeads(head=head, attn=attn, feat_dim=feat, s_dim=S_DIM,
                 t_dim=S_DIM)
-    params, bs = jh.init(jax.random.PRNGKey(seed))
+    params, bs = heads_init(jh, seed)
     variables = ordered_numpy({"params": params, "batch_stats": bs})
     th = CMOHeads(head, attn, feat, s_dim=S_DIM, t_dim=S_DIM)
     load_jax_variables(th, variables)
@@ -295,7 +295,7 @@ def backbones():
 def _setup(mem, attn, K):
     jheads = JHeads(head="mlp", attn=attn, feat_dim=FEAT, s_dim=1280,
                     t_dim=1280)
-    cmo_params, _ = jheads.init(jax.random.PRNGKey(2))
+    cmo_params, _ = heads_init(jheads, 2)
     cmo = ordered_numpy({"params": cmo_params})
     rs = np.random.RandomState(3)
     banks = (("memory_s", "memory_t") if mem in ("MoCoST", "MoCoSSTT")

@@ -74,7 +74,7 @@ from moma_tpu_torch.train.state import MomaState, make_sgd
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy,
+                                heads_init, make_init_ordered, ordered_numpy,
                                 quick_compiled, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -110,7 +110,7 @@ def init_vars():
     vt = init(jax.random.PRNGKey(1))
     jheads = JHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=1280,
                     t_dim=1280)
-    cmo_params, _ = jheads.init(jax.random.PRNGKey(2))
+    cmo_params, _ = heads_init(jheads, 2)
     cmo = ordered_numpy({"params": cmo_params})
     rs = np.random.RandomState(3)
     mem = rs.randn(K, FEAT).astype(np.float32)

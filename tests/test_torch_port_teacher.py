@@ -72,7 +72,7 @@ from moma_tpu_torch.train.student import build_distill_state
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (assert_close_scaled, group_floor,
-                                make_init_ordered, ordered_numpy,
+                                heads_init, make_init_ordered, ordered_numpy,
                                 quick_compiled, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -345,7 +345,7 @@ def test_vit_pair_trains_a_cross_arch_step_like_jax():
     ve = make_init_ordered(js_mod, shape)(jax.random.PRNGKey(4))
     jheads = jcmo.CMOHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=192,
                            t_dim=384, include_ema=True)
-    cmo_v = ordered_numpy({"params": jheads.init(jax.random.PRNGKey(2))[0]})
+    cmo_v = ordered_numpy({"params": heads_init(jheads, 2)[0]})
     rs = np.random.RandomState(3)
     mem = rs.randn(K, FEAT).astype(np.float32)
     mem /= np.linalg.norm(mem, axis=1, keepdims=True)

@@ -2,7 +2,8 @@
 CPU.
 
 - The registry: the port's `available_models()` is moma_tpu's without the
-  two Mixture-of-Experts ViTs, which stay refused (ROADMAP Queue 1 item 6).
+  two Mixture-of-Experts ViTs, which stay refused (ROADMAP Queue 1 item
+  [5b-teachers]).
 - Every registered name (and the CIFAR ResNet's Bottleneck variant): the
   port module, built on the meta device, has the parameter and
   BN-statistic shapes and count of `jax.eval_shape(model.init, ...)`, and
@@ -73,7 +74,8 @@ def test_registry_is_jax_without_the_moe_vits():
     assert TMODELS.available_models() == want
     assert MOE <= set(JMODELS.available_models())
     for name in MOE:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(NotImplementedError,
+                           match=r"Queue 1 item \[5b-teachers\]"):
             TMODELS.create_model(name, N_CLS)
     with pytest.raises(KeyError):
         TMODELS.create_model("resnet9", N_CLS)

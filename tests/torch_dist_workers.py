@@ -32,7 +32,7 @@ def noise_augment(images, generator):
 
 
 def moma_config(bn: str, head: str, inp: dict, grad_accum: int = 1,
-                mem: str = "MoCo"):
+                mem: str = "MoCo", attn: str = "self"):
     from moma_tpu_torch.core.config import (Config, DistillConfig,
                                             ModelConfig, MomaConfig)
 
@@ -44,7 +44,7 @@ def moma_config(bn: str, head: str, inp: dict, grad_accum: int = 1,
                                 kd_T=4.0)
     cfg.moma = MomaConfig(feat_dim=inp["feat"], nce_k=inp["K"], nce_t=0.15,
                           alpha=inp["alpha"], mem=mem, head=head,
-                          attn="self", shuffle_bn=True,
+                          attn=attn, shuffle_bn=True,
                           kl_teacher_bn=inp.get("kl_teacher_bn", "eval"))
     cfg.run.bn = bn
     cfg.run.grad_accum = grad_accum
@@ -52,9 +52,11 @@ def moma_config(bn: str, head: str, inp: dict, grad_accum: int = 1,
     return cfg
 
 
-def moma_state(inp: dict, head: str, mem: str = "MoCo", device="cpu"):
-    """A MomaState holding the test's weights (inp['weights'][head]), the
-    test's queue, plain SGD at lr inp['lr'] (no momentum, no decay)."""
+def moma_state(inp: dict, head: str, mem: str = "MoCo", device="cpu",
+               attn: str = "self"):
+    """A MomaState holding the test's weights (inp['weights'][head]; heads
+    of the attention set of `attn`), the test's queue, plain SGD at lr
+    inp['lr'] (no momentum, no decay)."""
     from moma_tpu_torch.models import create_model
     from moma_tpu_torch.moma.cmo import CMOHeads
     from moma_tpu_torch.moma.queue import QueueState
@@ -63,7 +65,7 @@ def moma_state(inp: dict, head: str, mem: str = "MoCo", device="cpu"):
     w = inp["weights"][head]
     student = create_model(inp["model"], inp["n_cls"])
     teacher = create_model(inp["model"], inp["n_cls"])
-    heads = CMOHeads(head, "self", inp["feat"], s_dim=inp["s_dim"],
+    heads = CMOHeads(head, attn, inp["feat"], s_dim=inp["s_dim"],
                      t_dim=inp["s_dim"])
     student.load_state_dict(w["student"])
     teacher.load_state_dict(w["teacher"])

@@ -9,9 +9,10 @@ slow eager init.
 
 Under pytest-xdist the workers of one run share `make_init_ordered`'s
 results: the first worker to need an init computes it and leaves it,
-pickled, in a directory of the run under the temporary directory; the
-others load it (an effiB0 init compiles in 5-10 s, and every worker used
-to compile its own).
+pickled, in a directory of the run under the temporary directory, with
+the inits of COMMON_INIT_KEYS from the program it compiled; the others
+load them (an effiB0 init compiles in 5-10 s, and every worker used to
+compile its own).
 
 `make_init_ordered` and `quick_jit` compile with the CPU backend's LLVM
 optimisation off and LLVM's expensive passes skipped (QUICK_COMPILE): the
@@ -84,6 +85,9 @@ def quick_jit(fn):
 
 
 _INITS = {}
+# the PRNGKeys of the inits in the parity files (student 0, teacher 1,
+# a pretrained target 2, cross-arch's EMA copy 4)
+COMMON_INIT_KEYS = (0, 1, 2, 4)
 # one directory for the workers of one pytest-xdist run, else none
 _RUN = os.environ.get("PYTEST_XDIST_TESTRUNUID")
 
@@ -101,9 +105,7 @@ def make_init_ordered(model, sample_shape, dtype=np.float32):
     if _RUN is None:
         return init
 
-    def shared(rng):
-        from filelock import FileLock
-
+    def path_of(rng):
         name = hashlib.sha256(repr((repr(model), key[1:], np.asarray(
             jax.random.key_data(rng) if jax.dtypes.issubdtype(
                 rng.dtype, jax.dtypes.prng_key) else rng).tobytes(),
@@ -111,18 +113,57 @@ def make_init_ordered(model, sample_shape, dtype=np.float32):
         root = os.path.join(tempfile.gettempdir(),
                             f"moma_port_inits_{_RUN}")
         os.makedirs(root, exist_ok=True)
-        path = os.path.join(root, name + ".pkl")
+        return os.path.join(root, name + ".pkl")
+
+    def store(path, v):
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(v, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(path + ".tmp", path)
+
+    def shared(rng):
+        from filelock import FileLock, Timeout
+
+        path = path_of(rng)
         with FileLock(path + ".lock"):
             if os.path.exists(path):
                 with open(path, "rb") as f:
                     return pickle.load(f)
             v = init(rng)
-            with open(path + ".tmp", "wb") as f:
-                pickle.dump(v, f, protocol=pickle.HIGHEST_PROTOCOL)
-            os.replace(path + ".tmp", path)
-            return v
+            store(path, v)
+        # the program is compiled here now: leave the keys the files use
+        # most for the other workers, which would each compile it again
+        # (a key another worker is computing is skipped, never waited for)
+        for k in COMMON_INIT_KEYS:
+            sib = path_of(jax.random.PRNGKey(k))
+            if sib == path or os.path.exists(sib):
+                continue
+            try:
+                with FileLock(sib + ".lock", timeout=0):
+                    if not os.path.exists(sib):
+                        store(sib, init(jax.random.PRNGKey(k)))
+            except Timeout:
+                pass
+        return v
 
     return shared
+
+
+_HEADS = {}
+
+
+def heads_init(heads, key: int):
+    """heads.init(jax.random.PRNGKey(key)) of a JAX CMOHeads or
+    CMOEmaTecHeads as insertion-ordered numpy (params, batch_stats), once a
+    process and once for the workers of a pytest-xdist run (run_once): an
+    eager init takes 0.2-3 s, its first operations compiling, and several
+    files ask for the same heads."""
+    name = "heads_" + hashlib.sha256(repr((
+        type(heads).__name__, sorted(vars(heads).items()), key,
+        jax.__version__)).encode()).hexdigest()[:32]
+    if name not in _HEADS:
+        _HEADS[name] = run_once(name, lambda: tuple(
+            ordered_numpy(t) for t in heads.init(jax.random.PRNGKey(key))))
+    return _HEADS[name]
 
 
 def run_once(name: str, fn):
