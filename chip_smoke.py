@@ -17,7 +17,8 @@ comparison distillers of scripts/run_comparison.sh from that teacher;
 then the CLIs' default run on CIFAR-100 (a resnet32x4 teacher, resnet8x4
 kd / crd / MoMA students) and one step of each backbone family.  After the
 MoCo path, the data axis: --grad_accum, one rank under NCCL through
-torch.distributed.run, and two ranks sharing the card.
+torch.distributed.run, and two ranks sharing the card; after the
+comparison distillers, the same on two ranks.
 
     python3 chip_smoke.py          # one CUDA device; exits non-zero on failure
 
@@ -64,10 +65,11 @@ Phases (each prints its own lines):
                  each path), step time, img/s, peak memory.  Between MoCo
                  and MoCoAtt the data axis: (a) MoCo with --grad_accum 1, 2
                  and 4 and run_vanilla.sh's step with 1 and 2 (launch
-                 counts, step time, peak); (b) `python -m
+                 counts, step time, peak); (b) after phase 10b, `python -m
                  torch.distributed.run --standalone --nproc_per_node 1` of
-                 the MoCo path with --bn local (NCCL; step losses equal to
-                 the run without a group, rank 0's checkpoints, step time);
+                 the MoCo path with --bn local and of run_comparison.sh's
+                 crd line, one launcher (NCCL; step losses equal to the
+                 runs without a group, rank 0's checkpoints, step time);
                  (c) two ranks sharing the card, each a spawned process in
                  a gloo group: which collectives gloo takes on CUDA
                  tensors, the MoCo path at 32 rows a rank with --bn local
@@ -126,6 +128,14 @@ Phases (each prints its own lines):
                  BatchNorms), step time, img/s, peak memory; crd's 2 steps
                  under --profile_dir; then one 64^2 step of each of the 17
                  methods on the CPU and the card
+ 10b comparison on two ranks: the same seven command lines on two gloo
+                 ranks sharing the card (32 rows a rank, 2 steps each, one
+                 spawned world): each rank's step times, peak memory,
+                 ra_layer / channel_sums / grad_channel_sums a step (every
+                 student and aux BN synced), the bytes gathered and
+                 reduced a step, the ranks' final states bit for bit; the
+                 17 methods' 64^2 f32 step (and crd at --grad_accum 2) on
+                 the 2 ranks against one process, TF32 off, to DP_RTOL
  11 zoo / CIFAR: channel_sums / grad_channel_sums at the zoo's 32^2
                  shapes (batch 64; C = 32..256 and the odd 8, 12, 54, 116,
                  216) against their plain versions, and timed at
@@ -2342,6 +2352,17 @@ def phase_comparison(teacher_best):
         _set_root(root)
         first = first or counts
         if method == "crd":
+            # the plain run phase_nccl_one_rank's crd run is held to
+            n, n_bn = result["train"]["steps"], _n_bn(state.student,
+                                                       state.aux)
+            CMP_RUNS["crd"] = {
+                "teacher": teacher_best, "queue_ptr": None,
+                "launches": {"channel_sums": n_bn * n,
+                             "grad_channel_sums": n_bn * n,
+                             "ra_layer": 2 * n},
+                "losses": _step_losses(result["run_dir"]),
+                "steady": statistics.median(
+                    result["train"]["batch_times"][1:])}
             z = (float(state.extra.z_v1), float(state.extra.z_v2))
             if not all(math.isfinite(v) and v > 0 for v in z):
                 raise AssertionError(f"crd: Z {z}")
@@ -2370,6 +2391,224 @@ def phase_comparison(teacher_best):
                      else None)
     log(f"[comparison] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return first
+
+# phase_comparison_ranks: (a) run_comparison.sh's seven command lines on
+# two gloo ranks sharing the card (32 rows a rank, RANK_SETS); (b) the 17
+# methods' 64^2 f32 step on 2 ranks against one process, to DP_RTOL
+CMP_SMALL = ["--dataset", "prostate_hv", "--model_s", "effiB0", "--model_t",
+             "effiB0", "--image_size", "64", "--batch_size", "8", "--nce_k",
+             "16", "--feat_dim", "32", "-b", "1", "--fp32", "--epochs", "1"]
+CMP_SMALL_DATA = 16
+# kdsvd's step is ill-conditioned (SVD gradients of near-equal singular
+# values): it is held to this many times the one-process step's own
+# response to a 1e-7 relative change of its input, measured in the run
+NOISE_FACTOR = 10.0
+CMP_RUNS = {}
+
+
+def _cmp_small_cases():
+    from moma_tpu_torch.core.config import DISTILLERS
+
+    return [(m, m, 1) for m in DISTILLERS] + [("crd_accum2", "crd", 2)]
+
+
+def _cmp_small_batch():
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    idx = rs.permutation(CMP_SMALL_DATA)[:8].astype(np.int32)
+    cidx = rs.randint(0, CMP_SMALL_DATA, (8, 17)).astype(np.int32)
+    cidx[:, 0] = idx
+    return {"image": rs.randn(8, 64, 64, 3).astype(np.float32),
+            "label": rs.randint(0, 4, (8,)).astype(np.int32),
+            "index": idx, "contrast_idx": cidx}
+
+
+def _distill_tensors(state):
+    """The distillation state's student, aux modules and CRD banks on the
+    CPU."""
+    out = {"student": {k: v.detach().cpu()
+                       for k, v in state.student.state_dict().items()},
+           "aux": {k: v.detach().cpu()
+                   for k, v in state.aux.state_dict().items()}}
+    if state.extra is not None:
+        out["extra"] = {k: v.detach().cpu()
+                        for k, v in state.extra.state_dict().items()}
+    return out
+
+
+def _digest(tensors):
+    """A hash of every tensor's bytes, in path order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for path, t in _tensors(tensors):
+        h.update(path.encode())
+        h.update(t.contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cmp_small_step(method, accum, dev, scale=1.0):
+    """One step of CMP_SMALL's `method` at --grad_accum `accum` on `dev`
+    from build_distill_state's seeded weights, no augmentation, on this
+    data rank's rows of _cmp_small_batch (its share of each microbatch),
+    the images times `scale`; returns (metrics, the state's tensors on the
+    CPU)."""
+    import torch
+
+    from moma_tpu_torch.core.config import parse_student_args
+    from moma_tpu_torch.core.mesh import data_axis, rank_rows
+    from moma_tpu_torch.train.distill import make_distill_train_step
+    from moma_tpu_torch.train.loop import to_device
+    from moma_tpu_torch.train.student import build_distill_state
+
+    cfg = parse_student_args(CMP_SMALL + ["--distill", method, "--grad_accum",
+                                          str(accum), "--device", dev])
+    state, distiller = build_distill_state(cfg, torch.device(dev), 4, 0,
+                                           CMP_SMALL_DATA)
+    step = make_distill_train_step(distiller, None, accum)
+    ax = data_axis()
+    batch = _cmp_small_batch()
+    batch["image"] = batch["image"] * scale
+    rows = {k: rank_rows(v, ax.rank, ax.world, accum)
+            for k, v in batch.items()}
+    state, m = step(state, to_device(rows, torch.device(dev)),
+                    torch.Generator().manual_seed(5))
+    return {k: float(v) for k, v in m.items()}, _distill_tensors(state)
+
+
+def _rank_comparison(rank, world, save_root, runs, dev):
+    """(a) cli.train_student for each (method, args) of `runs` on this
+    rank's half of each global batch (_rank_runs, and a hash of the final
+    state); (b) each of _cmp_small_cases' 64^2 f32 steps (TF32 off):
+    metrics and the state's hash, and rank 0's state."""
+    import torch
+
+    out = {"full": _rank_runs(
+        save_root, [(method, args + ["--trial", f"dp2_{method}"])
+                    for method, args in runs],
+        lambda state, result: {"digest": _digest(_distill_tensors(state))}),
+        "small": {}}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, method, accum in _cmp_small_cases():
+        metrics, tensors = _cmp_small_step(method, accum, dev)
+        out["small"][name] = {"metrics": metrics, "digest": _digest(tensors)}
+        if rank == 0:
+            out["small"][name]["state"] = tensors
+    return out
+
+
+def phase_comparison_ranks(teacher_best, dev="cuda", runs=None):
+    """The comparison distillers on two ranks sharing the card (spawned
+    gloo processes, one world for the phase): (a) run_comparison.sh's
+    seven command lines (COMPARISON; or `runs`, (method, args) pairs)
+    through cli.train_student, 32 rows a rank of the global 64, 2 steps:
+    each rank's step times, peak memory, launches a step of ra_layer,
+    channel_sums and grad_channel_sums (the student's and the aux
+    modules' BatchNorms, synced), the bytes gathered and reduced in a
+    step, and the two ranks' final states (student, aux modules, CRD
+    banks) equal bit for bit; (b) each of the 17 methods' 64^2 f32 step
+    (and crd at --grad_accum 2) on the 2 ranks against the one-process
+    step in this process, TF32 off: losses and every tensor to DP_RTOL of
+    scale (kdsvd to NOISE_FACTOR times its own response to a 1e-7 change
+    of its input), the ranks bit for bit.  Two ranks on one card give no
+    data-parallel speed: (a)'s times are those of two processes taking
+    turns on one device.  Returns rank 0's launch counts of (a)'s first
+    method."""
+    import torch
+
+    from moma_tpu_torch.core.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    if runs is None:
+        runs = [(m, comparison_args(m, c, d, b, "--path_t", teacher_best))
+                for m, c, d, b in COMPARISON]
+    save = os.path.join(SAVE_ROOT, "cmp2")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        ranks = spawn_ranks(_rank_comparison, 2, (save, runs, dev),
+                            backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for method, args in runs:
+        a, b = ranks[0]["full"][method], ranks[1]["full"][method]
+        if not (a["digest"] == b["digest"] and a["loss"] == b["loss"]
+                and math.isfinite(a["loss"])):
+            raise AssertionError(f"cmp2 {method}: the ranks' states differ "
+                                 f"or diverge ({a['loss']} / {b['loss']})")
+        n, n_bn = len(a["batch_times"]), a["n_bn"]
+        want = ({"channel_sums": n_bn * n, "grad_channel_sums": n_bn * n,
+                 "ra_layer": 2 * n} if dev == "cuda" else {})
+        B = int(args[args.index("--batch_size") + 1])
+        for r, res in enumerate((a, b)):
+            for k, v in want.items():
+                if res["launches"].get(k, 0) != v:
+                    raise AssertionError(
+                        f"cmp2 {method} rank {r}: launch count {k}: "
+                        f"{res['launches'].get(k, 0)} != {v}")
+            steady = statistics.median(res["batch_times"][1:])
+            log(f"[cmp2] {method} rank {r}: {B // 2} rows of {B}, steady "
+                f"step {steady * 1e3:.1f} ms, step times (s) "
+                f"{[round(t, 4) for t in res['batch_times']]}, peak "
+                f"{res['peak'] / 2 ** 30:.2f} GiB; a step: "
+                + ", ".join(f"{k} {res['launches'].get(k, 0) // n}" for k in
+                            ("ra_layer", "channel_sums", "grad_channel_sums"))
+                + f" ({n_bn} train-mode BNs)")
+        c = a["comm_step"]
+        log(f"[cmp2] {method}: one step's collectives on a rank: "
+            f"{c.get('all_gather', 0)} all_gather, "
+            f"{c.get('all_gather_bytes', 0) / 1e3:.1f} kB sent in; "
+            f"{c.get('all_reduce', 0)} all_reduce, "
+            f"{c.get('all_reduce_bytes', 0) / 1e6:.2f} MB reduced; train "
+            f"loss {a['loss']:.4f}, val acc {a['val_acc']:.2f}; final "
+            f"states of the ranks bit for bit")
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst_all = 0.0
+        for name, method, accum in _cmp_small_cases():
+            a, b = ranks[0]["small"][name], ranks[1]["small"][name]
+            if a["digest"] != b["digest"] or a["metrics"] != b["metrics"]:
+                raise AssertionError(f"cmp2 small {name}: ranks differ")
+            want = _cmp_small_step(method, accum, dev)
+            tol, note = DP_RTOL, ""
+            if method == "kdsvd":
+                nudged = _cmp_small_step(method, accum, dev, 1 + 1e-7)
+                noise = _state_gap(nudged[1], want[1])[0]
+                tol = max(DP_RTOL, NOISE_FACTOR * noise)
+                note = (f"; its own response to a 1e-7 input change "
+                        f"{noise:.2e}, held to {tol:.2e}")
+            for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
+                x, y = a["metrics"][k], want[0][k]
+                if not abs(x - y) <= DP_RTOL * abs(want[0]["loss"]) + 1e-6:
+                    raise AssertionError(f"cmp2 small {name}: {k} {x} vs "
+                                         f"{y}")
+            gap, where = _state_gap(a["state"], want[1])
+            if not gap <= tol:
+                raise AssertionError(f"cmp2 small {name}: state gap "
+                                     f"{gap:.2e} at {where}")
+            if method != "kdsvd":
+                worst_all = max(worst_all, gap)
+            log(f"[cmp2] 2-rank {name} vs one process, 64^2 f32: loss "
+                f"{a['metrics']['loss']:.6f} vs {want[0]['loss']:.6f}; state "
+                f"max rel gap {gap:.2e} at {where}{note}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    log(f"[cmp2] two ranks share one card: their step times are those of "
+        f"two processes taking turns, no data-parallel speed; the 64^2 "
+        f"oracles' largest gap {worst_all:.2e} (kdsvd apart); phase wall "
+        f"time {time.perf_counter() - t_phase:.1f} s")
+    return ranks[0]["full"][runs[0][0]]["launches"]
+
 
 # phase_zoo: the CLIs' default run on CIFAR-100 (moma_tpu/core/config.py
 # defaults: 240 epochs, lr 0.05 at 150/180/210, wd 5e-4, batch 64), on a
@@ -2692,6 +2931,9 @@ ACCUM_MS = (1, 2, 4)
 TEACHER_ACCUM_MS = (1, 2)
 # the ranks' own processes: a hard limit, then every one is killed
 RANK_TIMEOUT_S = 420
+# the full-width runs of ranks sharing the card: 128 / 64 / 64 images, 2
+# steps an epoch at batch 64 (each world's first step warms the card up)
+RANK_SETS = (128, 64, 64)
 # phase_two_ranks (b): one f32 step at 64^2, 4 rows a rank (TF32 off):
 # losses, and every tensor of the state to 1e-3 of its scale
 DP_RTOL = 1e-3
@@ -2776,39 +3018,67 @@ def _peak(dev):
 
 
 def rank_main(out_json, argv):
-    """`chip_smoke.py --rank-main OUT ARGS...` under torch.distributed.run:
-    cli.train_student.main(ARGS) on this rank; rank 0 writes the run's
-    step times, run directory, peak memory, launch and collective counts
-    to OUT."""
+    """`chip_smoke.py --rank-main OUT ARGS... [--then ARGS...]` under
+    torch.distributed.run: cli.train_student.main(ARGS) on this rank, for
+    each ARGS in turn (one process group for all); rank 0 writes a list of
+    each run's step times, run directory, peak memory, launch and
+    collective counts (and a MoMA run's queue pointer) to OUT."""
     from moma_tpu_torch.cli import train_student
-    from moma_tpu_torch.core.mesh import comm_counts
-    from moma_tpu_torch.runtime import launch_counts
+    from moma_tpu_torch.core.mesh import comm_counts, reset_comm_counts
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
 
-    dev = argv[argv.index("--device") + 1]
-    _peak_reset(dev)
-    state, result = train_student.main(argv)
+    runs, cur = [], []
+    for a in argv:
+        if a == "--then":
+            runs.append(cur)
+            cur = []
+        else:
+            cur.append(a)
+    runs.append(cur)
+    records = []
+    for args in runs:
+        dev = args[args.index("--device") + 1]
+        _peak_reset(dev)
+        reset_launch_counts()
+        reset_comm_counts()
+        state, result = train_student.main(args)
+        records.append({"batch_times": result["train"]["batch_times"],
+                        "run_dir": result["run_dir"],
+                        "queue_ptr": getattr(getattr(state, "queue", None),
+                                             "ptr", None),
+                        "peak": _peak(dev), "launches": launch_counts(),
+                        "comm": comm_counts()})
+        del state, result
     if int(os.environ.get("RANK", "0")) == 0:
         with open(out_json, "w") as f:
-            json.dump({"batch_times": result["train"]["batch_times"],
-                       "run_dir": result["run_dir"],
-                       "queue_ptr": state.queue.ptr, "peak": _peak(dev),
-                       "launches": launch_counts(), "comm": comm_counts()},
-                      f)
+            json.dump(records, f)
     return 0
 
 
-def phase_nccl_one_rank(args=MAIN_ARGS):
-    """`python -m torch.distributed.run --standalone --nproc_per_node 1`
-    of cli.train_student with MAIN_ARGS and --bn local (4 steps): NCCL
-    starts on the card and every collective of the step runs through it
-    (one rank: the results are copies); the per-step losses equal the run
-    without a process group (MAIN_RUNS['main']) to STEP_LOSS_RTOL, its
-    steady step beside the plain one; rank 0 writes the checkpoints."""
+def phase_nccl_one_rank(runs=None):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1
+    chip_smoke.py --rank-main ...` of cli.train_student, each of `runs`
+    ((label, args, plain): by default MAIN_ARGS with --bn local, 4 steps,
+    against the main path's run, then run_comparison.sh's crd line against
+    phase_comparison's run; CMP_RUNS holds what each plain run gave) in one
+    launcher: NCCL starts on the card and
+    every collective of the steps runs through it (one rank: the results
+    are copies); the per-step losses equal the run without a process
+    group (`plain`) to STEP_LOSS_RTOL, the steady step beside the plain
+    one, the launch counts a plain run's; rank 0 writes the
+    checkpoints."""
+    runs = runs or [
+        ("moco", list(MAIN_ARGS) + ["--bn", "local"], CMP_RUNS["moco"]),
+        ("crd", comparison_args("crd", "1", "1", "0.8", "--path_t",
+                                CMP_RUNS["crd"]["teacher"]),
+         CMP_RUNS["crd"])]
     out_json = os.path.join(SAVE_ROOT, "nccl1.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", os.path.abspath(__file__), "--rank-main",
-           out_json, *args, "--bn", "local", "--save_dir",
-           os.path.join(SAVE_ROOT, "nccl1")]
+           out_json]
+    for i, (label, args, _) in enumerate(runs):
+        cmd += (["--then"] if i else []) + list(args) + [
+            "--save_dir", os.path.join(SAVE_ROOT, "nccl1_" + label)]
     t0 = time.perf_counter()
     rc, out, err = _run_group(cmd, RANK_TIMEOUT_S)
     wall = time.perf_counter() - t0
@@ -2816,30 +3086,35 @@ def phase_nccl_one_rank(args=MAIN_ARGS):
         raise AssertionError(f"one-rank NCCL run exited {rc}:\n{out[-3000:]}"
                              f"\n{err[-3000:]}")
     with open(out_json) as f:
-        r = json.load(f)
-    plain = MAIN_RUNS["main"]
-    gap = _check_losses(_step_losses(r["run_dir"]), plain["losses"], "nccl1")
-    for tag in ("latest", "best_acc"):
-        if not os.path.exists(os.path.join(r["run_dir"], "ckpt",
-                                           f"{tag}.pt")):
-            raise AssertionError(f"nccl1: rank 0 wrote no {tag}.pt")
-    if r["queue_ptr"] != plain["state"].queue.ptr:
-        raise AssertionError(f"nccl1: queue_ptr {r['queue_ptr']}")
-    steady = statistics.median(r["batch_times"][1:])
-    want, _ = expected_launches(plain["state"], len(r["batch_times"]))
-    if "cuda" not in args:   # a CPU rehearsal: plain versions, no launches
-        want = {}
-    for k, v in want.items():
-        if r["launches"].get(k, 0) != v:
-            raise AssertionError(f"nccl1: launch count {k}: "
-                                 f"{r['launches'].get(k, 0)} != {v}")
-    log(f"[nccl1] torch.distributed.run, 1 rank, NCCL, --bn local: "
-        f"{len(r['batch_times'])} steps in {wall:.1f} s (launcher and start "
-        f"included); step losses rel gap to the plain run {gap:.2e}; steady "
-        f"step {steady * 1e3:.1f} ms vs {plain['steady'] * 1e3:.1f} ms "
-        f"plain ({100 * (steady / plain['steady'] - 1):+.1f}%); peak "
-        f"{r['peak'] / 2 ** 30:.2f} GiB; collectives over the run "
-        f"{r['comm']}; checkpoints written by rank 0")
+        records = json.load(f)
+    for (label, args, plain), r in zip(runs, records):
+        gap = _check_losses(_step_losses(r["run_dir"]), plain["losses"],
+                            "nccl1 " + label)
+        for tag in ("latest", "best_acc"):
+            if not os.path.exists(os.path.join(r["run_dir"], "ckpt",
+                                               f"{tag}.pt")):
+                raise AssertionError(f"nccl1 {label}: rank 0 wrote no "
+                                     f"{tag}.pt")
+        n = len(r["batch_times"])
+        if r["queue_ptr"] != plain.get("queue_ptr"):
+            raise AssertionError(f"nccl1 {label}: queue_ptr "
+                                 f"{r['queue_ptr']}")
+        # the plain run's launch counts (steps checked equal above)
+        want = plain["launches"] if "cuda" in args else {}
+        for k, v in want.items():
+            if r["launches"].get(k, 0) != v:
+                raise AssertionError(f"nccl1 {label}: launch count {k}: "
+                                     f"{r['launches'].get(k, 0)} != {v}")
+        steady = statistics.median(r["batch_times"][1:])
+        log(f"[nccl1] {label}: torch.distributed.run, 1 rank, NCCL"
+            f"{', --bn local' if '--bn' in args else ''}: {n} steps; step "
+            f"losses rel gap to the plain run {gap:.2e}; steady step "
+            f"{steady * 1e3:.1f} ms vs {plain['steady'] * 1e3:.1f} ms "
+            f"plain ({100 * (steady / plain['steady'] - 1):+.1f}%); peak "
+            f"{r['peak'] / 2 ** 30:.2f} GiB; collectives over the run "
+            f"{r['comm']}; checkpoints written by rank 0")
+    log(f"[nccl1] {len(runs)} runs in one launcher: {wall:.1f} s (launcher "
+        f"and start included)")
 
 
 def _rank_probe(rank, world, dev="cuda"):
@@ -2903,31 +3178,45 @@ def _wrapped_comm(record):
     return _wrapped_steps(before=before, after=after)
 
 
-def _rank_full_width(rank, world, save_root, args):
-    """cli.train_student with `args` (MAIN_ARGS) on this rank's half of
-    each global batch, --bn local then --bn sync: step times, peak
-    memory, launch counts, the second step's collectives."""
+def _rank_runs(save_root, runs, extra=lambda state, result: {}):
+    """cli.train_student for each (label, argv) of `runs` on this rank:
+    step times, loss, validation accuracy, peak memory, launch counts,
+    the second step's collectives, the train-mode BN count (student and
+    aux modules), plus `extra(state, result)`."""
     from moma_tpu_torch.cli import train_student
     from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
 
     _set_root(save_root)
-    dev = args[args.index("--device") + 1]
     out = {}
-    for bn in ("local", "sync"):
-        _peak_reset(dev)
-        reset_launch_counts()
-        comm = {}
-        with _wrapped_comm(comm):
-            state, result = train_student.main(
-                args + ["--bn", bn, "--trial", f"dp2_{bn}",
-                        "--save_dir", save_root])
-        out[bn] = {"batch_times": result["train"]["batch_times"],
-                   "loss": result["train"]["loss"],
-                   "val_acc": result["val"]["acc"],
-                   "queue_ptr": state.queue.ptr, "peak": _peak(dev),
-                   "launches": launch_counts(), "comm_step": comm,
-                   "n_bn": _n_bn(state.student)}
+    with _cut_sets(RANK_SETS):
+        for label, argv in runs:
+            dev = argv[argv.index("--device") + 1]
+            _peak_reset(dev)
+            reset_launch_counts()
+            comm = {}
+            with _wrapped_comm(comm):
+                state, result = train_student.main(
+                    argv + ["--save_dir", save_root])
+            out[label] = {
+                "batch_times": result["train"]["batch_times"],
+                "loss": result["train"]["loss"],
+                "val_acc": result["val"]["acc"], "peak": _peak(dev),
+                "launches": launch_counts(), "comm_step": comm,
+                "n_bn": _n_bn(state.student, *(
+                    [state.aux] if hasattr(state, "aux") else [])),
+                **extra(state, result)}
+            del state, result
     return out
+
+
+def _rank_full_width(rank, world, save_root, args):
+    """cli.train_student with `args` (MAIN_ARGS) on this rank's half of
+    each global batch, --bn local then --bn sync (_rank_runs, and the
+    queue pointer)."""
+    return _rank_runs(
+        save_root, [(bn, args + ["--bn", bn, "--trial", f"dp2_{bn}"])
+                    for bn in ("local", "sync")],
+        lambda state, result: {"queue_ptr": state.queue.ptr})
 
 
 def _small_batch_dp():
@@ -2992,6 +3281,14 @@ def _rank_small(rank, world, dev="cuda"):
             "global": _dp_step("global", 1, False, dev)}
 
 
+def _rank_dp2(rank, world, save_root, args, dev):
+    """phase_two_ranks' one world: the collective probe, the full-width
+    runs, then the 64^2 oracles."""
+    return {"probe": _rank_probe(rank, world, dev),
+            "full": _rank_full_width(rank, world, save_root, args),
+            "small": _rank_small(rank, world, dev)}
+
+
 def _dp_compare(got, want, label, exact=False):
     (mg, sg), (mw, sw) = got, want
     for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
@@ -3025,17 +3322,17 @@ def phase_two_ranks(dev="cuda", args=MAIN_ARGS):
     from moma_tpu_torch.core.mesh import spawn_ranks
 
     t_phase = time.perf_counter()
-    probe = spawn_ranks(_rank_probe, 2, (dev,), backend="gloo",
-                        timeout_s=RANK_TIMEOUT_S)
+    save = os.path.join(SAVE_ROOT, "dp2")
+    world = spawn_ranks(_rank_dp2, 2, (save, list(args), dev),
+                        backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    probe = [w["probe"] for w in world]
     log(f"[dp2] gloo on {dev} tensors, 2 ranks on one device: {probe[0]}")
     refused = sorted({k for p in probe for k, v in p.items() if v != "ok"})
     if refused:
         raise AssertionError(f"gloo refuses on {dev} tensors: {refused}: "
                              f"{probe}")
-
-    save = os.path.join(SAVE_ROOT, "dp2")
-    ranks = spawn_ranks(_rank_full_width, 2, (save, list(args)),
-                        backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    ranks = [w["full"] for w in world]
+    small = [w["small"] for w in world]
     B = int(args[args.index("--batch_size") + 1])
     K = int(args[args.index("--nce_k") + 1])
     for bn in ("local", "sync"):
@@ -3077,8 +3374,6 @@ def phase_two_ranks(dev="cuda", args=MAIN_ARGS):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        small = spawn_ranks(_rank_small, 2, (dev,), backend="gloo",
-                            timeout_s=RANK_TIMEOUT_S)
         accum = _dp_step("global", 2, True, dev=dev)
         one = _dp_step("global", 1, False, dev=dev)
         one_none = _dp_step("global", 1, False, dev=dev, attn="none")
@@ -3113,32 +3408,25 @@ RING_RTOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 5e-2)}
 
 def _rank_ma_full(rank, world, save_root, runs):
     """cli.train_student for each (label, args) of `runs` with
-    --model_parallel 2 (data 1 x model 2): step times, peak memory, launch
-    counts, the second step's collectives, step losses."""
-    from moma_tpu_torch.cli import train_student
-    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+    --model_parallel 2 (data 1 x model 2): _rank_runs, the step losses,
+    the queue pointer and this rank's bank rows."""
 
-    _set_root(save_root)
-    out = {}
-    for label, args in runs:
-        dev = args[args.index("--device") + 1]
-        _peak_reset(dev)
-        reset_launch_counts()
-        comm = {}
-        with _wrapped_comm(comm):
-            state, result = train_student.main(
-                args + ["--model_parallel", str(MA_MP), "--trial",
-                        f"mp_{label}", "--save_dir", save_root])
-        out[label] = {"batch_times": result["train"]["batch_times"],
-                      "loss": result["train"]["loss"],
-                      "losses": _step_losses(result["run_dir"]),
-                      "val_acc": result["val"]["acc"],
-                      "queue_ptr": state.queue.ptr,
-                      "bank_rows": state.queue.memory[
-                          next(iter(state.queue.memory))].shape[0],
-                      "peak": _peak(dev), "launches": launch_counts(),
-                      "comm_step": comm, "n_bn": _n_bn(state.student)}
-    return out
+    def extra(state, result):
+        return {"losses": _step_losses(result["run_dir"]),
+                "queue_ptr": state.queue.ptr,
+                "bank_rows": state.queue.memory[
+                    next(iter(state.queue.memory))].shape[0]}
+    return _rank_runs(
+        save_root, [(label, args + ["--model_parallel", str(MA_MP),
+                                    "--trial", f"mp_{label}"])
+                    for label, args in runs], extra)
+
+
+def _rank_ma_row(rank, world, save_root, runs, dev, ring_shape):
+    """phase_model_axis' (1 x 2) world: the full-width runs, then the
+    grid's oracles."""
+    return {"full": _rank_ma_full(rank, world, save_root, runs),
+            "grid": _rank_ma_small(rank, world, dev, ring_shape)}
 
 
 def _ring_inputs(dtype, dev, shape):
@@ -3258,8 +3546,9 @@ def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
     t_phase = time.perf_counter()
     runs = runs or (("moco", list(MAIN_ARGS)), ("mocoatt", list(MOCOATT_ARGS)))
     save = os.path.join(SAVE_ROOT, "mp2")
-    full = spawn_ranks(_rank_ma_full, MA_MP, (save, runs), backend="gloo",
-                       timeout_s=RANK_TIMEOUT_S)
+    row = spawn_ranks(_rank_ma_row, MA_MP, (save, runs, dev, ring_shape),
+                      backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    full = [w["full"] for w in row]
     log("[mp2] two model ranks share one card: their step times are those "
         "of two processes taking turns, no model-parallel speed")
     for label, args in runs:
@@ -3307,9 +3596,10 @@ def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        grids = {w: spawn_ranks(_rank_ma_small, w, (dev, ring_shape),
-                                backend="gloo", timeout_s=RANK_TIMEOUT_S)
-                 for w in (2 * MA_MP, MA_MP)}
+        grids = {2 * MA_MP: spawn_ranks(_rank_ma_small, 2 * MA_MP,
+                                        (dev, ring_shape), backend="gloo",
+                                        timeout_s=RANK_TIMEOUT_S),
+                 MA_MP: [w["grid"] for w in row]}
         one = {"moco_local": _dp_step("global", 2, True, dev),
                "moco_sync": _dp_step("global", 1, False, dev, "none"),
                "moco_global": _dp_step("global", 1, False, dev),
@@ -3409,8 +3699,14 @@ def _run(name_power, t0) -> int:
     phase_step_parity(extra=("--fused_teacher", "on"))
     phase_step_parity(extra=("--model_t", "vit_small_patch16_224"))
     counts = phase_main_path()
+    main = MAIN_RUNS["main"]
+    # what phase_nccl_one_rank's MoCo run is held to (phase_packed frees
+    # the main run's state)
+    CMP_RUNS["moco"] = {
+        "losses": main["losses"], "steady": main["steady"],
+        "queue_ptr": main["state"].queue.ptr,
+        "launches": expected_launches(main["state"], len(main["losses"]))[0]}
     accum_counts = phase_grad_accum()
-    phase_nccl_one_rank()
     dp_counts = phase_two_ranks()
     mp_counts = phase_model_axis()
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
@@ -3420,11 +3716,13 @@ def _run(name_power, t0) -> int:
     cross_counts = phase_cross_arch()
     teacher_best, teacher_counts = phase_teacher()
     cmp_counts = phase_comparison(teacher_best)
+    cmp2_counts = phase_comparison_ranks(teacher_best)
+    phase_nccl_one_rank()
     zoo_counts = phase_zoo(results)
     # a kernel's launches: those of the first main path that runs it
     for later in (accum_counts, dp_counts, att_counts, fused_counts,
                   packed_counts, cross_counts, teacher_counts, cmp_counts,
-                  zoo_counts, mp_counts):
+                  cmp2_counts, zoo_counts, mp_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

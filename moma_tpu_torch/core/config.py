@@ -214,14 +214,10 @@ class Config:
 
 def check_slice(cfg: Config, supervised: bool = False) -> None:
     """Raise NotImplementedError for any choice outside the ported slice;
-    `supervised`: a teacher run's config (no teacher, no distiller).  The
-    world size is the process group's, or torchrun's WORLD_SIZE before the
-    group starts (core/mesh.py)."""
-    from moma_tpu_torch.core.mesh import env_world
+    `supervised`: a teacher run's config (no teacher, no distiller)."""
     from moma_tpu_torch.models import NOT_PORTED
 
     m, r, method = cfg.moma, cfg.run, cfg.distill.distill
-    world = env_world()
     bad = []
     if not supervised:
         if method not in ("moma",) + DISTILLERS:
@@ -241,12 +237,6 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
             if r.grad_accum > 1 and r.model_parallel > 1:
                 bad.append("--grad_accum with --model_parallel (microbatches "
                            "over a split bank, Queue 1 item [5b-accum])")
-        elif world > 1:
-            # several of their losses couple rows across the batch: they
-            # need gathers that carry gradients
-            bad.append(f"--distill {method} at world_size {world} (the "
-                       "comparison distillers on several ranks, Queue 1 "
-                       "item [5c])")
         if m.teacher_quant != "none":
             bad.append("--teacher_quant (Queue 1 item 6)")
     for mc in (cfg.model_s, cfg.model_t):
@@ -260,16 +250,25 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
 
 def check_model_axis(cfg: Config, cross_arch: bool) -> None:
     """The JAX package's refusals around --model_parallel in a MoMA run
-    (train/moma.py:1273-1331), its messages as ValueError, then, by name,
-    what is not ported: the model axis of a cross-arch run (the tensor-,
-    pipeline- and expert-parallel ViT teachers, --sequence_parallel,
-    --pp_microbatch)."""
+    (train/moma.py:1273-1331, 1426-1431), its messages as ValueError,
+    then, by name, what is not ported: the model axis of a cross-arch run
+    at --model_parallel > 1 (the tensor-, pipeline- and expert-parallel
+    ViT teachers, --sequence_parallel, --pp_microbatch)."""
     r = cfg.run
     if r.pp_microbatch and r.teacher_parallel != "pipeline":
         raise ValueError(
             "--pp_microbatch only applies with --teacher_parallel pipeline")
     mp = r.model_parallel
-    if mp > 1:
+    if mp <= 1:
+        # in both arches, after the --pp_microbatch check (moma.py:1426-1431)
+        if r.sequence_parallel:
+            raise ValueError(
+                "--sequence_parallel requires --model_parallel > 1")
+        if r.teacher_parallel != "tensor":
+            raise ValueError(
+                f"--teacher_parallel {r.teacher_parallel} requires "
+                "--model_parallel > 1")
+    else:
         if r.bn != "global" and cross_arch:
             raise ValueError(
                 "bn='local'/'sync' with --model_parallel does not compose "
@@ -288,8 +287,7 @@ def check_model_axis(cfg: Config, cross_arch: bool) -> None:
         if cfg.moma.nce_k % mp != 0:
             raise ValueError(f"nce_k={cfg.moma.nce_k} not divisible by "
                              f"model_parallel={mp}")
-    if cross_arch and (mp > 1 or r.sequence_parallel or r.pp_microbatch
-                       or r.teacher_parallel != "tensor"):
+    if cross_arch and mp > 1:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): the model "
             "axis of a cross-arch run (--model_parallel, "

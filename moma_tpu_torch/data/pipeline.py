@@ -18,7 +18,10 @@ rows [r*b, (r+1)*b), or under `grad_accum` M its share of each of the
 batch's M contiguous chunks), so the global batch is the one-process
 batch; the prefetcher gathers only those rows.  An eval Loader splits each
 padded global batch into contiguous shares, its 'mask' marking the
-padding.
+padding.  A train Loader whose `with_global_index` is set also hands each
+batch the whole global batch's dataset rows as 'global_index' (host
+numpy), for draws that every rank makes for the global batch (the CRD
+sampler, train/student.SampledLoader).
 """
 
 from __future__ import annotations
@@ -128,6 +131,7 @@ class Loader:
         self.extras = extras or {}
         self.num_workers = num_workers
         self.device = device
+        self.with_global_index = False
         self._batcher = None
         self._ring = None
 
@@ -151,11 +155,14 @@ class Loader:
         """This rank's rows of a global batch's indices."""
         return rank_rows(idx, self.rank, self.world, self.grad_accum)
 
-    def _batch(self, idx: np.ndarray, images=None) -> dict:
+    def _batch(self, idx: np.ndarray, images=None,
+               global_idx: Optional[np.ndarray] = None) -> dict:
         batch = {"image": self.ds.images[idx] if images is None else images,
                  "label": self.ds.labels[idx], "index": idx.astype(np.int32)}
         for k, v in self.extras.items():
             batch[k] = v[idx]
+        if self.with_global_index and global_idx is not None:
+            batch["global_index"] = global_idx
         return batch
 
     def _native(self):
@@ -205,8 +212,8 @@ class Loader:
                 if hi < n_batches:
                     submit(hi)
                     hi += 1
-                yield self._batch(self._rows(order[i * bs:(i + 1) * bs]),
-                                  images)
+                glob = order[i * bs:(i + 1) * bs]
+                yield self._batch(self._rows(glob), images, glob)
         finally:
             # an abandoned iteration: take back what is still submitted
             for _ in range(hi - done):
@@ -222,7 +229,8 @@ class Loader:
                 yield from self._native_iter(order, self.start_batch, n // bs)
                 return
             for i in range(self.start_batch, n // bs):
-                yield self._batch(self._rows(order[i * bs:(i + 1) * bs]))
+                glob = order[i * bs:(i + 1) * bs]
+                yield self._batch(self._rows(glob), global_idx=glob)
         else:
             for i in range(math.ceil(n / bs)):
                 idx = np.arange(i * bs, min((i + 1) * bs, n))

@@ -173,18 +173,25 @@ class SelfA(nn.Module):
                                        for s_c in s_channels
                                        for t_c in t_channels)
 
-    def forward(self, feat_s, feat_t):
+    def forward(self, feat_s, feat_t, ax):
+        """`ax`: a core/mesh data axis.  In a group the batch-similarity
+        matrices are the global batch's (the maps gathered from every
+        rank, the student's with their gradient), as `batch_size` is, and
+        the attention comes back for this rank's rows; the regressors run
+        on this rank's rows only."""
         B = self.batch_size
 
         def sim(f):
             f = f.float().reshape(B, -1)
             return f @ f.T
 
-        queries = torch.stack([q(sim(f)) for q, f in zip(self.query, feat_s)],
-                              1)
-        keys = torch.stack([k(sim(f)) for k, f in zip(self.key, feat_t)], 2)
+        queries = torch.stack([q(sim(ax.gather_grad(f)))
+                               for q, f in zip(self.query, feat_s)], 1)
+        keys = torch.stack([k(sim(ax.gather(f)))
+                            for k, f in zip(self.key, feat_t)], 2)
         attention = torch.softmax(
             torch.einsum("bsq,bqt->bst", queries, keys) / self.soft, -1)
+        attention = ax.local_slice(attention, feat_s[0].shape[0])
         values, targets = [], []
         n_t = len(feat_t)
         for i, fs in enumerate(feat_s):

@@ -7,6 +7,12 @@ return a new memory; here the step updates the banks in place, after
 scoring against the gathered pre-update rows, which is the same order.
 The negative indices come from the host (data/sampler.py), column 0 the
 positive.
+
+In a process group (core/mesh.py) each rank scores its own rows; Z is set
+from the global batch's mean (the ranks' means averaged: equal shares),
+and every rank writes the rows gathered from all ranks, in rank order,
+into its banks, so the banks stay equal and each is the one-process
+bank.  In one process (mesh._Replicated) both are the identity.
 """
 
 from __future__ import annotations
@@ -51,12 +57,13 @@ class CRDMemory:
 
 def contrast_scores(mem: CRDMemory, f_s: torch.Tensor, f_t: torch.Tensor,
                     idx: torch.Tensor, contrast_idx: torch.Tensor,
-                    nce_t: float, momentum: float
+                    nce_t: float, momentum: float, ax
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out_v1, out_v2): exp scores against the PRE-update banks over
     (B, K+1) rows, divided by Z (set from the first batch, constant
     after); then rows `idx` of each bank move by momentum toward the batch
-    embedding and are renormalized, in place."""
+    embedding and are renormalized, in place.  `ax`: the data axis whose
+    ranks' rows make the batch (module docstring)."""
     n_data = mem.v1.shape[0]
     cidx = contrast_idx.long()
     w_v1 = mem.v1[cidx]                      # (B, K+1, D), a copy
@@ -64,13 +71,17 @@ def contrast_scores(mem: CRDMemory, f_s: torch.Tensor, f_t: torch.Tensor,
     out_v2 = torch.exp(torch.einsum("bkd,bd->bk", w_v1, f_t.float()) / nce_t)
     out_v1 = torch.exp(torch.einsum("bkd,bd->bk", w_v2, f_s.float()) / nce_t)
     with torch.no_grad():
-        mem.z_v1.copy_(torch.where(mem.z_v1 < 0, out_v1.mean() * n_data,
+        means = torch.stack([out_v1.mean(), out_v2.mean()])
+        # every step, so no rank reads Z on the host to decide
+        ax.pmean_([means])
+        mem.z_v1.copy_(torch.where(mem.z_v1 < 0, means[0] * n_data,
                                    mem.z_v1))
-        mem.z_v2.copy_(torch.where(mem.z_v2 < 0, out_v2.mean() * n_data,
+        mem.z_v2.copy_(torch.where(mem.z_v2 < 0, means[1] * n_data,
                                    mem.z_v2))
         # the divisors are this step's Z: copies, so the in-place update
         # above cannot reach the graph
         z_v1, z_v2 = mem.z_v1.clone(), mem.z_v2.clone()
+        idx, f_s, f_t = ax.gather(idx), ax.gather(f_s), ax.gather(f_t)
         rows_idx = idx.long()
         for bank, v in ((mem.v1, f_s), (mem.v2, f_t)):
             rows = bank[rows_idx] * momentum + v.float() * (1 - momentum)
@@ -92,11 +103,12 @@ def contrast_loss(x: torch.Tensor, n_data: int) -> torch.Tensor:
 
 
 def crd_loss(mem: CRDMemory, f_s: torch.Tensor, f_t: torch.Tensor,
-             idx: torch.Tensor, contrast_idx: torch.Tensor,
+             idx: torch.Tensor, contrast_idx: torch.Tensor, ax,
              nce_t: float = 0.07, momentum: float = 0.5) -> torch.Tensor:
     """The symmetric student / teacher NCE loss of one step (:103); the
-    memory is updated in place."""
+    memory is updated in place.  A mean over the rows: on ranks, their
+    average is the global batch's loss."""
     n_data = mem.v1.shape[0]
     out_v1, out_v2 = contrast_scores(mem, f_s, f_t, idx, contrast_idx,
-                                     nce_t, momentum)
+                                     nce_t, momentum, ax)
     return contrast_loss(out_v1, n_data) + contrast_loss(out_v2, n_data)

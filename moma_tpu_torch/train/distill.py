@@ -14,6 +14,22 @@ modules run in train mode, their BN running statistics updated in place
 channel-sum kernels); the CRD banks are updated in place after scoring.
 The feature contract is the JAX package's: feats = (reductions...,
 head map, pooled), NHWC maps.
+
+In a process group of several ranks (core/mesh.py) the step is JAX's
+jitted step over the global batch: each rank augments its rows from its
+own stream, the student's and the aux modules' BatchNorms take sync
+statistics, and the gradients and metrics are averaged over the ranks.
+The losses that couple rows across the batch (similarity's Gram, rkd's
+distances and angles, pkt's similarities, correlation's consecutive
+rows, semckd's batch-similarity attention) run their one-process
+function on the rows gathered from every rank in rank order
+(`gather_grad`: its backward sums the ranks' gradients of the gathered
+rows, which the gradient average divides back).  Every rank computes the
+same global loss, so the averaged gradient is the global one.  CRD stays
+per row; its Z normaliser takes the global batch's mean and every rank
+writes the gathered rows into its banks, so the banks stay equal.  The
+other methods are per-row means, whose average over equal shares is the
+global mean.
 """
 
 from __future__ import annotations
@@ -30,9 +46,11 @@ from moma_tpu_torch.losses import aux as A
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.losses.crd import CRDMemory, crd_loss
 from moma_tpu_torch.models import remat as rm
+from moma_tpu_torch.ops.fused_bn import sync_stats
 from moma_tpu_torch.train.state import DistillState, sgd_step
 from moma_tpu_torch.train.steps import (accuracy, average_grads, eval_sums,
-                                        mean_metrics, microbatches)
+                                        mean_metrics, microbatches,
+                                        step_augment_generator)
 
 STATELESS = {"kd", "attention", "similarity", "nst", "rkd", "pkt", "kdsvd",
              "ab", "fsp", "ft"}
@@ -113,11 +131,13 @@ class Distiller:
     def loss(self, aux: nn.ModuleDict, extra: Optional[CRDMemory],
              feat_s: Sequence[torch.Tensor], feat_t: Sequence[torch.Tensor],
              logit_s: torch.Tensor, logit_t: torch.Tensor, batch: dict,
-             cls_t_apply: Callable):
+             cls_t_apply: Callable, ax=None):
         """(loss_kd, logits for the metrics or None).  The logits are
         non-None for simkd only: its student is scored through the reused
-        teacher classifier."""
+        teacher classifier.  `ax`: the data axis (core/mesh.data_axis()
+        by default) whose ranks' rows the batch-coupled losses gather."""
         m, d = self.method, self.cfg.distill
+        ax = data_axis() if ax is None else ax
         metric_logits = None
         if m == "kd":
             loss_kd = torch.zeros((), device=logit_s.device)
@@ -128,7 +148,8 @@ class Distiller:
         elif m == "attention":
             loss_kd = F.attention_transfer(feat_s[1:-1], feat_t[1:-1])
         elif m == "similarity":
-            loss_kd = F.similarity_preserving([feat_s[-2]], [feat_t[-2]])
+            loss_kd = F.similarity_preserving([ax.gather_grad(feat_s[-2])],
+                                              [ax.gather(feat_t[-2])])
         elif m == "vid":
             loss_kd = 0.0
             for i, (fs, ft) in enumerate(zip(feat_s[1:-1], feat_t[1:-1])):
@@ -138,22 +159,24 @@ class Distiller:
         elif m == "nst":
             loss_kd = F.nst_loss(feat_s[1:-2], feat_t[1:-2])
         elif m == "rkd":
-            loss_kd = F.rkd_loss(feat_s[-1], feat_t[-1])
+            loss_kd = F.rkd_loss(ax.gather_grad(feat_s[-1]),
+                                 ax.gather(feat_t[-1]))
         elif m == "pkt":
-            loss_kd = F.pkt_loss(feat_s[-1], feat_t[-1])
+            loss_kd = F.pkt_loss(ax.gather_grad(feat_s[-1]),
+                                 ax.gather(feat_t[-1]))
         elif m == "kdsvd":
             loss_kd = F.kdsvd_loss(feat_s[1:-1], feat_t[1:-1])
         elif m == "correlation":
-            loss_kd = F.cc_loss(aux["embed_s"](feat_s[-1]),
-                                aux["embed_t"](feat_t[-1]))
+            loss_kd = F.cc_loss(ax.gather_grad(aux["embed_s"](feat_s[-1])),
+                                ax.gather_grad(aux["embed_t"](feat_t[-1])))
         elif m == "crd":
             loss_kd = crd_loss(
                 extra, aux["embed_s"](feat_s[-1]), aux["embed_t"](feat_t[-1]),
-                batch["index"], batch["contrast_idx"],
+                batch["index"], batch["contrast_idx"], ax,
                 nce_t=self.cfg.moma.nce_t, momentum=self.cfg.moma.nce_m)
         elif m == "semckd":
             s_value, f_target, weight = aux["selfa"](feat_s[1:-1],
-                                                     feat_t[1:-1])
+                                                     feat_t[1:-1], ax)
             loss_kd = F.semckd_loss(s_value, f_target, weight)
         elif m == "srrl":
             trans_feat_s = aux["srrl"](feat_s[-1])
@@ -218,21 +241,24 @@ def make_distill_train_step(distiller: Distiller,
     """step(state: DistillState, batch, generator) -> (state, metrics).
 
     batch: {'image', 'label'} on the run's device, plus 'index' and
-    'contrast_idx' for crd.  `remat` recomputes the student forward in
-    the backward (models/remat.py; the frozen teacher's forward is
-    gradient-free and holds nothing).  `grad_accum = M > 1` runs the
-    augmented batch as M equal microbatches, one SGD step on the averaged
-    gradients (distill.py:329-475): BatchNorm (student and aux modules)
-    sees each microbatch's statistics, the running statistics and the CRD
-    banks chain from one microbatch to the next (each sample's bank row
-    written once a step)."""
+    'contrast_idx' for crd (this rank's rows in a group).  `remat`
+    recomputes the student forward in the backward (models/remat.py; the
+    frozen teacher's forward is gradient-free and holds nothing).
+    `grad_accum = M > 1` runs the augmented batch as M equal microbatches,
+    one SGD step on the averaged gradients (distill.py:329-475): BatchNorm
+    (student and aux modules) sees each microbatch's statistics, the
+    running statistics and the CRD banks chain from one microbatch to the
+    next (each sample's bank row written once a step).  In a group,
+    microbatch i on every rank is its share of the global batch's i-th
+    chunk (mesh.rank_rows, the Loader's split), its statistics and coupled
+    losses taken over the ranks."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     cfg = distiller.cfg
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     kd_T = cfg.distill.kd_T
 
-    def microbatch(state: DistillState, mb: dict):
+    def microbatch(state: DistillState, mb: dict, ax):
         """The microbatch's backward (gradients added to .grad) and its
         metrics."""
         images, labels = mb["image"], mb["label"].long()
@@ -247,7 +273,7 @@ def make_distill_train_step(distiller: Distiller,
         loss_div = F.kd_kl(logit_s, logit_t, kd_T)
         loss_kd, metric_logits = distiller.loss(
             state.aux, state.extra, feat_s, feat_t, logit_s, logit_t, mb,
-            make_classifier_apply(state.teacher))
+            make_classifier_apply(state.teacher), ax)
         total = c * loss_cls + dv * loss_div + b * loss_kd
         total.backward()
         logits = metric_logits if metric_logits is not None else logit_s
@@ -256,14 +282,19 @@ def make_distill_train_step(distiller: Distiller,
                 **accuracy(logits, labels)}
 
     def step(state: DistillState, batch, generator: torch.Generator):
+        ax = data_axis()
         batch = dict(batch)
         if augment_fn is not None:
-            batch["image"] = augment_fn(batch["image"], generator)
+            batch["image"] = augment_fn(
+                batch["image"], step_augment_generator(generator, ax))
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = [microbatch(state, {k: v[rows] for k, v in batch.items()})
-                   for rows in microbatches(batch["image"].shape[0],
-                                            grad_accum)]
-        ax = data_axis()
+        # the frozen eval-mode teacher normalizes by its running
+        # statistics: only the student's and the aux modules' BNs sync
+        with sync_stats(ax):
+            metrics = [microbatch(state, {k: v[rows]
+                                          for k, v in batch.items()}, ax)
+                       for rows in microbatches(batch["image"].shape[0],
+                                                grad_accum)]
         average_grads(state.trainable_params(), ax, grad_accum)
         sgd_step(state.optimizer, state.schedule(state.step))
         state.step += 1

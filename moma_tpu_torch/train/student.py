@@ -16,6 +16,14 @@ sampler, then trains with `make_distill_train_step`.  Run directory
 --resume restores them all), `stat.json`, `scalars.jsonl`, TensorBoard
 events and `parameters.json`.  simkd evaluates through its bottleneck and
 the teacher's classifier (`make_simkd_eval_step`).
+
+In a process group of several ranks (core/mesh.py, `torch.distributed.run
+--nproc_per_node W`) each rank trains on its rows of the global batch
+(train/distill.py: sync statistics, the coupled losses over the gathered
+rows, averaged gradients), as run_teacher does: rank 0 writes the
+checkpoints and stat files, every rank resumes from them (the CRD banks
+too, equal on every rank), evaluation sums over the ranks and a SIGTERM
+to one rank stops all of them at the agreed step (train/loop.py).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch import nn
 
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_slice
+from moma_tpu_torch.core.mesh import rank_rows
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.data.sampler import InstanceSampler
 from moma_tpu_torch.models import create_model
@@ -55,11 +64,15 @@ def load_teacher(cfg: Config, model_t: nn.Module) -> nn.Module:
 
 class SampledLoader:
     """A train Loader whose batches also carry 'contrast_idx', the
-    sampler's (B, K+1) draw for the batch's 'index' (int32)."""
+    sampler's (B, K+1) draw for the batch's 'index' (int32).  Every rank
+    of a group draws for the GLOBAL batch's rows, the one-process draw
+    from the same seeded stream, and keeps its own rows of it
+    (mesh.rank_rows, the Loader's split, --grad_accum aware)."""
 
     def __init__(self, inner, sampler: InstanceSampler):
         self.inner, self.sampler = inner, sampler
         self.batch_size = inner.batch_size
+        inner.with_global_index = True
 
     def set_epoch(self, epoch: int):
         self.inner.set_epoch(epoch)
@@ -71,9 +84,12 @@ class SampledLoader:
         return len(self.inner)
 
     def __iter__(self):
-        for batch in self.inner:
-            batch["contrast_idx"] = self.sampler.sample(
-                batch["index"]).astype(np.int32)
+        inner = self.inner
+        for batch in inner:
+            draw = self.sampler.sample(batch.pop("global_index"))
+            batch["contrast_idx"] = rank_rows(
+                draw, inner.rank, inner.world,
+                inner.grad_accum).astype(np.int32)
             yield batch
 
 

@@ -1,6 +1,12 @@
 """Gradient accumulation (--grad_accum): moma_tpu_torch against moma_tpu's
 grad_accum steps on the CPU.
 
+- cross-arch (EmaTec) MoMA at `grad_accum=2` against JAX's accumulated
+  cross-arch step (moma.py `_make_moma_accum_step(cross_arch=True)`): the
+  same resnet8 student and batch, a small ViT teacher (patch 8, dim 32,
+  depth 2, 2 heads) at 16^2, the EMA copy starting at the student's
+  weights, no augmentation; the MoMA cases' tolerances, the EMA copy, its
+  statistics and the EMA key head at 1e-4, the fixed teacher unchanged.
 - MoMA: the port's `grad_accum=2` step against JAX's, for the three cases
   of tests/test_moma_grad_accum.py (MoCo without augmentation, MoCo and
   MoCoSSTT with its noise augmentation): resnet8 at 16^2, batch 8, K=64,
@@ -51,6 +57,7 @@ from moma_tpu.core.schedules import lr_schedule as j_lr_schedule
 from moma_tpu.data.augment import cifar_eval_normalize as j_cifar_norm
 from moma_tpu.losses.crd import CRDMemory as JCRD
 from moma_tpu.models import create_model as j_create_model
+from moma_tpu.models.vit import VisionTransformer as JViT
 from moma_tpu.moma.cmo import CMOHeads as JHeads
 from moma_tpu.moma.queue import QueueState as JQueue
 from moma_tpu.train import distill as JD
@@ -70,6 +77,7 @@ from moma_tpu_torch.interop import (jax_aux_variables, jax_variables,
                                     load_jax_aux, load_jax_variables)
 from moma_tpu_torch.losses.crd import CRDMemory
 from moma_tpu_torch.models import create_model
+from moma_tpu_torch.models.vit import VisionTransformer
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.train import distill as TD
 from moma_tpu_torch.train.moma import make_moma_train_step
@@ -280,6 +288,96 @@ def test_moma_accum_matches_jax(moma_init, mem, augment):
     for name, mem_t in ts.queue.memory.items():
         assert_close_scaled(mem_t.numpy(), np.asarray(js.queue.memory[name]),
                             1e-4, f"queue:{name}")
+
+
+VIT = dict(patch_size=8, dim=32, depth=2, num_heads=2)
+
+
+def test_cross_arch_accum_matches_jax(moma_init):
+    """Cross-arch MoMA at --grad_accum 2: each microbatch its own teacher,
+    EMA-copy and student forwards, the keys of both enqueued in order, one
+    SGD step and one EMA update, as JAX's accumulated cross-arch step."""
+    model, _, vs, _, _, images, labels, memory, _ = moma_init
+    jvit = JViT(num_classes=N_CLS, **VIT)
+    vt_x = make_init_ordered(jvit, (2, HW, HW, 3))(jax.random.PRNGKey(1))
+    jh = JHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=S_DIM,
+                t_dim=VIT["dim"], include_ema=True)
+    p, bs = heads_init(jh, 2)
+    hv = ordered_numpy({"params": p, "batch_stats": bs})
+    vit = VisionTransformer(**VIT, num_classes=N_CLS, image_size=HW)
+    load_jax_variables(vit, vt_x)
+    ph = CMOHeads("mlp", "self", FEAT, s_dim=S_DIM, t_dim=VIT["dim"],
+                  include_ema=True)
+    load_jax_variables(ph, hv)
+    inp = _port_inputs(moma_init)
+    inp.update(HW=HW, cross={"vit": VIT, "teacher": vit.state_dict(),
+                             "heads": ph.state_dict()})
+    state, cfg = W.cross_state(inp, grad_accum=M)
+    # the EMA copy is the student at the step's start
+    _check_kinks(state.student, torch.from_numpy(images), M, ph.embed_s)
+    _check_kinks(state.student, torch.from_numpy(images), M, ph.embed_ema)
+
+    jc = JConfig()
+    jc.data.dataset = "synthetic"
+    jc.data.batch_size = B
+    jc.distill = JDistill(distill="moma", cls=1.0, div=1.0, beta=1.0,
+                          kd_T=4.0)
+    jc.moma = JMoma(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
+                    mem="MoCo", head="mlp", attn="self", shuffle_bn=True,
+                    kl_teacher_bn="train")
+    jc.model_s = JModel(name="resnet8", n_cls=N_CLS)
+    jc.model_t = JModel(name="vit_tiny_patch16_224", n_cls=N_CLS)
+    jc.run.grad_accum = M
+    tx = j_make_sgd(LR, momentum=0.0, weight_decay=0.0)
+    params = {"student": vs["params"], "cmo": hv["params"]}
+    js = JState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats={"student": vs["batch_stats"],
+                     "cmo": hv["batch_stats"]},
+        teacher_params=vt_x["params"],
+        teacher_batch_stats=vt_x.get("batch_stats", {}),
+        queue=JQueue(memory={"memory": jnp.asarray(memory)},
+                     ptr=jnp.zeros((), jnp.int32)),
+        opt_state=tx.init(params), tx=tx, ema_params=vs["params"],
+        ema_batch_stats=vs["batch_stats"], apply_fn=model.apply,
+        teacher_apply_fn=jvit.apply)
+    js, jm = quick_compiled(j_make_step(jc, jh, augment_fn=None,
+                                        donate=False, cross_arch=True))(
+        js, {"image": jnp.asarray(images),
+             "label": jnp.asarray(labels.astype(np.int32)),
+             "shuffle_perm": jnp.asarray(PERM.astype(np.int32))},
+        jax.random.PRNGKey(7))
+    js = jax.device_get(js)
+
+    step = make_moma_train_step(cfg, None, cross_arch=True)
+    ts, tm = step(state, W.rank_batch(inp, 0, 1, torch.from_numpy(PERM)),
+                  torch.Generator().manual_seed(7))
+    for k in ("loss", "loss_cls", "loss_div", "loss_kd", "acc1"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-5,
+                                   atol=1e-6, err_msg=k)
+    assert int(tm["queue_ptr"]) == int(jm["queue_ptr"]) == B
+    s = jax_variables(ts.student, vs)
+    e = jax_variables(ts.ema, vs)
+    cmo = jax_variables(ts.heads, hv)
+    _close_tree(s["params"], js.params["student"], 2e-4, "student")
+    _close_tree(cmo["params"], js.params["cmo"], 2e-4, "cmo")
+    _close_tree(_updates(s["params"], vs["params"], LR),
+                _updates(js.params["student"], vs["params"], LR), 5e-3,
+                "student_grad")
+    for name in ("embed_s", "atts_q"):
+        _close_tree(_updates(cmo["params"][name], hv["params"][name], LR),
+                    _updates(js.params["cmo"][name], hv["params"][name], LR),
+                    5e-3, name + "_grad")
+    _close_tree(e["params"], js.ema_params, 1e-4, "ema")
+    _close_tree(e["batch_stats"], js.ema_batch_stats, 1e-4, "ema_bs")
+    _close_tree(cmo["params"]["embed_ema"], js.params["cmo"]["embed_ema"],
+                1e-4, "embed_ema")
+    _close_tree(s["batch_stats"], js.batch_stats["student"], 2e-4, "bs")
+    for path, g, w in walk_pairs(jax_variables(ts.teacher, vt_x), vt_x):
+        np.testing.assert_array_equal(g, w, err_msg=path)
+    assert_close_scaled(ts.queue.memory["memory"].numpy(),
+                        np.asarray(js.queue.memory["memory"]), 1e-4,
+                        "queue")
 
 
 def test_moma_accum_composes_with_remat(moma_init):

@@ -22,6 +22,12 @@ gradients 5e-3, EMA parameters 1e-4, BN statistics 1e-3, the queue 1e-4;
 each relative, with a floor at 1e-3 of the group's largest entry
 (torch_port_helpers.assert_close_scaled).
 
+Cross-arch (EmaTec) MoMA, --bn global: resnet8 student, a small ViT
+teacher (patch 8, dim 32, depth 2, 2 heads) on the 32^2 batch, the EMA
+copy starting at the student's weights, against JAX's cross-arch step on 2
+devices, at the same tolerances (the EMA copy, the EMA key head and the
+fixed teacher at EMA_RTOL); rank 1 equal to rank 0 bit for bit.
+
 Also: the Shuffle-BN permutation moves loss_kd under 'local' and not under
 'global'; `sync` gives `global`'s losses to 1e-3; the 2-rank
 'local' step (with an augmentation drawn from each rank's stream) equals
@@ -48,6 +54,7 @@ from moma_tpu.core.config import ModelConfig as JModel
 from moma_tpu.core.config import MomaConfig as JMoma
 from moma_tpu.core.mesh import create_mesh, data_sharding
 from moma_tpu.models import create_model as j_create_model
+from moma_tpu.models.vit import VisionTransformer as JViT
 from moma_tpu.moma.cmo import CMOHeads as JHeads
 from moma_tpu.moma.queue import QueueState as JQueue
 from moma_tpu.train.moma import make_moma_train_step as j_make_step
@@ -57,6 +64,7 @@ from moma_tpu.train.state import make_sgd as j_make_sgd
 from moma_tpu_torch.core.mesh import spawn_ranks
 from moma_tpu_torch.interop import jax_variables, load_jax_variables
 from moma_tpu_torch.models import create_model
+from moma_tpu_torch.models.vit import VisionTransformer
 from moma_tpu_torch.moma.cmo import CMOHeads
 
 import torch_dist_workers as W
@@ -64,7 +72,7 @@ from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (ReluInputs, assert_close_scaled,
                                 group_floor, heads_init, make_init_ordered,
                                 ordered_numpy, quick_compiled, run_once,
-                                walk_pairs)
+                                run_once_in_thread, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -87,6 +95,7 @@ MODES = {
     "global": ("global", "mlp", PERM, False),
     "local_aug": ("local", "mlp", PERM, True),
 }
+VIT = dict(patch_size=8, dim=32, depth=2, num_heads=2)
 JAX_OF = {"local": ("local", "mlp"), "sync": ("sync", "mlp"),
           "global_byol": ("global", "mlp_byol"),
           "sync_byol": ("sync", "mlp_byol")}
@@ -103,18 +112,27 @@ def init():
                     t_dim=S_DIM)
         p, bs = heads_init(jh, 2)
         heads[head] = (jh, ordered_numpy({"params": p, "batch_stats": bs}))
+    # cross-arch: the small ViT teacher and the heads with the EMA key head
+    jvit = JViT(num_classes=N_CLS, **VIT)
+    vt_x = make_init_ordered(jvit, (2, HW, HW, 3))(jax.random.PRNGKey(1))
+    jh = JHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=S_DIM,
+                t_dim=VIT["dim"], include_ema=True)
+    p, bs = heads_init(jh, 2)
+    heads["cross"] = (jh, ordered_numpy({"params": p, "batch_stats": bs}))
     rs = np.random.RandomState(302)   # see _check_kinks
     images = rs.rand(B, HW, HW, 3).astype(np.float32)
     labels = rs.randint(0, N_CLS, (B,)).astype(np.int64)
     memory = rs.randn(K, FEAT).astype(np.float32)
     memory /= np.linalg.norm(memory, axis=1, keepdims=True)
-    return model, vs, vt, heads, images, labels, memory
+    return model, vs, vt, heads, images, labels, memory, (jvit, vt_x)
 
 
 def _port_weights(init):
     _, vs, vt, heads, *_ = init
     out = {}
     for head, (_, hv) in heads.items():
+        if head == "cross":
+            continue
         st, te = create_model("resnet8", N_CLS), create_model("resnet8",
                                                               N_CLS)
         ph = CMOHeads(head, "self", FEAT, s_dim=S_DIM, t_dim=S_DIM)
@@ -126,10 +144,23 @@ def _port_weights(init):
     return out
 
 
+def _cross_weights(init):
+    """The port's cross-arch teacher and heads from the JAX variables."""
+    _, _, _, heads, *_, (_, vt_x) = init
+    vit = VisionTransformer(**VIT, num_classes=N_CLS, image_size=HW)
+    load_jax_variables(vit, vt_x)
+    ph = CMOHeads("mlp", "self", FEAT, s_dim=S_DIM, t_dim=VIT["dim"],
+                  include_ema=True)
+    load_jax_variables(ph, heads["cross"][1])
+    return {"vit": VIT, "teacher": vit.state_dict(),
+            "heads": ph.state_dict()}
+
+
 def _inputs(init):
-    *_, images, labels, memory = init
+    *_, images, labels, memory, _ = init
     rs = np.random.RandomState(11)
-    return {"B": B, "model": "resnet8", "n_cls": N_CLS, "feat": FEAT,
+    return {"B": B, "HW": HW, "model": "resnet8", "n_cls": N_CLS,
+            "feat": FEAT, "cross": _cross_weights(init),
             "K": K, "alpha": ALPHA, "lr": LR, "s_dim": S_DIM,
             "weights": _port_weights(init),
             "images": torch.from_numpy(images),
@@ -158,27 +189,47 @@ def _check_kinks(inp):
                 feats, _ = st.student(inp["images"][rows])
                 st.heads.embed_s(feats[-1])
             assert kinks.low > 5e-6, (head, rows, kinks.low)
+    # cross-arch: the EMA copy is the student at the step's start, its
+    # key head embed_ema
+    st, _ = W.cross_state(inp)
+    st.student.train()
+    st.heads.train()
+    for rows in (slice(0, B // 2), slice(B // 2, B), slice(0, B)):
+        with torch.no_grad(), ReluInputs() as kinks:
+            feats, _ = st.student(inp["images"][rows])
+            st.heads.embed_s(feats[-1])
+            st.heads.embed_ema(feats[-1])
+        assert kinks.low > 5e-6, ("cross", rows, kinks.low)
+
+
+def _checked_inputs(init):
+    inp = _inputs(init)
+    _check_kinks(inp)
+    return inp
 
 
 @pytest.fixture(scope="module")
 def ranks(init, tmp_path_factory):
-    """Both ranks' results of every mode: one spawn for the module (and for
-    the workers of a pytest-xdist run)."""
-    path = str(tmp_path_factory.mktemp("dist") / "inputs.pt")
+    """get() -> (the ranks' inputs, both ranks' results of every mode):
+    one spawn for the module (and for the workers of a pytest-xdist run),
+    started in a thread here, so that a test computes its JAX reference
+    before it waits."""
+    # a worker that loads the results builds no inputs either
+    inp = run_once("test_torch_port_dist.inputs",
+                   lambda: _checked_inputs(init))
 
     def spawn():
-        # the inputs too: a worker that loads the results builds nothing
-        inp = _inputs(init)
-        _check_kinks(inp)
+        path = str(tmp_path_factory.mktemp("dist") / "inputs.pt")
         torch.save(inp, path)
-        return inp, spawn_ranks(W.moma_modes, 2, (path,), backend="gloo",
-                                timeout_s=WORKER_TIMEOUT_S)
-    return run_once("test_torch_port_dist.ranks", spawn)
+        return spawn_ranks(W.moma_modes, 2, (path,), backend="gloo",
+                           timeout_s=WORKER_TIMEOUT_S)
+    future = run_once_in_thread("test_torch_port_dist.ranks", spawn)
+    return lambda: (inp, future.result())
 
 
 def _jax_step(init, bn, head, perm=PERM):
     """(state before, state after, metrics) of JAX's 2-device step."""
-    model, vs, vt, heads, images, labels, memory = init
+    model, vs, vt, heads, images, labels, memory, _ = init
     jh, hv = heads[head]
     mesh = create_mesh(jax.devices()[:2])
     cfg = JConfig()
@@ -242,9 +293,9 @@ def _updates(after, before):
 @pytest.mark.parametrize("mode", ["local", "sync", "global_byol",
                                   "sync_byol"])
 def test_two_rank_step_matches_jax_two_devices(init, ranks, mode):
-    inp, out = ranks
     bn, head = JAX_OF[mode]
     j0, j1, jm = _jax_step(init, bn, head)
+    _, out = ranks()
     res = out[0][mode]
     for k in ("loss", "loss_cls", "loss_kd", "loss_div", "acc1"):
         tol = DIV_RTOL if k == "loss_div" else LOSS_RTOL
@@ -282,20 +333,112 @@ def test_two_rank_step_matches_jax_two_devices(init, ranks, mode):
 
 def test_replicas_stay_equal(ranks):
     """Rank 1 ends every mode with rank 0's state, bit for bit."""
-    _, out = ranks
-    for mode in MODES:
+    _, out = ranks()
+    for mode in list(MODES) + ["cross"]:
         a, b = out[0][mode], out[1][mode]
         assert a["metrics"] == b["metrics"], mode
-        for part in ("student", "teacher", "heads", "queue"):
+        parts = ["student", "teacher", "heads", "queue"]
+        if mode == "cross":
+            parts.append("ema")
+        for part in parts:
             for k in a[part]:
                 assert torch.equal(a[part][k], b[part][k]), (mode, part, k)
+
+
+def _jax_cross_step(init):
+    """(state before, state after, metrics) of JAX's cross-arch step
+    (--bn global) on 2 devices."""
+    model, vs, vt, heads, images, labels, memory, (jvit, vt_x) = init
+    jh, hv = heads["cross"]
+    mesh = create_mesh(jax.devices()[:2])
+    cfg = JConfig()
+    cfg.data.dataset = "synthetic"
+    cfg.data.batch_size = B
+    cfg.distill = JDistill(distill="moma", cls=1.0, div=1.0, beta=1.0,
+                           kd_T=4.0)
+    cfg.moma = JMoma(feat_dim=FEAT, nce_k=K, nce_t=0.15, alpha=ALPHA,
+                     mem="MoCo", head="mlp", attn="self", shuffle_bn=True,
+                     kl_teacher_bn="eval")
+    cfg.model_s = JModel(name="resnet8", n_cls=N_CLS)
+    cfg.model_t = JModel(name="vit_tiny_patch16_224", n_cls=N_CLS)
+    tx = j_make_sgd(LR, momentum=0.0, weight_decay=0.0)
+    params = {"student": vs["params"], "cmo": hv["params"]}
+    state = JState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats={"student": vs["batch_stats"],
+                     "cmo": hv["batch_stats"]},
+        teacher_params=vt_x["params"],
+        teacher_batch_stats=vt_x.get("batch_stats", {}),
+        queue=JQueue(memory={"memory": jnp.asarray(memory)},
+                     ptr=jnp.zeros((), jnp.int32)),
+        opt_state=tx.init(params), tx=tx, ema_params=vs["params"],
+        ema_batch_stats=vs["batch_stats"], apply_fn=model.apply,
+        teacher_apply_fn=jvit.apply)
+    step = quick_compiled(j_make_step(cfg, jh, augment_fn=None, donate=False,
+                                      mesh=mesh, cross_arch=True))
+    batch = {"image": jax.device_put(images, data_sharding(mesh)),
+             "label": jax.device_put(labels.astype(np.int32),
+                                     data_sharding(mesh, ndim=1)),
+             "shuffle_perm": jnp.asarray(PERM.astype(np.int32))}
+    new, metrics = step(state, batch, jax.random.PRNGKey(7))
+    return state, jax.device_get(new), {k: float(v) for k, v in
+                                        metrics.items()}
+
+
+def test_cross_arch_two_rank_step_matches_jax_two_devices(init, ranks):
+    """Cross-arch (EmaTec) MoMA on 2 ranks, --bn global, against JAX's
+    cross-arch step on 2 devices: the losses, the student's and the CMO
+    heads' updates (the averaged gradients), the EMA copy and its BN
+    statistics, the EMA key head, the fixed teacher unchanged, the queue."""
+    j0, j1, jm = _jax_cross_step(init)
+    _, out = ranks()
+    res = out[0]["cross"]
+    for k in ("loss", "loss_cls", "loss_kd", "loss_div", "acc1"):
+        tol = DIV_RTOL if k == "loss_div" else LOSS_RTOL
+        assert abs(res["metrics"][k] - jm[k]) <= tol * abs(jm[k]) + 1e-6, (
+            k, res["metrics"][k], jm[k])
+    assert res["queue_ptr"] == int(jm["queue_ptr"]) == B
+    _, vs, _, heads, *_, (_, vt_x) = init
+    hv = heads["cross"][1]
+    st, ema = (create_model("resnet8", N_CLS) for _ in range(2))
+    st.load_state_dict(res["student"])
+    ema.load_state_dict(res["ema"])
+    vit = VisionTransformer(**VIT, num_classes=N_CLS, image_size=HW)
+    vit.load_state_dict(res["teacher"])
+    ph = CMOHeads("mlp", "self", FEAT, s_dim=S_DIM, t_dim=VIT["dim"],
+                  include_ema=True)
+    ph.load_state_dict(res["heads"])
+    s, e, cmo = (jax_variables(m, t) for m, t in (
+        (st, vs), (ema, vs), (ph, hv)))
+    _close_tree(_updates(s["params"], vs["params"]),
+                _updates(j1.params["student"], j0.params["student"]),
+                GRAD_RTOL, "student_grad")
+    for name in ("embed_s", "atts_q"):
+        _close_tree(_updates(cmo["params"][name], hv["params"][name]),
+                    _updates(j1.params["cmo"][name], j0.params["cmo"][name]),
+                    GRAD_RTOL, name)
+    _close_tree(e["params"], j1.ema_params, EMA_RTOL, "ema")
+    _close_tree(cmo["params"]["embed_ema"], j1.params["cmo"]["embed_ema"],
+                EMA_RTOL, "embed_ema")
+    _close_tree(s["batch_stats"], j1.batch_stats["student"], BN_RTOL,
+                "student_bs")
+    _close_tree(e["batch_stats"], j1.ema_batch_stats, BN_RTOL, "ema_bs")
+    # the fixed teacher: untouched on both sides
+    for path, g, w in walk_pairs(jax_variables(vit, vt_x), vt_x):
+        np.testing.assert_array_equal(g, w, err_msg=path)
+    for path, g, w in walk_pairs(jax.device_get(j1.teacher_params),
+                                 vt_x["params"]):
+        np.testing.assert_array_equal(g, w, err_msg=path)
+    assert_close_scaled(res["queue"]["memory"].numpy(),
+                        np.asarray(j1.queue.memory["memory"]), QUEUE_RTOL,
+                        "queue")
 
 
 def test_sync_equals_global(ranks):
     """'sync' (per-rank batch-token attention, sync statistics) reproduces
     the global step's losses to 1e-3
     (tests/test_moma_local_bn.py::test_sync_equals_global)."""
-    _, out = ranks
+    _, out = ranks()
     s, g = out[0]["sync"], out[0]["global"]
     for k in ("loss", "loss_kd"):
         np.testing.assert_allclose(s["metrics"][k], g["metrics"][k],
@@ -305,7 +448,7 @@ def test_sync_equals_global(ranks):
 def test_local_bn_shuffle_matters(ranks):
     """Per-rank BN: the permutation moves the keys and loss_kd; global
     statistics: it cannot."""
-    _, out = ranks
+    _, out = ranks()
     r = out[0]
     assert abs(r["local"]["metrics"]["loss_kd"]
                - r["local_ident"]["metrics"]["loss_kd"]) > 1e-6
@@ -319,7 +462,7 @@ def test_local_step_equals_the_accumulated_step(ranks):
     equals --grad_accum 2 in one process: microbatch i is rank i."""
     from moma_tpu_torch.train.moma import make_moma_train_step
 
-    inp, out = ranks
+    inp, out = ranks()
     state = W.moma_state(inp, "mlp")
     step = make_moma_train_step(W.moma_config("global", "mlp", inp,
                                               grad_accum=2), W.noise_augment)
@@ -341,7 +484,7 @@ def test_sync_batchnorm_equals_one_process(ranks):
     running statistics, dx, and the ranks' dscale / dbias summed."""
     from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
 
-    inp, out = ranks
+    inp, out = ranks()
     x = inp["bn_x"].clone().requires_grad_(True)
     bn = FusedBatchNorm(x.shape[1])
     with torch.no_grad():
@@ -368,7 +511,7 @@ def test_sync_batchnorm_equals_one_process(ranks):
 def test_two_rank_vanilla_step_equals_one_process(ranks):
     """The supervised step on 2 ranks (sync statistics, averaged gradients)
     is the one-process step on the global batch."""
-    inp, out = ranks
+    inp, out = ranks()
     want = W.vanilla(0, 1, inp)
     for k, v in want["metrics"].items():
         assert abs(out[0]["vanilla"]["metrics"][k] - v) <= 1e-5 * abs(v) + \
@@ -390,7 +533,7 @@ def test_two_rank_vanilla_accum_step_equals_one_process(ranks):
     assert rank_rows(rows, 0, 2, 2).tolist() == [0, 1, 4, 5]
     assert rank_rows(rows, 1, 2, 2).tolist() == [2, 3, 6, 7]
     assert rank_rows(rows, 1, 2).tolist() == [4, 5, 6, 7]
-    inp, out = ranks
+    inp, out = ranks()
     want = W.vanilla(0, 1, inp, grad_accum=2)
     for r in (0, 1):
         got = out[r]["vanilla_accum"]

@@ -75,7 +75,8 @@ import torch_model_axis_workers as W
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (ReluInputs, assert_close_scaled, group_floor,
                                 heads_init, make_init_ordered, ordered_numpy,
-                                quick_compiled, run_once, walk_pairs)
+                                quick_compiled, run_once,
+                                run_once_in_thread, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -215,7 +216,7 @@ def _check_kinks(inp):
         assert kinks.low > 5e-6, (rows, kinks.low)
 
 
-def _inputs(init, root):
+def _inputs(init):
     r, b = init["ring"], init["bank"]
     att = {}
     for mode, (_, hv) in init["bank_heads"].items():
@@ -233,31 +234,27 @@ def _inputs(init, root):
                     "bank": {n: _t(v) for n, v in b["bank"].items()},
                     "w": [_t(w) for w in b["w"]], "att_weights": att},
         "bank_cases": BANK_CASES, "step_in": step_in,
-        "step_cases": STEP_CASES, "resume_argv": RESUME_ARGV,
-        "root": root}
+        "step_cases": STEP_CASES, "resume_argv": RESUME_ARGV}
 
 
 @pytest.fixture(scope="module")
 def ranks(init, tmp_path_factory):
     """get() -> (the ranks' inputs, every rank's results of every case):
     one spawn of 4 ranks for the module (and for the workers of a
-    pytest-xdist run).  A test asks for them after its JAX reference, so
-    a worker computes that while another's spawn runs."""
-    memo = []
+    pytest-xdist run), started in a thread here.  A test asks for them
+    after its JAX reference, which it computes while the ranks run."""
+    # a worker that loads the results builds no inputs either
+    inp = run_once("test_torch_port_model_axis.inputs",
+                   lambda: _inputs(init))
 
     def spawn():
         root = str(tmp_path_factory.mktemp("model_axis"))
         path = os.path.join(root, "inputs.pt")
-        inp = _inputs(init, root)
-        torch.save(inp, path)
-        return inp, spawn_ranks(W.model_axis_cases, 4, (path,),
-                                backend="gloo", timeout_s=WORKER_TIMEOUT_S)
-
-    def get():
-        if not memo:
-            memo.append(run_once("test_torch_port_model_axis.ranks", spawn))
-        return memo[0]
-    return get
+        torch.save({**inp, "root": root}, path)
+        return spawn_ranks(W.model_axis_cases, 4, (path,),
+                           backend="gloo", timeout_s=WORKER_TIMEOUT_S)
+    future = run_once_in_thread("test_torch_port_model_axis.ranks", spawn)
+    return lambda: (inp, future.result())
 
 
 # ------------------------------------------------------------- (i) ring
@@ -646,6 +643,24 @@ def _cfg(*extra):
             extra))
 
 
+# at --model_parallel 1, in both arches: JAX's run_moma raises these after
+# its state is built (moma.py:1426-1431)
+MP1_CASES = [
+    (["--sequence_parallel"], False,
+     "--sequence_parallel requires --model_parallel > 1"),
+    (["--teacher_parallel", "pipeline"], False,
+     "--teacher_parallel pipeline requires --model_parallel > 1"),
+    (["--teacher_parallel", "expert"], False,
+     "--teacher_parallel expert requires --model_parallel > 1"),
+    (["--sequence_parallel"], True,
+     "--sequence_parallel requires --model_parallel > 1"),
+    (["--pp_microbatch", "2", "--teacher_parallel", "pipeline"], True,
+     "--teacher_parallel pipeline requires --model_parallel > 1"),
+    (["--teacher_parallel", "expert"], True,
+     "--teacher_parallel expert requires --model_parallel > 1"),
+]
+
+
 @pytest.mark.parametrize("extra,cross,exc,match", [
     (["--pp_microbatch", "2"], False, ValueError,
      "--pp_microbatch only applies with --teacher_parallel pipeline"),
@@ -657,15 +672,33 @@ def _cfg(*extra):
      "nce_k=64 not divisible by model_parallel=3"),
     (["--model_parallel", "2", "--bn", "local"], True, ValueError,
      "bn='local'/'sync' with --model_parallel does not compose"),
-    (["--model_parallel", "2"], True, NotImplementedError, r"\[5b-teachers\]"),
-    (["--sequence_parallel"], True, NotImplementedError, r"\[5b-teachers\]"),
-    (["--pp_microbatch", "2", "--teacher_parallel", "pipeline"], True,
-     NotImplementedError, r"\[5b-teachers\]"),
-])
+    (["--model_parallel", "2"], True, NotImplementedError,
+     r"\[5b-teachers\]"),
+] + [(extra, cross, ValueError, match) for extra, cross, match in MP1_CASES])
 def test_model_axis_refusals(extra, cross, exc, match):
     cfg = _cfg(*extra)
     with pytest.raises(exc, match=match):
         port_config.check_model_axis(cfg, cross)
+
+
+def test_model_axis_refusals_at_mp1_carry_the_jax_messages(tmp_path):
+    """Each MP-1 case's message against the one JAX's run_moma raises for
+    the same flags (one test: JAX builds its state before it raises, and
+    the first build in a process compiles for seconds)."""
+    from moma_tpu.core.config import parse_student_args as j_args
+    from moma_tpu.train.moma import run_moma as j_run_moma
+
+    for extra, cross, _ in MP1_CASES:
+        with pytest.raises(ValueError) as got:
+            port_config.check_model_axis(_cfg(*extra), cross)
+        argv = ["--model_s", "resnet8", "--model_t",
+                "vit_tiny_patch16_224" if cross else "resnet8", "--distill",
+                "moma", "--image_size", "32", "--batch_size", "4",
+                "--nce_k", "64", "--feat_dim", "16", "--epochs", "1",
+                "--save_dir", str(tmp_path)]
+        with pytest.raises(ValueError) as want:
+            j_run_moma(j_args(argv + extra), synthetic=True)
+        assert str(got.value) == str(want.value), (extra, cross)
 
 
 def test_refusals_by_name_and_the_grid_size():

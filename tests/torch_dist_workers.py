@@ -86,14 +86,68 @@ def moma_state(inp: dict, head: str, mem: str = "MoCo", device="cpu",
     return state
 
 
+def cross_state(inp: dict, grad_accum: int = 1):
+    """(MomaState, config) of a cross-arch (EmaTec) MoMA step: the test's
+    student, a small ViT teacher (inp['cross']['vit'], weights
+    inp['cross']['teacher']), CMO heads with the EMA key head, the EMA copy
+    starting at the student's weights, the test's queue; plain SGD at
+    inp['lr'], --bn global."""
+    import copy
+
+    from moma_tpu_torch.models import create_model
+    from moma_tpu_torch.models.vit import VisionTransformer
+    from moma_tpu_torch.moma.cmo import CMOHeads
+    from moma_tpu_torch.moma.queue import QueueState
+    from moma_tpu_torch.train.state import MomaState, make_sgd
+
+    w = inp["cross"]
+    student = create_model(inp["model"], inp["n_cls"])
+    student.load_state_dict(inp["weights"]["mlp"]["student"])
+    teacher = VisionTransformer(**w["vit"], num_classes=inp["n_cls"],
+                                image_size=inp["HW"])
+    teacher.load_state_dict(w["teacher"])
+    heads = CMOHeads("mlp", "self", inp["feat"], s_dim=inp["s_dim"],
+                     t_dim=w["vit"]["dim"], include_ema=True)
+    heads.load_state_dict(w["heads"])
+    student = student.to(memory_format=torch.channels_last)
+    ema = copy.deepcopy(student)
+    for m in (teacher, ema, heads.embed_t, heads.embed_ema):
+        m.requires_grad_(False)
+    lr = inp["lr"]
+    state = MomaState(student=student, teacher=teacher, heads=heads,
+                      ema=ema, queue=QueueState({"memory":
+                                                 inp["memory"].clone()}),
+                      optimizer=None, schedule=lambda s: lr)
+    state.optimizer = make_sgd(state.trainable_params(), momentum=0.0,
+                               weight_decay=0.0)
+    cfg = moma_config("global", "mlp", inp, grad_accum=grad_accum)
+    cfg.model_t.name = "vit_tiny_patch16_224"
+    return state, cfg
+
+
 def moma_result(state, metrics) -> dict:
-    return {"metrics": {k: float(metrics[k]) for k in MOMA_KEYS},
-            "queue_ptr": int(metrics["queue_ptr"]),
-            "student": _cpu_sd(state.student),
-            "teacher": _cpu_sd(state.teacher),
-            "heads": _cpu_sd(state.heads),
-            "queue": {k: v.detach().cpu().clone()
-                      for k, v in state.queue.memory.items()}}
+    out = {"metrics": {k: float(metrics[k]) for k in MOMA_KEYS},
+           "queue_ptr": int(metrics["queue_ptr"]),
+           "student": _cpu_sd(state.student),
+           "teacher": _cpu_sd(state.teacher),
+           "heads": _cpu_sd(state.heads),
+           "queue": {k: v.detach().cpu().clone()
+                     for k, v in state.queue.memory.items()}}
+    if state.ema is not None:
+        out["ema"] = _cpu_sd(state.ema)
+    return out
+
+
+def cross_step(rank: int, world: int, inp: dict) -> dict:
+    """One cross-arch MoMA step (--bn global) on this rank's rows."""
+    from moma_tpu_torch.train.moma import make_moma_train_step
+
+    state, cfg = cross_state(inp)
+    step = make_moma_train_step(cfg, None, cross_arch=True)
+    state, metrics = step(state, rank_batch(inp, rank, world,
+                                            inp["modes"]["global"][2]),
+                          torch.Generator().manual_seed(7))
+    return moma_result(state, metrics)
 
 
 def rank_batch(inp: dict, rank: int, world: int, perm, device="cpu"):
@@ -119,6 +173,8 @@ def moma_modes(rank: int, world: int, path: str) -> dict:
         state, metrics = step(state, rank_batch(inp, rank, world, perm),
                               torch.Generator().manual_seed(7))
         out[name] = moma_result(state, metrics)
+    if "cross" in inp:
+        out["cross"] = cross_step(rank, world, inp)
     out["sync_bn"] = sync_bn(rank, world, inp["bn_x"], inp["bn_w"])
     out["vanilla"] = vanilla(rank, world, inp)
     out["vanilla_accum"] = vanilla(rank, world, inp, grad_accum=2)

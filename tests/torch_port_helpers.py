@@ -31,6 +31,7 @@ import os
 import pickle
 import tempfile
 from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -90,6 +91,15 @@ _INITS = {}
 COMMON_INIT_KEYS = (0, 1, 2, 4)
 # one directory for the workers of one pytest-xdist run, else none
 _RUN = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+if _RUN is not None:
+    # the workers of a run share the XLA programs they compile (the same
+    # reference steps and eager operations recur across files and
+    # workers); the directory is the run's own, so every entry is read on
+    # the machine that wrote it, which moma_tpu/core/cache.py requires of
+    # a CPU cache
+    jax.config.update("jax_compilation_cache_dir", os.path.join(
+        tempfile.gettempdir(), f"moma_port_inits_{_RUN}", "xla"))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 
 def make_init_ordered(model, sample_shape, dtype=np.float32):
@@ -188,6 +198,16 @@ def run_once(name: str, fn):
         return value
 
 
+def run_once_in_thread(name: str, fn):
+    """A future of run_once(name, fn), computed in a thread: for a spawn
+    of ranks, which a module fixture starts so that its tests compute
+    their JAX references before they wait for the ranks."""
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(run_once, name, fn)
+    pool.shutdown(wait=False)
+    return future
+
+
 def _make_init_ordered(model, sample_shape, dtype):
     order = {}
     sample = np.zeros(sample_shape, dtype)
@@ -206,16 +226,43 @@ def _make_init_ordered(model, sample_shape, dtype):
     return init
 
 
+_TEMPLATES = {}
+
+
 def jax_template(model, sample_shape, dtype=np.float32):
     """Zeros shaped like `model.init`'s variables, insertion-ordered, from
     an abstract trace (jax.eval_shape: nothing is compiled or run).  With
     moma_tpu_torch.interop.jax_variables it gives a JAX tree holding a port
     module's own initial weights, at a fraction of a compiled init's cost
-    (effiB1: 2.9 s against 7.9 s)."""
-    sample = np.zeros(sample_shape, dtype)
-    return _writable(tree_template(
-        lambda key: model.init(key, sample, train=False),
-        jax.random.PRNGKey(0)))
+    (effiB1: 2.9 s against 7.9 s).  The trace runs once a process and once
+    for the workers of a pytest-xdist run (run_once keeps its shapes);
+    every call returns new writable zeros."""
+    name = "template_" + hashlib.sha256(repr((
+        type(model).__name__, repr(model), tuple(sample_shape),
+        np.dtype(dtype).name, jax.__version__)).encode()).hexdigest()[:32]
+
+    def shapes():
+        sample = np.zeros(sample_shape, dtype)
+        return _shape_skeleton(tree_template(
+            lambda key: model.init(key, sample, train=False),
+            jax.random.PRNGKey(0)))
+
+    if name not in _TEMPLATES:
+        _TEMPLATES[name] = run_once(name, shapes)
+    return _zeros_like_skeleton(_TEMPLATES[name])
+
+
+def _shape_skeleton(tree):
+    if isinstance(tree, Mapping):
+        return [(k, _shape_skeleton(v)) for k, v in tree.items()]
+    a = np.asarray(tree)
+    return (tuple(a.shape), a.dtype)
+
+
+def _zeros_like_skeleton(skel):
+    if isinstance(skel, tuple):
+        return np.zeros(skel[0], skel[1])
+    return {k: _zeros_like_skeleton(v) for k, v in skel}
 
 
 def copied(tree):
@@ -239,13 +286,6 @@ class ReluInputs(TorchFunctionMode):
         if func in (F.relu, torch.relu):
             self.low = min(self.low, float(args[0].detach().abs().min()))
         return func(*args, **(kwargs or {}))
-
-
-def _writable(tree):
-    """An order-preserving copy of a nested dict into writable arrays."""
-    if isinstance(tree, Mapping):
-        return {k: _writable(v) for k, v in tree.items()}
-    return np.array(tree)
 
 
 def tree_template(fn, *args):
@@ -278,16 +318,23 @@ def assert_close_scaled(got, want, rtol, what="", floor=0.0):
     scale (group_floor)."""
     # in the inputs' own float precision (float32 at least): the limit's
     # rounding is then 1e-7 of itself, and a 255M-element comparison does
-    # not first copy both sides to float64
+    # not first copy both sides to float64; two temporaries, updated in
+    # place (the same values as rtol * (|want| + scale) + 1e-30)
     dt = np.result_type(np.asarray(got).dtype, np.asarray(want).dtype,
                         np.float32)
     got = np.asarray(got, dt)
     want = np.asarray(want, dt)
     assert got.shape == want.shape, (what, got.shape, want.shape)
-    scale = max(np.abs(want).max() if want.size else 0.0, floor)
-    err = np.abs(got - want)
-    lim = rtol * (np.abs(want) + scale) + 1e-30
-    worst = float((err / lim).max()) if want.size else 0.0
+    got, want = got.reshape(-1), want.reshape(-1)
+    lim = np.abs(want)
+    scale = max(lim.max() if want.size else 0.0, floor)
+    lim = lim.astype(np.result_type(lim, scale), copy=False)
+    err = np.subtract(got, want)
+    np.abs(err, out=err)
+    lim += scale
+    lim *= rtol
+    lim += 1e-30
+    worst = float(np.divide(err, lim, out=lim).max()) if want.size else 0.0
     assert worst <= 1.0, (
         f"{what}: max |diff| {err.max():.3e} exceeds rtol {rtol} "
         f"(scale {scale:.3e}, worst ratio {worst:.2f})")
