@@ -3178,17 +3178,19 @@ def _wrapped_comm(record):
     return _wrapped_steps(before=before, after=after)
 
 
-def _rank_runs(save_root, runs, extra=lambda state, result: {}):
+def _rank_runs(save_root, runs, extra=lambda state, result: {},
+               sets=None):
     """cli.train_student for each (label, argv) of `runs` on this rank:
     step times, loss, validation accuracy, peak memory, launch counts,
     the second step's collectives, the train-mode BN count (student and
-    aux modules), plus `extra(state, result)`."""
+    aux modules), plus `extra(state, result)`; the synthetic sets cut to
+    `sets` (RANK_SETS by default)."""
     from moma_tpu_torch.cli import train_student
     from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
 
     _set_root(save_root)
     out = {}
-    with _cut_sets(RANK_SETS):
+    with _cut_sets(sets or RANK_SETS):
         for label, argv in runs:
             dev = argv[argv.index("--device") + 1]
             _peak_reset(dev)
@@ -3422,11 +3424,13 @@ def _rank_ma_full(rank, world, save_root, runs):
                     for label, args in runs], extra)
 
 
-def _rank_ma_row(rank, world, save_root, runs, dev, ring_shape):
-    """phase_model_axis' (1 x 2) world: the full-width runs, then the
-    grid's oracles."""
+def _rank_ma_row(rank, world, save_root, runs, dev, ring_shape, tp_runs):
+    """phase_model_axis' (1 x 2) world: the full-width runs, the grid's
+    oracles, then phase_teacher_parallel's runs and forwards (`tp_runs`;
+    one world for both phases)."""
     return {"full": _rank_ma_full(rank, world, save_root, runs),
-            "grid": _rank_ma_small(rank, world, dev, ring_shape)}
+            "grid": _rank_ma_small(rank, world, dev, ring_shape),
+            "tp": _rank_tp(rank, world, save_root, tp_runs, dev)}
 
 
 def _ring_inputs(dtype, dev, shape):
@@ -3522,7 +3526,8 @@ def _close_scaled(got, want, rtol, label):
     return d / max(scale, 1e-30)
 
 
-def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
+def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE,
+                     tp_runs=None):
     """--model_parallel 2: the negative bank split over two model ranks, the
     ranks sharing the card through gloo.  (a) MAIN_ARGS and MOCOATT_ARGS
     through cli.train_student on a (1 x 2) grid: each rank's steady step
@@ -3537,8 +3542,10 @@ def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
     one process's batch_token_attention_big, forward and every gradient,
     to RING_RTOL (`ring_shape`, RING_SHAPE by default); (c) 2 data ranks, --bn global --grad_accum 2, against the
     one-process --grad_accum 2 step.  Two ranks taking turns on one card
-    give no model-parallel speed.  Returns rank 0's MoCoAtt launch
-    counts."""
+    give no model-parallel speed.  The same world then runs
+    phase_teacher_parallel's work (`tp_runs`, TP_RUNS by default).
+    Returns rank 0's MoCoAtt launch counts and each rank's
+    phase_teacher_parallel results."""
     import torch
 
     from moma_tpu_torch.core.mesh import spawn_ranks
@@ -3546,7 +3553,8 @@ def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
     t_phase = time.perf_counter()
     runs = runs or (("moco", list(MAIN_ARGS)), ("mocoatt", list(MOCOATT_ARGS)))
     save = os.path.join(SAVE_ROOT, "mp2")
-    row = spawn_ranks(_rank_ma_row, MA_MP, (save, runs, dev, ring_shape),
+    row = spawn_ranks(_rank_ma_row, MA_MP,
+                      (save, runs, dev, ring_shape, tp_runs or TP_RUNS),
                       backend="gloo", timeout_s=RANK_TIMEOUT_S)
     full = [w["full"] for w in row]
     log("[mp2] two model ranks share one card: their step times are those "
@@ -3659,7 +3667,230 @@ def phase_model_axis(dev="cuda", runs=None, ring_shape=RING_SHAPE):
             f"{[f'{e:.2e}' for e in errs[2:]]} (rtol {f_rtol} / {g_rtol}); "
             f"launches a rank {launches} (one process: {w_launch})")
     log(f"[mp2] phase wall time {time.perf_counter() - t_phase:.1f} s")
-    return full[0]["mocoatt"]["launches"] if "mocoatt" in full[0] else {}
+    return (full[0]["mocoatt"]["launches"] if "mocoatt" in full[0] else {},
+            [w["tp"] for w in row])
+
+
+# phase_teacher_parallel: config #5 at --model_parallel 2, each route of the
+# fixed ViT teacher (and MoCoAtt 'all', whose ring runs the flash kernels),
+# and the same-arch MoCo path with --grad_accum 2 over the split bank; 4
+# steps of batch 64 each
+TP_MP = 2
+TP_SETS = (256, 64, 64)
+TP_RUNS = (
+    ("tensor", CROSS_ARGS),
+    ("tensor_sp", CROSS_ARGS + ["--sequence_parallel"]),
+    # --pp_microbatch's default at MP 2: 2 microbatches
+    ("pipeline", CROSS_ARGS + ["--teacher_parallel", "pipeline"]),
+    ("tensor_mocoatt", with_flags(CROSS_ARGS, mem="MoCoAtt", attn="all")),
+    ("moco_accum2", MAIN_ARGS + ["--grad_accum", "2"]),
+)
+# the big teacher of moma_tpu/models/vit_tp.py's docstring: ViT-B/16 at
+# 384^2 (12 heads, 577 tokens), batch 64, seeded weights; each route's
+# forward against the dense one, of max|ref| (float32 with TF32 off: the
+# routes differ from the dense forward by summation order only; bf16 rounds
+# each partial sum before its reduction)
+BIG_VIT, BIG_IMAGE = "vit_base_patch16_384", 384
+BIG_BATCH = 64
+BIG_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+BIG_ROUTES = (("tp", 0), ("sp", 0), ("pp", 0))
+
+
+def _rank_big_vit(rank, world, dev="cuda"):
+    """BIG_VIT's tensor-, sequence- and pipeline-parallel forwards on this
+    model rank, float32 (TF32 off) and bf16: the outputs (rank 0 also the
+    dense forward's), the forward's time, the block bytes this rank holds
+    and the forward's collectives."""
+    import torch
+
+    from moma_tpu_torch.core.mesh import (comm_counts, create_mesh,
+                                          data_axis, model_axis,
+                                          reset_comm_counts)
+    from moma_tpu_torch.models import create_model
+    from moma_tpu_torch.models.vit_pp import PPVisionTransformer
+    from moma_tpu_torch.models.vit_tp import TPVisionTransformer
+
+    create_mesh(world)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        g = torch.Generator().manual_seed(3)
+        x = (torch.rand(BIG_BATCH, BIG_IMAGE, BIG_IMAGE, 3, generator=g) * 4
+             - 2).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+
+            def dense():
+                return create_model(
+                    BIG_VIT, 1000, dtype if dtype != torch.float32 else None,
+                    generator=torch.Generator().manual_seed(0),
+                    image_size=BIG_IMAGE).to(dev).eval()
+
+            def timed(model, together=True):
+                """The outputs, time and collectives of one forward (the
+                first of its shapes: the routes' times are gloo's), the
+                ranks starting `together`."""
+                with torch.no_grad():
+                    sync(dev)
+                    if together:
+                        torch.distributed.barrier()
+                    reset_comm_counts()
+                    t0 = time.perf_counter()
+                    (grid, cls), logits = model(x)
+                    sync(dev)
+                return ((grid, cls, logits), time.perf_counter() - t0,
+                        comm_counts())
+
+            if rank == 0:
+                outs, ms, _ = timed(dense(), together=False)
+                out[(name, "dense")] = {
+                    "outs": [o.float().cpu() for o in outs], "s": ms}
+            for route, n_micro in BIG_ROUTES:
+                model = dense()
+                if route == "pp":
+                    model = PPVisionTransformer(model, model_axis(), n_micro,
+                                                data_axis().world)
+                else:
+                    model = TPVisionTransformer(model, model_axis(),
+                                                route == "sp")
+                _peak_reset(dev)
+                outs, ms, comm = timed(model)
+                out[(name, route)] = {
+                    "outs": [o.float().cpu() for o in outs] if rank == 0
+                    else None, "s": ms, "bytes": model.block_bytes(),
+                    "comm": comm, "peak": _peak(dev)}
+                del model
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        create_mesh(1)
+    return out
+
+
+def _rank_tp(rank, world, save_root, runs, dev):
+    """phase_teacher_parallel's work in phase_model_axis' (1 x 2) world:
+    the CLI runs at --model_parallel 2, then BIG_VIT's forwards."""
+
+    def extra(state, result):
+        t = state.teacher
+        return {"losses": _step_losses(result["run_dir"]),
+                "queue_ptr": state.queue.ptr,
+                "bank_rows": state.queue.memory[
+                    next(iter(state.queue.memory))].shape[0],
+                "teacher_bytes": (t.block_bytes() if hasattr(
+                    t, "block_bytes") else None),
+                "teacher_class": type(t).__name__}
+    full = _rank_runs(
+        save_root, [(label, args + ["--model_parallel", str(TP_MP),
+                                    "--trial", f"tp_{label}"])
+                    for label, args in runs], extra, sets=TP_SETS)
+    return {"full": full, "big": _rank_big_vit(rank, world, dev)}
+
+
+def phase_teacher_parallel(row, dev="cuda", runs=TP_RUNS):
+    """[5b-accum] and [5b-teachers] (b, c) on two gloo ranks sharing the
+    card, a (1 x 2) grid (`row`: each rank's _rank_tp results, which
+    phase_model_axis' world ran): (a) config #5 (CROSS_ARGS) through
+    cli.train_student at --model_parallel 2 with the tensor-parallel ViT-S
+    teacher (6 heads -> 3 a rank, MLP 1536 -> 768), with
+    --sequence_parallel, pipelined (2 microbatches), and with
+    MoCoAtt 'all' (the ring's flash kernels), and the MoCo main path with
+    --grad_accum 2 over the split bank: each rank's steady step, img/s,
+    peak memory, the teacher's block bytes a rank, one step's collectives,
+    the kernels launched (checked against the counts a step), losses (the
+    ranks' alike); (b) BIG_VIT's TP, TP+SP and PP forwards against its
+    dense forward, float32 (TF32 off) and bf16: the max error of max|ref|,
+    the block bytes a rank, the forward time and its collectives.  Two
+    ranks take turns on one card: no model-parallel speed-up is measured.
+    Returns rank 0's MoCoAtt launch counts."""
+    full = [w["full"] for w in row]
+    log(f"[tp2] ({CARD}) two model ranks share one card through gloo: their "
+        "step and forward times are those of two processes taking turns, "
+        "no model-parallel speed-up")
+    for label, args in runs:
+        a, b = full[0][label], full[1][label]
+        B = int(args[args.index("--batch_size") + 1])
+        K = int(args[args.index("--nce_k") + 1])
+        n = len(a["batch_times"])
+        accum = (int(args[args.index("--grad_accum") + 1])
+                 if "--grad_accum" in args else 1)
+        cross = "vit_small_patch16_224" in args
+        if not (a["loss"] == b["loss"] and math.isfinite(a["loss"])):
+            raise AssertionError(f"tp2 {label}: ranks disagree or diverge: "
+                                 f"{a['loss']} / {b['loss']}")
+        if a["queue_ptr"] != (B * n) % K or a["bank_rows"] != K // TP_MP:
+            raise AssertionError(f"tp2 {label}: queue_ptr {a['queue_ptr']}, "
+                                 f"{a['bank_rows']} bank rows a rank")
+        want_class = ("PPVisionTransformer" if "pipeline" in args
+                      else "TPVisionTransformer")
+        if cross != (a["teacher_class"] == want_class):
+            raise AssertionError(f"tp2 {label}: teacher {a['teacher_class']}"
+                                 f" (cross-arch: {cross})")
+        n_bn = a["n_bn"]
+        flash = TP_MP if "MoCoAtt" in args else 0
+        # cross-arch: the student's and the EMA copy's train-mode forwards
+        # a step; same-arch 'exact': the key forward a step and the KL
+        # forward from the second step on, per microbatch
+        teacher_train = n if cross else 2 * n - 1
+        want = ({"channel_sums": accum * (n_bn * n + n_bn * teacher_train),
+                 "grad_channel_sums": accum * n_bn * n,
+                 "ra_layer": accum * 2 * n, "flash_fwd": flash * n,
+                 "flash_dq": flash * n, "flash_dkv": flash * n}
+                if dev == "cuda" else {})
+        for r, res in enumerate((a, b)):
+            for k, v in want.items():
+                if res["launches"].get(k, 0) != v:
+                    raise AssertionError(
+                        f"tp2 {label} rank {r}: launch count {k}: "
+                        f"{res['launches'].get(k, 0)} != {v}")
+            steady = statistics.median(res["batch_times"][1:])
+            tb = res["teacher_bytes"]
+            log(f"[tp2] ({CARD}) {label} rank {r}: steady step "
+                f"{steady * 1e3:.1f} ms = {B / steady:.1f} img/s, step times "
+                f"(s) {[round(t, 4) for t in res['batch_times']]}, peak "
+                f"{res['peak'] / 2 ** 30:.2f} GiB, teacher "
+                f"{res['teacher_class']}"
+                + (f" holding {tb[0] / 1e6:.2f} of {tb[1] / 1e6:.2f} MB of "
+                   "block weights" if tb else "")
+                + f"; launches in {n} steps {res['launches']} (a step: "
+                f"{ {k: v / n for k, v in res['launches'].items()} })")
+        c = a["comm_step"]
+        kinds = sorted({k[:-6] for k in c if k.endswith("_bytes")})
+        log(f"[tp2] ({CARD}) {label}: step 2's collectives on a rank: "
+            + ", ".join(f"{c[k]} {k} {c[k + '_bytes'] / 1e6:.2f} MB"
+                        for k in kinds)
+            + f"; step losses {a['losses']}, val acc {a['val_acc']:.2f}")
+
+    big = row[0]["big"]
+    for dtype in ("float32", "bfloat16"):
+        ref = big[(dtype, "dense")]
+        log(f"[tp2] ({CARD}) {BIG_VIT} batch {BIG_BATCH} {dtype} dense "
+            f"forward {ref['s'] * 1e3:.1f} ms on one rank")
+        for route, _ in BIG_ROUTES:
+            res = big[(dtype, route)]
+            gaps = [float((g - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip(res["outs"], ref["outs"])]
+            if not max(gaps) <= BIG_RTOL[dtype]:
+                raise AssertionError(f"{BIG_VIT} {dtype} {route}: max error "
+                                     f"{max(gaps):.2e} of max|ref| > "
+                                     f"{BIG_RTOL[dtype]}")
+            c = res["comm"]
+            kinds = sorted({k[:-6] for k in c if k.endswith("_bytes")})
+            log(f"[tp2] ({CARD}) {BIG_VIT} {dtype} {route}: max error of "
+                f"max|ref| (grid, cls, logits) "
+                f"{[f'{e:.2e}' for e in gaps]} (limit {BIG_RTOL[dtype]}); "
+                f"rank 0 holds {res['bytes'][0] / 1e6:.1f} of "
+                f"{res['bytes'][1] / 1e6:.1f} MB of block weights, rank 1 "
+                f"{row[1]['big'][(dtype, route)]['bytes'][0] / 1e6:.1f}; "
+                f"forward {res['s'] * 1e3:.1f} ms (rank 1 "
+                f"{row[1]['big'][(dtype, route)]['s'] * 1e3:.1f} ms), peak "
+                f"{res['peak'] / 2 ** 30:.2f} GiB; a forward's collectives "
+                + ", ".join(f"{c[k]} {k} {c[k + '_bytes'] / 1e6:.1f} MB"
+                            for k in kinds))
+    return full[0].get("tensor_mocoatt", {}).get("launches", {})
 
 
 def main() -> int:
@@ -3708,7 +3939,8 @@ def _run(name_power, t0) -> int:
         "launches": expected_launches(main["state"], len(main["losses"]))[0]}
     accum_counts = phase_grad_accum()
     dp_counts = phase_two_ranks()
-    mp_counts = phase_model_axis()
+    mp_counts, tp_row = phase_model_axis()
+    tp_counts = phase_teacher_parallel(tp_row)
     att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
     fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
     packed_counts = phase_packed()
@@ -3722,7 +3954,7 @@ def _run(name_power, t0) -> int:
     # a kernel's launches: those of the first main path that runs it
     for later in (accum_counts, dp_counts, att_counts, fused_counts,
                   packed_counts, cross_counts, teacher_counts, cmp_counts,
-                  cmp2_counts, zoo_counts, mp_counts):
+                  cmp2_counts, zoo_counts, mp_counts, tp_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

@@ -230,15 +230,8 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
             bad.append(f"--attn {m.attn} (known: {ATTN_MODES})")
         if cfg.model_t is None:
             bad.append("distillation without a teacher")
-        if method == "moma":
-            # the comparison distillers raise ValueError for the model
-            # axis, as in the JAX package (train/student.py); the cross-arch
-            # teachers' parallelism is check_model_axis's
-            if r.grad_accum > 1 and r.model_parallel > 1:
-                bad.append("--grad_accum with --model_parallel (microbatches "
-                           "over a split bank, Queue 1 item [5b-accum])")
         if m.teacher_quant != "none":
-            bad.append("--teacher_quant (Queue 1 item 6)")
+            bad.append("--teacher_quant (Queue 1 item [6])")
     for mc in (cfg.model_s, cfg.model_t):
         if mc is not None and mc.name in NOT_PORTED:
             bad.append(f"model {mc.name} ({NOT_PORTED[mc.name]})")
@@ -248,12 +241,16 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
             + "; ".join(bad))
 
 
-def check_model_axis(cfg: Config, cross_arch: bool) -> None:
+def check_model_axis(cfg: Config, cross_arch: bool, teacher=None,
+                     n_data: int = 1) -> None:
     """The JAX package's refusals around --model_parallel in a MoMA run
-    (train/moma.py:1273-1331, 1426-1431), its messages as ValueError,
-    then, by name, what is not ported: the model axis of a cross-arch run
-    at --model_parallel > 1 (the tensor-, pipeline- and expert-parallel
-    ViT teachers, --sequence_parallel, --pp_microbatch)."""
+    (train/moma.py:1273-1431), its messages as ValueError in its order.
+    With the teacher module (`teacher`, on a grid of `n_data` data rows)
+    also the checks of the teacher's route at --model_parallel > 1: the
+    pipeline (models/vit_pp.check_pp_teacher, on the accumulation
+    microbatch), the tensor-parallel ViT (models/vit_tp.check_tp_teacher)
+    or a teacher kept whole on every model rank.  Not ported, by name:
+    --teacher_parallel expert (the MoE ViTs' expert axis)."""
     r = cfg.run
     if r.pp_microbatch and r.teacher_parallel != "pipeline":
         raise ValueError(
@@ -268,32 +265,64 @@ def check_model_axis(cfg: Config, cross_arch: bool) -> None:
             raise ValueError(
                 f"--teacher_parallel {r.teacher_parallel} requires "
                 "--model_parallel > 1")
-    else:
-        if r.bn != "global" and cross_arch:
+        return
+    if r.bn != "global" and cross_arch:
+        raise ValueError(
+            "bn='local'/'sync' with --model_parallel does not compose "
+            "with the cross-arch TP/PP/EP teachers: those shard via "
+            "GSPMD NamedSharding annotations, which cannot appear "
+            "inside a shard_map body (per-device code).  Use "
+            "bn='global' for cross-arch model-parallel runs.")
+    if r.sequence_parallel and not cross_arch:
+        raise ValueError(
+            "--sequence_parallel applies to the tensor-parallel ViT "
+            "teacher (cross-arch/EmaTec mode only)")
+    if r.teacher_parallel != "tensor" and not cross_arch:
+        raise ValueError(
+            f"--teacher_parallel {r.teacher_parallel} applies to the "
+            "ViT KL-teacher (cross-arch/EmaTec mode only)")
+    if cfg.moma.nce_k % mp != 0:
+        raise ValueError(f"nce_k={cfg.moma.nce_k} not divisible by "
+                         f"model_parallel={mp}")
+    if not cross_arch:
+        return
+    if r.teacher_parallel == "expert":
+        if r.sequence_parallel:
             raise ValueError(
-                "bn='local'/'sync' with --model_parallel does not compose "
-                "with the cross-arch TP/PP/EP teachers: those shard via "
-                "GSPMD NamedSharding annotations, which cannot appear "
-                "inside a shard_map body (per-device code).  Use "
-                "bn='global' for cross-arch model-parallel runs.")
-        if r.sequence_parallel and not cross_arch:
-            raise ValueError(
-                "--sequence_parallel applies to the tensor-parallel ViT "
-                "teacher (cross-arch/EmaTec mode only)")
-        if r.teacher_parallel != "tensor" and not cross_arch:
-            raise ValueError(
-                f"--teacher_parallel {r.teacher_parallel} applies to the "
-                "ViT KL-teacher (cross-arch/EmaTec mode only)")
-        if cfg.moma.nce_k % mp != 0:
-            raise ValueError(f"nce_k={cfg.moma.nce_k} not divisible by "
-                             f"model_parallel={mp}")
-    if cross_arch and mp > 1:
+                "--sequence_parallel applies to the TENSOR-parallel"
+                " teacher; --teacher_parallel expert shards the MoE"
+                " expert axis instead")
         raise NotImplementedError(
-            "not ported to moma_tpu_torch yet (see ROADMAP.md): the model "
-            "axis of a cross-arch run (--model_parallel, "
-            "--sequence_parallel, --teacher_parallel, --pp_microbatch: the "
-            "tensor-, pipeline- and expert-parallel ViT teachers, Queue 1 "
-            "item [5b-teachers])")
+            "not ported to moma_tpu_torch yet (see ROADMAP.md): "
+            "--teacher_parallel expert (the MoE ViT teachers' expert axis, "
+            "Queue 1 item [5b-teachers] (a, d))")
+    if teacher is None:
+        return
+    from moma_tpu_torch.models.vit_pp import check_pp_teacher, is_pp_model
+    from moma_tpu_torch.models.vit_tp import check_tp_teacher, is_tp_model
+
+    quant = cfg.moma.teacher_quant
+    if r.teacher_parallel == "pipeline":
+        if r.sequence_parallel:
+            raise ValueError(
+                "--sequence_parallel applies to the TENSOR-parallel"
+                " teacher; --teacher_parallel pipeline stages whole"
+                " blocks (nothing to token-shard between them)")
+        if not is_pp_model(teacher):
+            raise ValueError(
+                "--teacher_parallel pipeline requires a ViT family "
+                f"teacher, got {type(teacher).__name__}")
+        # under --grad_accum the teacher forward runs per accumulation
+        # microbatch: that is the batch the pipeline splits
+        check_pp_teacher(teacher, mp, n_data, r.pp_microbatch or mp,
+                         batch_size=cfg.data.batch_size
+                         // max(1, r.grad_accum), teacher_quant=quant)
+    elif is_tp_model(teacher):
+        check_tp_teacher(teacher, mp, quant)
+    elif r.sequence_parallel:
+        raise ValueError(
+            "--sequence_parallel requires a tensor-parallel ViT "
+            f"teacher, got {type(teacher).__name__}")
 
 
 def _add_common_flags(p: argparse.ArgumentParser) -> None:

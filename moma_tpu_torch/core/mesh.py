@@ -36,7 +36,9 @@ the reference's DDP trainers, there is one process per GPU under
     writes and their barrier.
   * Every collective adds its bytes to `comm_counts()` under its own name
     (the model axis's as `model_all_gather`, `model_all_reduce`,
-    `ppermute`).
+    `model_reduce_scatter`, `model_broadcast`, `ppermute`).  gloo takes
+    CUDA tensors in all of them but the ring hop's send / recv (checked
+    with PyTorch 2.11 on an H100).
   * `spawn_ranks` runs a function on N local processes (the `spawn`
     start method), each in a group it starts itself at tcp://localhost:
     <free port>, with a hard timeout: the multi-rank tests, and ranks
@@ -336,6 +338,35 @@ class _ModelAxis:
     def pmean_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Average the tensors over the model ranks, in place."""
         self._flat_reduce_(tensors, 1.0 / self.size)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum one contiguous tensor over the model ranks, in place (the
+        tensor-parallel teacher's reductions)."""
+        if self.size == 1:
+            return t
+        return all_reduce_sum_(t, self.group, "model_all_reduce")
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the model ranks of `t`, of which this rank keeps
+        chunk `index` of MP along `dim` (the sequence-parallel teacher's
+        reductions into its token shard)."""
+        if self.size == 1:
+            return t
+        parts = [c.contiguous() for c in t.chunk(self.size, dim)]
+        out = torch.empty_like(parts[self.index])
+        dist.reduce_scatter(out, parts, group=self.group)
+        _count("model_reduce_scatter", t.numel() * t.element_size())
+        return out
+
+    def broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Model rank `src`'s tensor on every model rank, in place (the
+        pipeline teacher's finished tokens)."""
+        if self.size == 1:
+            return t
+        t = t.contiguous()
+        dist.broadcast(t, self.ranks[src], group=self.group)
+        _count("model_broadcast", t.numel() * t.element_size())
+        return t
 
     def shard_rows(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's rows [m*n/MP, (m+1)*n/MP) of a tensor every model

@@ -166,12 +166,18 @@ class VisionTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)                  # (B, gh*gw, dim)
         cls = self.cls_token.to(x.dtype).expand(B, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x)
-        x = self.norm(x)
+        x = self.norm(self.run_blocks(x))
         cls_out = x[:, 0].float()
         grid = x[:, 1:].reshape(B, gh, gw, x.shape[-1])
         return (grid, cls_out), self.classifier(cls_out)
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The transformer blocks over the tokens (B, 1 + patches, dim);
+        the model-parallel teachers (models/vit_tp.py, vit_pp.py) run
+        their shares of them here."""
+        for blk in self.blocks:
+            x = blk(x)
+        return x
 
 
 # name -> (dim, depth, heads); patch 16.  The 384 variants are the same

@@ -89,8 +89,19 @@ ranks of a data row (the `*_sharded` steps of moma/queue.py; MoCoAtt's
 queue-consuming modes through ring attention, ops/ring_attention.py).
 The model ranks of a data row see the same batch and the same draws:
 the Loader's rows, the augmentation streams and the Shuffle-BN slice
-follow the data index.  Checkpoints hold the whole bank, so a run
-resumes at any --model_parallel.
+follow the data index.  `--grad_accum M` runs there too: each
+microbatch's contrast goes through the split-bank steps (and the ring),
+and the step's one enqueue writes the rows this rank owns.  In a
+cross-arch run the fixed ViT KL-teacher takes the model axis as JAX's
+run_moma does (:1329-1417): tensor-parallel by default
+(models/vit_tp.py, with `--sequence_parallel` its residual stream split
+over tokens) or pipelined (`--teacher_parallel pipeline`,
+models/vit_pp.py); every model rank of a data row runs its share of the
+teacher on the row's whole local batch (under --grad_accum, on each
+accumulation microbatch).  A teacher of another family stays whole on
+every model rank, as does the EMA copy.  Checkpoints hold the whole bank
+and the whole teacher, so a run resumes at any --model_parallel and
+--teacher_parallel.
 """
 
 from __future__ import annotations
@@ -106,8 +117,8 @@ from torch import nn
 
 from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_model_axis, check_slice
-from moma_tpu_torch.core.mesh import (create_mesh, data_axis, model_axis,
-                                      rank_generator, world_axis)
+from moma_tpu_torch.core.mesh import (create_mesh, data_axis, is_main,
+                                      model_axis, rank_generator, world_axis)
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
@@ -116,7 +127,7 @@ from moma_tpu_torch.models.pretrained import load_pretrained
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        queue_update, random_memory,
-                                       step_moco,
+                                       sharded_queue_update, step_moco,
                                        step_moco_att, step_moco_att_sharded,
                                        step_moco_sharded, step_moco_sstt,
                                        step_moco_sstt_sharded, step_moco_st,
@@ -649,6 +660,8 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         s_bufs = _bn_buffers(student, heads.embed_s)
         s_pre = _snapshot(s_bufs)
         fns = heads.attn_fns()
+        mx = model_axis()
+        ring = heads.ring_attn_fns(mx) if sharded else None
         state.optimizer.zero_grad(set_to_none=True)
         metrics, after_s = [], []
         for i, r in enumerate(rows):
@@ -667,7 +680,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 state.queue, fns, ax.gather_grad(q),
                 ax.gather_grad(qt) if qt is not None else None, all_k[g],
                 all_kt[g] if all_kt is not None else None, all_k,
-                lambda x: x)
+                lambda x: x, ring)
             logits_list = [ax.local_slice(lg, lb) for lg in logits_list]
             loss_kd = sum(contrast_ce(lg) for lg in logits_list) / len(
                 logits_list)
@@ -681,15 +694,17 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         # one queue advance by the global key count, with the pre-step
         # attention parameters (train/moma.py:1052-1080): MoCo's and
         # MoCoAtt's is the last contrast call's, which enqueued the global
-        # keys; MoCoST / MoCoSSTT's atts_k mixes only a virtual rank's rows
+        # keys; MoCoST / MoCoSSTT's atts_k mixes only a virtual rank's rows.
+        # A split bank takes the rows this rank owns
         if mem in ("MoCoST", "MoCoSSTT"):
             with torch.no_grad():
                 k_in = (torch.cat([fns["atts_k"](all_k[i * mb:(i + 1) * mb])
                                    for i in range(M)])
                         if attn == "self" and fns else all_k)
-                new_queue = queue_update(state.queue, {
-                    "memory_s": k_in,
-                    "memory_t": all_kt if all_kt is not None else all_k})
+                keys = {"memory_s": k_in,
+                        "memory_t": all_kt if all_kt is not None else all_k}
+                new_queue = (sharded_queue_update(state.queue, keys, mx)
+                             if sharded else queue_update(state.queue, keys))
         return finish(state, ax, metrics, new_queue)
 
     return step
@@ -727,7 +742,7 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
         if mc.pretrain:
             load_pretrained(model, mc.pretrain, strict=mc.strict)
     cross_arch = is_cross_arch(student, teacher)
-    check_model_axis(cfg, cross_arch)
+    check_model_axis(cfg, cross_arch, teacher, data_axis().world)
     if cross_arch:
         print(f"[moma] cross-arch ({cfg.model_t.name} teacher -> "
               f"{cfg.model_s.name} student): EmaTec momentum-encoder mode",
@@ -746,6 +761,8 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
                      s_dim=student.feat_dim, t_dim=teacher.feat_dim,
                      generator=gen(2), include_ema=cross_arch)
     ema = copy.deepcopy(student) if cross_arch else None
+    if cross_arch:
+        teacher = parallel_teacher(cfg, teacher)
     student = student.to(device, memory_format=torch.channels_last)
     teacher = teacher.to(device, memory_format=torch.channels_last)
     heads = heads.to(device)
@@ -780,15 +797,63 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
     return state
 
 
+def parallel_teacher(cfg: Config, teacher: nn.Module) -> nn.Module:
+    """The cross-arch KL-teacher on the model axis (train/moma.py:1329-
+    1417): at --model_parallel MP > 1 a ViT teacher becomes this rank's
+    share of the pipeline (--teacher_parallel pipeline,
+    models/vit_pp.PPVisionTransformer) or of the tensor-parallel teacher
+    (models/vit_tp.TPVisionTransformer, with --sequence_parallel its
+    residual stream split over tokens); any other teacher stays whole on
+    every model rank.  check_model_axis has checked the route."""
+    from moma_tpu_torch.models.vit_pp import PPVisionTransformer
+    from moma_tpu_torch.models.vit_tp import TPVisionTransformer, is_tp_model
+
+    r = cfg.run
+    mp = r.model_parallel
+    if mp <= 1 or not is_tp_model(teacher):
+        return teacher
+    if r.teacher_parallel == "pipeline":
+        n_micro = r.pp_microbatch or mp
+        placed = PPVisionTransformer(teacher, model_axis(), n_micro,
+                                     data_axis().world)
+        note = (f"[moma] ViT teacher pipeline-parallel over 'model'={mp}: "
+                f"{len(teacher.blocks) // mp} blocks/stage, {n_micro} "
+                "microbatches")
+    else:
+        placed = TPVisionTransformer(teacher, model_axis(),
+                                     r.sequence_parallel)
+        sp_note = (" + sequence-parallel residual stream"
+                   if r.sequence_parallel else "")
+        note = (f"[moma] ViT teacher tensor-parallel over 'model'={mp}: "
+                f"attention heads {teacher.num_heads}->"
+                f"{teacher.num_heads // mp}/chip, MLP hidden sharded"
+                f"{sp_note}")
+    if is_main():
+        print(note, flush=True)
+    if data_axis().rank == 0:
+        own, whole = placed.block_bytes()
+        print(f"[moma] model rank {model_axis().index} holds {own} of the "
+              f"teacher's {whole} bytes of block weights", flush=True)
+    return placed
+
+
+def teacher_state_dict(teacher: nn.Module) -> dict:
+    """The teacher's whole state dict: a tensor- or pipeline-parallel
+    teacher's gathered from the model ranks (every model rank calls it)."""
+    return getattr(teacher, "dense_state_dict", teacher.state_dict)()
+
+
 def full_state(state: MomaState) -> dict:
-    """The checkpointable state: both backbones with their BN buffers, in
-    cross-arch runs the EMA copy with its own (train/moma.py:1468-1481),
-    the heads, every queue bank whole (a split bank gathered over the
-    model ranks, as JAX's file holds the global array) and its pointer,
-    the optimizer's buffers and the step.  Every rank calls it."""
+    """The checkpointable state: both backbones with their BN buffers (a
+    tensor- or pipeline-parallel teacher gathered whole, so a run resumes
+    at any --model_parallel and --teacher_parallel), in cross-arch runs the
+    EMA copy with its own (train/moma.py:1468-1481), the heads, every
+    queue bank whole (a split bank gathered over the model ranks, as JAX's
+    file holds the global array) and its pointer, the optimizer's buffers
+    and the step.  Every rank calls it."""
     mx = model_axis()
     out = {"student": state.student.state_dict(),
-           "teacher": state.teacher.state_dict(),
+           "teacher": teacher_state_dict(state.teacher),
            "heads": state.heads.state_dict(),
            "queue": {"memory": {k: mx.all_gather(v, 0)
                                 for k, v in state.queue.memory.items()},
@@ -814,7 +879,8 @@ def load_full_state(state: MomaState, saved: dict) -> MomaState:
                   "EMA copy — the EmaTec momentum encoder restarts from "
                   "the copy of the student made at start", flush=True)
     state.student.load_state_dict(saved["student"])
-    state.teacher.load_state_dict(saved["teacher"])
+    getattr(state.teacher, "load_dense_state_dict",
+            state.teacher.load_state_dict)(saved["teacher"])
     state.heads.load_state_dict(saved["heads"])
     mem = saved["queue"]["memory"]
     if set(mem) != set(state.queue.memory):

@@ -84,11 +84,14 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
         "scalars.jsonl", "stat.json"]
 
 
+# --grad_accum with --model_parallel is ported ([5b-accum]): the third and
+# sixth cases pair the model axis with choices still refused by name
 @pytest.mark.parametrize("extra", [
     ["--distill", "kd_zoo"], ["--attn", "selff"],
-    ["--model_parallel", "2", "--grad_accum", "2"],
+    ["--model_parallel", "2", "--teacher_quant", "int8"],
     ["--model_s", "vit_small_moe_patch16_224"], ["--teacher_quant", "int8"],
-    ["--bn", "local", "--model_parallel", "4", "--grad_accum", "4"],
+    ["--bn", "local", "--model_parallel", "4", "--model_s",
+     "vit_tiny_moe_patch16_224"],
     ["--model_t", "vit_tiny_moe_patch16_224"],
 ])
 def test_choices_outside_the_slice_raise(extra):

@@ -1222,3 +1222,46 @@ def test_ring_attention_through_the_flash_kernels_on_two_ranks(dev):
         w = w.detach().float()
         gap = float((got[k] - w).abs().max()) / float(w.abs().max())
         assert gap <= 1e-4, (k, gap)
+
+
+def test_teacher_parallel_forwards_on_two_ranks(dev):
+    """The tensor-parallel (TP), sequence-parallel (SP, 17 tokens padded
+    to 18) and pipelined (1 and 2 microbatches) ViT teachers of
+    moma_tpu_torch/models/vit_tp.py and vit_pp.py on two gloo ranks
+    sharing the card (a 1 x 2 grid): each rank's forward equals the dense
+    model's on the card to 1e-5 of max|ref|, float32 with TF32 off; a TP
+    block runs two all_reduces, an SP block two reduce_scatters."""
+    import torch_teacher_parallel_workers as W
+    from moma_tpu_torch.core.mesh import spawn_ranks
+    from moma_tpu_torch.models.vit import VisionTransformer
+
+    vits = {"tp": dict(patch_size=8, dim=32, depth=2, num_heads=4),
+            "pp": dict(patch_size=8, dim=32, depth=4, num_heads=4)}
+    weights, dense = {}, {}
+    for kind, dims in vits.items():
+        m = VisionTransformer(**dims, num_classes=10, image_size=32,
+                              generator=torch.Generator().manual_seed(1))
+        weights[kind] = m.state_dict()
+        dense[kind] = m.to(dev).eval()
+    x = torch.rand(8, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+    cases = [("tp", 0), ("sp", 0), ("pp", 1), ("pp", 2)]
+    inp = {"vits": vits, "vit_weights": weights, "n_cls": 10, "HW": 32,
+           "x": x, "forward_cases": cases}
+    ranks = spawn_ranks(W.card_forwards, 2, (inp,), backend="gloo",
+                        timeout_s=240)
+    with torch.no_grad():
+        want = {k: m(x.to(dev)) for k, m in dense.items()}
+    for res in ranks:
+        for (route, n_micro), got in res.items():
+            (grid, cls), logits = want["pp" if route == "pp" else "tp"]
+            for name, g, w in (("grid", got["grid"], grid),
+                               ("cls", got["cls"], cls),
+                               ("logits", got["logits"], logits)):
+                w = w.float().cpu()
+                gap = float((g - w).abs().max()) / float(w.abs().max())
+                assert gap <= 1e-5, (route, n_micro, name, gap)
+            comm = got["comm"]
+            if route == "tp":
+                assert comm["model_all_reduce"] == 4, comm
+            elif route == "sp":
+                assert comm["model_reduce_scatter"] == 4, comm

@@ -35,7 +35,11 @@ tests (and by the xdist workers, torch_port_helpers.run_once):
         accumulated step on 2 devices and the port's one-process step.
 
 Plus (vi) the JAX package's ValueErrors and the refusals by name
-([5b-teachers], [5b-accum]).
+(--teacher_parallel expert, [5b-teachers]; --teacher_quant, [6]), and
+(vii) [5b-accum]: --grad_accum 2 over the split bank, MoCo on the
+(2 x 2) grid and MoCoSSTT and MoCoAtt 'all' (the ring) on a (1 x 2) one,
+against JAX's accumulated step with the bank sharded over 'model' on the
+same mesh, at (iii)'s tolerances; every rank's replica bit for bit.
 """
 
 import os
@@ -109,6 +113,12 @@ STEP_CASES = {
     "sync_sstt": {"bn": "sync", "mem": "MoCoSSTT", "attn": "self"},
     "local_att": {"bn": "local", "mem": "MoCoAtt", "attn": "all"},
     "global_att": {"bn": "global", "mem": "MoCoAtt", "attn": "all"},
+}
+# (vii) [5b-accum]: name -> ((data rows, model ranks), case)
+ACCUM_MP_CASES = {
+    "moco": ((2, 2), {"mem": "MoCo", "attn": "self"}),
+    "sstt": ((1, 2), {"mem": "MoCoSSTT", "attn": "self"}),
+    "att_all": ((1, 2), {"mem": "MoCoAtt", "attn": "all"}),
 }
 LOSS_RTOL, LOSS_ATOL, PARAM_RTOL, GRAD_RTOL, EMA_RTOL = (2e-4, 1e-5, 2e-4,
                                                           5e-3, 1e-4)
@@ -234,7 +244,8 @@ def _inputs(init):
                     "bank": {n: _t(v) for n, v in b["bank"].items()},
                     "w": [_t(w) for w in b["w"]], "att_weights": att},
         "bank_cases": BANK_CASES, "step_in": step_in,
-        "step_cases": STEP_CASES, "resume_argv": RESUME_ARGV}
+        "step_cases": STEP_CASES, "accum_mp_cases": ACCUM_MP_CASES,
+        "resume_argv": RESUME_ARGV}
 
 
 @pytest.fixture(scope="module")
@@ -635,6 +646,36 @@ def test_two_rank_accum_step_matches_jax_and_one_process(init, ranks):
                                 f"{part}/{k}", 1e-6)
 
 
+# ------------------------------------- (vii) [5b-accum] over a split bank
+
+@pytest.mark.parametrize("name", list(ACCUM_MP_CASES))
+def test_accum_step_over_a_split_bank_matches_jax(init, ranks, name):
+    """--grad_accum 2 at --model_parallel 2: each microbatch's contrast
+    through the split-bank steps (MoCoAtt 'all' through the ring), one
+    enqueue of the rows each model rank owns, against JAX's accumulated
+    step with the bank sharded over 'model' on the same mesh (GSPMD)."""
+    (rows, mp), case = ACCUM_MP_CASES[name]
+    mesh = j_create_mesh(jax.devices()[:rows * mp], model_parallel=mp)
+    j0, j1, jm = _jax_run(init, _jax_cfg("global", case["mem"], case["attn"],
+                                         2), mesh, True)
+    _, out = ranks()
+    who = range(4) if rows == 2 else (2, 3)
+    res = [out[r]["accum_mp"][name] for r in who]
+    bank = {n: bank_join([res[0]["queue"][n].numpy(),
+                          res[1]["queue"][n].numpy()])
+            for n in res[0]["queue"]}
+    _compare_step(init, res[0], bank, j0, j1, jm, case["attn"])
+    for r, other in zip(who, res):
+        assert other["metrics"] == res[0]["metrics"], (name, r)
+        for part in ("student", "teacher", "heads"):
+            for k in res[0][part]:
+                assert torch.equal(other[part][k], res[0][part][k]), (
+                    name, r, part, k)
+        for n in res[0]["queue"]:
+            assert torch.equal(other["queue"][n],
+                               res[(r - who[0]) % mp]["queue"][n]), (name, r)
+
+
 # ------------------------------------------------------ (vi) refusals
 
 def _cfg(*extra):
@@ -672,8 +713,8 @@ MP1_CASES = [
      "nce_k=64 not divisible by model_parallel=3"),
     (["--model_parallel", "2", "--bn", "local"], True, ValueError,
      "bn='local'/'sync' with --model_parallel does not compose"),
-    (["--model_parallel", "2"], True, NotImplementedError,
-     r"\[5b-teachers\]"),
+    (["--model_parallel", "2", "--teacher_parallel", "expert"], True,
+     NotImplementedError, r"\[5b-teachers\]"),
 ] + [(extra, cross, ValueError, match) for extra, cross, match in MP1_CASES])
 def test_model_axis_refusals(extra, cross, exc, match):
     cfg = _cfg(*extra)
@@ -684,7 +725,10 @@ def test_model_axis_refusals(extra, cross, exc, match):
 def test_model_axis_refusals_at_mp1_carry_the_jax_messages(tmp_path):
     """Each MP-1 case's message against the one JAX's run_moma raises for
     the same flags (one test: JAX builds its state before it raises, and
-    the first build in a process compiles for seconds)."""
+    the first build in a process compiles for seconds).  JAX's cross-arch
+    runs take resnet14 as the teacher: its parameter tree differs from
+    resnet8's, so run_moma runs in EmaTec mode, and its eager init compiles
+    the operations resnet8's did (a ViT's took some 30 s more)."""
     from moma_tpu.core.config import parse_student_args as j_args
     from moma_tpu.train.moma import run_moma as j_run_moma
 
@@ -692,7 +736,7 @@ def test_model_axis_refusals_at_mp1_carry_the_jax_messages(tmp_path):
         with pytest.raises(ValueError) as got:
             port_config.check_model_axis(_cfg(*extra), cross)
         argv = ["--model_s", "resnet8", "--model_t",
-                "vit_tiny_patch16_224" if cross else "resnet8", "--distill",
+                "resnet14" if cross else "resnet8", "--distill",
                 "moma", "--image_size", "32", "--batch_size", "4",
                 "--nce_k", "64", "--feat_dim", "16", "--epochs", "1",
                 "--save_dir", str(tmp_path)]
@@ -704,8 +748,12 @@ def test_model_axis_refusals_at_mp1_carry_the_jax_messages(tmp_path):
 def test_refusals_by_name_and_the_grid_size():
     from moma_tpu_torch.core.mesh import create_mesh
 
-    with pytest.raises(NotImplementedError, match=r"\[5b-accum\]"):
-        _cfg("--model_parallel", "2", "--grad_accum", "2")
+    # [5b-accum] is ported: --grad_accum with --model_parallel parses;
+    # --teacher_quant stays refused by name
+    cfg = _cfg("--model_parallel", "2", "--grad_accum", "2")
+    assert (cfg.run.model_parallel, cfg.run.grad_accum) == (2, 2)
+    with pytest.raises(NotImplementedError, match=r"\[6\]"):
+        _cfg("--model_parallel", "2", "--teacher_quant", "int8")
     assert _cfg("--model_parallel", "2").run.model_parallel == 2
     with pytest.raises(ValueError) as port_err:
         create_mesh(2)

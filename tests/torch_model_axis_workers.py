@@ -9,6 +9,8 @@ ranks: the ring attention on a (1 x 4) and a (2 x 2) grid, the split-bank
 steps and the whole MoMA step on the (2 x 2) grid, then, regrouped into
 two 2-rank worlds, a run_moma --resume round trip on a (1 x 2) grid
 (ranks 0 and 1) beside the 2-rank `--bn global --grad_accum 2` step
+(ranks 2 and 3).  The accumulated step over a split bank ([5b-accum])
+runs on the (2 x 2) grid and, after the 2-rank step, on a (1 x 2) one
 (ranks 2 and 3).  Every
 result comes back with its tensors on the CPU, keyed by the case.
 """
@@ -264,6 +266,32 @@ def accum_step(inp: dict, rank: int, world: int):
     return DW.moma_result(state, metrics)
 
 
+def accum_mp_step(inp: dict, case: dict):
+    """The --bn global --grad_accum 2 step of `case` (mem, attn) on this
+    grid: each data row's share of each microbatch (mesh.rank_rows), the
+    bank split over the model ranks ([5b-accum])."""
+    from moma_tpu_torch.core.mesh import data_axis, model_axis, rank_rows
+    from moma_tpu_torch.train.moma import make_moma_train_step
+
+    mem, attn = case["mem"], case["attn"]
+    w = dict(inp["weights"]["mlp"])
+    w["heads"] = inp["step_heads"][attn]
+    state = DW.moma_state({**inp, "weights": {"mlp": w}}, "mlp", mem=mem,
+                          attn=attn)
+    mx, ax = model_axis(), data_axis()
+    state.queue.memory = {k: mx.shard_rows(v).clone()
+                          for k, v in state.queue.memory.items()}
+    cfg = DW.moma_config("global", "mlp", inp, grad_accum=2, mem=mem,
+                         attn=attn)
+    cfg.run.model_parallel = mx.size
+    batch = {"image": rank_rows(inp["images"], ax.rank, ax.world, 2),
+             "label": rank_rows(inp["labels"], ax.rank, ax.world, 2),
+             "shuffle_perm": inp["perm"]}
+    state, metrics = make_moma_train_step(cfg, None)(
+        state, batch, torch.Generator().manual_seed(7))
+    return DW.moma_result(state, metrics)
+
+
 # --------------------------------------------------------------- main
 
 def model_axis_cases(rank: int, world: int, path: str) -> dict:
@@ -283,9 +311,18 @@ def model_axis_cases(rank: int, world: int, path: str) -> dict:
         out["bank"][name] = bank_case(inp["bank_in"], fn, mode, ring)
     for name, case in inp["step_cases"].items():
         out["step"][name] = moma_step(inp["step_in"], rank, case)
+    out["accum_mp"] = {
+        name: accum_mp_step(inp["step_in"], case)
+        for name, (grid, case) in inp["accum_mp_cases"].items()
+        if grid == (2, 2)}
     if _regroup(rank, world, 2) == 0:
         out["resume"] = run_moma_resume(inp["resume_argv"], inp["root"])
     else:
         create_mesh(1)
         out["accum"] = accum_step(inp["step_in"], rank % 2, 2)
+        create_mesh(2)
+        out["accum_mp"].update(
+            (name, accum_mp_step(inp["step_in"], case))
+            for name, (grid, case) in inp["accum_mp_cases"].items()
+            if grid == (1, 2))
     return out
