@@ -113,6 +113,19 @@ Phases (each prints its own lines):
                  peak memory; a --resume round trip at 1 step an epoch
                  (every tensor, the EMA copy's too); one --mem MoCoST step
                  (memory_s and memory_t rows differ)
+  8b MoE       : config #5 with the Mixture-of-Experts teacher
+                 (MOE_ARGS: vit_small_moe_patch16_224, 8 experts, top-1,
+                 capacity factor 1.25, MoE in the 6 odd blocks), 4 steps:
+                 launch counts, step time, img/s, peak, the tokens each MoE
+                 block dropped; the MoE teacher trained through
+                 cli.train_teacher at 224^2 (MOE_TEACHER_ARGS, 4 steps:
+                 gradients through the router's gates).  With phase 12 (in
+                 its world): the same run at --model_parallel 2
+                 --teacher_parallel expert (TP_RUNS 'expert': 4 of 8
+                 experts a rank, one model_all_reduce a MoE block) and the
+                 expert-parallel forward at batch 64 against the dense one
+                 (f32 with TF32 off and bf16, the dense forward's expert
+                 choices replayed)
   9 teacher    : TEACHER_ARGS through cli.train_teacher, 4 steps: launch
                  counts (49 channel_sums and grad_channel_sums a step, 2
                  RandAugment layers, no flash or fused kernel), step time,
@@ -200,6 +213,9 @@ def with_flags(args, **flags):
 # 224^2 in cross-arch EmaTec mode, otherwise the MoCo main path's flags
 CROSS_ARGS = with_flags(MAIN_ARGS, model_t="vit_small_patch16_224",
                         image_size="224")
+# config #5 with the MoE ViT-S/16 teacher of moma_tpu_torch/models/vit_moe.py
+MOE_T = "vit_small_moe_patch16_224"
+MOE_ARGS = with_flags(CROSS_ARGS, model_t=MOE_T)
 # peaks of one H100 SXM (NVIDIA's data sheet): device memory rate, the
 # float32 rate outside the tensor cores (for float32 operands), and the dense
 # bf16 tensor-core rate (for products of bf16 operands accumulated in float32)
@@ -2042,6 +2058,110 @@ def phase_cross_arch(batch=64):
     return counts
 
 
+class _moe_routes:
+    """For the forwards inside, every MoE layer's routing
+    (models/vit_moe.MoEMLP, patched here): `calls` holds, per layer call,
+    the tokens routed, the choices dropped (a device tensor, read after
+    the run: no host sync in the step) and the capacity; `choices` the
+    expert choices made.  With `replay` (a list of choices, in call
+    order, taken again from its start once used up) the layers take those
+    instead of their own, and `flips` counts the tokens whose own choices
+    differed."""
+
+    def __init__(self, replay=None):
+        self.replay, self.calls, self.choices = replay, [], []
+        self.flips = 0
+
+    def __enter__(self):
+        from moma_tpu_torch.models.vit_moe import MoEMLP
+
+        route, choose = MoEMLP.route, MoEMLP.choose
+        self.saved = (route, choose)
+
+        def choose_(m, probs):
+            vals, idx = choose(m, probs)
+            if self.replay is not None:
+                want = self.replay[len(self.choices) % len(self.replay)].to(
+                    idx.device)
+                self.flips += int((idx != want).any(-1).sum())
+                idx = want
+                vals = probs.gather(-1, idx)
+            self.choices.append(idx)
+            return vals, idx
+
+        def route_(m, xf):
+            gates, idx, slot, cap = route(m, xf)
+            self.calls.append((xf.shape[0], (slot >= cap).sum(), cap))
+            return gates, idx, slot, cap
+
+        MoEMLP.route, MoEMLP.choose = route_, choose_
+        return self
+
+    def __exit__(self, *exc):
+        from moma_tpu_torch.models.vit_moe import MoEMLP
+
+        MoEMLP.route, MoEMLP.choose = self.saved
+
+    def dropped(self, layers, forwards=4):
+        """(tokens routed a call, capacity, [dropped choices of each MoE
+        block a forward]) over the first `forwards` forwards of a model of
+        `layers` MoE blocks."""
+        calls = self.calls[:layers * forwards]
+        if len(calls) != layers * forwards:
+            raise AssertionError(f"{len(self.calls)} MoE layer calls, "
+                                 f"expected {layers * forwards} or more")
+        per = [0] * layers
+        for i, (_, d, _) in enumerate(calls):
+            per[i % layers] += int(d)
+        return calls[0][0], calls[0][2], [d / forwards for d in per]
+
+
+def phase_moe():
+    """[5b-teachers] (a): config #5 with the MoE ViT-S/16 teacher
+    (MOE_ARGS) through the CLI, 4 steps: launch counts (the student's and
+    the EMA copy's BatchNorms, as config #5), step time, img/s, peak, the
+    fixed teacher's class and the tokens its MoE blocks dropped; then the
+    MoE ViT-S/16 trained through cli.train_teacher at 224^2 (4 steps,
+    batch 64: no BatchNorm, 2 RandAugment layers a step), the path whose
+    gradients run through the router's gates."""
+    from moma_tpu_torch.cli import train_teacher
+
+    t_phase = time.perf_counter()
+    with _moe_routes() as routes:
+        counts = phase_main_path(MOE_ARGS, "cross_moe")
+    state = MAIN_RUNS["cross_moe"]["state"]
+    layers = len(state.teacher.moe_layers())
+    # the fixed teacher's KL forward, one a step
+    S, cap, per = routes.dropped(layers)
+    if (type(state.teacher).__name__ != "MoEVisionTransformer"
+            or len(routes.calls) != 4 * layers):
+        raise AssertionError(f"cross_moe: teacher {type(state.teacher)}, "
+                             f"{len(routes.calls)} MoE layer calls")
+    log(f"[cross_moe] ({CARD}) fixed MoE teacher, {layers} MoE blocks of "
+        f"{state.teacher.num_experts} experts (top-{state.teacher.top_k}, "
+        f"capacity factor {state.teacher.capacity_factor}): {S} tokens a "
+        f"forward, capacity {cap} an expert; tokens dropped a forward by "
+        f"block {per} (of {S})")
+    MAIN_RUNS.pop("cross_moe")
+    del state
+
+    root = SAVE_ROOT
+    _set_root(os.path.join(root, "teacher_moe"))
+    args = with_flags(TEACHER_ARGS, model=MOE_T, image_size="224")
+    with _moe_routes() as routes:
+        s_t, _, t_counts = phase_drive(train_teacher.main, args,
+                                       "teacher_moe", lambda s: [s.model])
+    _set_root(root)
+    S, cap, per = routes.dropped(len(s_t.model.moe_layers()))
+    log(f"[teacher_moe] ({CARD}) the 4 train steps' forwards, {S} tokens "
+        f"each, capacity {cap} an expert: tokens dropped a forward by "
+        f"block {per}")
+    for k, v in t_counts.items():
+        counts[k] = counts.get(k, 0) or v
+    log(f"[cross_moe] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # phase_teacher: scripts/run_vanilla.sh's command line (effiB0, 512^2, batch
 # 64, lr 0.05, cosine, wd 1e-4) for one epoch of synthetic data
 TEACHER_ARGS = [
@@ -3684,6 +3804,8 @@ TP_RUNS = (
     ("pipeline", CROSS_ARGS + ["--teacher_parallel", "pipeline"]),
     ("tensor_mocoatt", with_flags(CROSS_ARGS, mem="MoCoAtt", attn="all")),
     ("moco_accum2", MAIN_ARGS + ["--grad_accum", "2"]),
+    # [5b-teachers] (d): the MoE teacher's 8 experts, 4 a rank
+    ("expert", MOE_ARGS + ["--teacher_parallel", "expert"]),
 )
 # the big teacher of moma_tpu/models/vit_tp.py's docstring: ViT-B/16 at
 # 384^2 (12 heads, 577 tokens), batch 64, seeded weights; each route's
@@ -3770,9 +3892,80 @@ def _rank_big_vit(rank, world, dev="cuda"):
     return out
 
 
+MOE_BATCH = 64
+MOE_RTOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _rank_big_moe(rank, world, dev="cuda"):
+    """The MoE ViT-S/16 teacher's expert-parallel forward on this model
+    rank against its dense forward, batch MOE_BATCH at 224^2, float32
+    (TF32 off) and bf16: the dense forward's expert choices are replayed
+    in the expert-parallel one (a choice within rounding of a tie may flip
+    between the two programs; `flips` counts those).  The outputs (rank
+    0's), both forwards' times, the expert bytes this rank holds and the
+    forward's collectives."""
+    import copy
+
+    import torch
+
+    from moma_tpu_torch.core.mesh import (comm_counts, create_mesh,
+                                          model_axis, reset_comm_counts)
+    from moma_tpu_torch.models import create_model
+    from moma_tpu_torch.models.vit_moe import EPMoEVisionTransformer
+
+    create_mesh(world)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        x = (torch.rand(MOE_BATCH, 224, 224, 3,
+                        generator=torch.Generator().manual_seed(3)) * 4
+             - 2).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            dense = create_model(
+                MOE_T, 1000, dtype if dtype != torch.float32 else None,
+                generator=torch.Generator().manual_seed(0),
+                image_size=224).to(dev).eval()
+            ep = EPMoEVisionTransformer(copy.deepcopy(dense), model_axis())
+            res = {}
+            for label, model, routes in (("dense", dense, _moe_routes()),
+                                         ("ep", ep, None)):
+                if routes is None:
+                    routes = _moe_routes(replay=res["dense"]["choices"])
+                with torch.no_grad(), routes:
+                    model(x)   # the first call of its shapes
+                    sync(dev)
+                    torch.distributed.barrier()
+                    reset_comm_counts()
+                    t0 = time.perf_counter()
+                    (grid, cls), logits = model(x)
+                    sync(dev)
+                res[label] = {
+                    "outs": [o.float().cpu() for o in (grid, cls, logits)]
+                    if rank == 0 else None,
+                    "s": time.perf_counter() - t0, "comm": comm_counts(),
+                    "choices": routes.choices[len(routes.choices) // 2:],
+                    "flips": routes.flips}
+            res["ep"]["bytes"] = ep.expert_bytes()
+            res["ep"]["experts"] = [m.w1.shape[0] for m in ep.moe_layers()]
+            for r in res.values():
+                del r["choices"]
+            out[name] = res
+            del dense, ep
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        create_mesh(1)
+    return out
+
+
 def _rank_tp(rank, world, save_root, runs, dev):
     """phase_teacher_parallel's work in phase_model_axis' (1 x 2) world:
-    the CLI runs at --model_parallel 2, then BIG_VIT's forwards."""
+    the CLI runs at --model_parallel 2, then BIG_VIT's forwards and the
+    MoE teacher's."""
 
     def extra(state, result):
         t = state.teacher
@@ -3782,12 +3975,17 @@ def _rank_tp(rank, world, save_root, runs, dev):
                     next(iter(state.queue.memory))].shape[0],
                 "teacher_bytes": (t.block_bytes() if hasattr(
                     t, "block_bytes") else None),
+                "expert_bytes": (t.expert_bytes() if hasattr(
+                    t, "expert_bytes") else None),
+                "experts": ([m.w1.shape[0] for m in t.moe_layers()]
+                            if hasattr(t, "moe_layers") else None),
                 "teacher_class": type(t).__name__}
     full = _rank_runs(
         save_root, [(label, args + ["--model_parallel", str(TP_MP),
                                     "--trial", f"tp_{label}"])
                     for label, args in runs], extra, sets=TP_SETS)
-    return {"full": full, "big": _rank_big_vit(rank, world, dev)}
+    return {"full": full, "big": _rank_big_vit(rank, world, dev),
+            "big_moe": _rank_big_moe(rank, world, dev)}
 
 
 def phase_teacher_parallel(row, dev="cuda", runs=TP_RUNS):
@@ -3817,15 +4015,21 @@ def phase_teacher_parallel(row, dev="cuda", runs=TP_RUNS):
         n = len(a["batch_times"])
         accum = (int(args[args.index("--grad_accum") + 1])
                  if "--grad_accum" in args else 1)
-        cross = "vit_small_patch16_224" in args
+        cross = args[args.index("--model_t") + 1] != "effiB0"
         if not (a["loss"] == b["loss"] and math.isfinite(a["loss"])):
             raise AssertionError(f"tp2 {label}: ranks disagree or diverge: "
                                  f"{a['loss']} / {b['loss']}")
         if a["queue_ptr"] != (B * n) % K or a["bank_rows"] != K // TP_MP:
             raise AssertionError(f"tp2 {label}: queue_ptr {a['queue_ptr']}, "
                                  f"{a['bank_rows']} bank rows a rank")
-        want_class = ("PPVisionTransformer" if "pipeline" in args
-                      else "TPVisionTransformer")
+        want_class = {"pipeline": "PPVisionTransformer",
+                      "expert": "EPMoEVisionTransformer"}.get(
+            args[args.index("--teacher_parallel") + 1]
+            if "--teacher_parallel" in args else "tensor",
+            "TPVisionTransformer")
+        if a["experts"] is not None and a["experts"] != [4] * 6:
+            raise AssertionError(f"tp2 {label}: experts a rank "
+                                 f"{a['experts']}, not 4 of 8 in 6 blocks")
         if cross != (a["teacher_class"] == want_class):
             raise AssertionError(f"tp2 {label}: teacher {a['teacher_class']}"
                                  f" (cross-arch: {cross})")
@@ -3855,6 +4059,10 @@ def phase_teacher_parallel(row, dev="cuda", runs=TP_RUNS):
                 f"{res['teacher_class']}"
                 + (f" holding {tb[0] / 1e6:.2f} of {tb[1] / 1e6:.2f} MB of "
                    "block weights" if tb else "")
+                + (f", {res['experts']} experts a MoE block, "
+                   f"{res['expert_bytes'][0] / 1e6:.2f} of "
+                   f"{res['expert_bytes'][1] / 1e6:.2f} MB of expert weights"
+                   if res["experts"] else "")
                 + f"; launches in {n} steps {res['launches']} (a step: "
                 f"{ {k: v / n for k, v in res['launches'].items()} })")
         c = a["comm_step"]
@@ -3890,6 +4098,29 @@ def phase_teacher_parallel(row, dev="cuda", runs=TP_RUNS):
                 f"{res['peak'] / 2 ** 30:.2f} GiB; a forward's collectives "
                 + ", ".join(f"{c[k]} {k} {c[k + '_bytes'] / 1e6:.1f} MB"
                             for k in kinds))
+    for dtype in ("float32", "bfloat16"):
+        r0, r1 = row[0]["big_moe"][dtype], row[1]["big_moe"][dtype]
+        ref, got = r0["dense"], r0["ep"]
+        gaps = [float((g - w).abs().max()) / float(w.abs().max())
+                for g, w in zip(got["outs"], ref["outs"])]
+        if not max(gaps) <= MOE_RTOL[dtype]:
+            raise AssertionError(f"{MOE_T} {dtype} expert-parallel: max "
+                                 f"error {max(gaps):.2e} of max|ref| > "
+                                 f"{MOE_RTOL[dtype]}")
+        c = got["comm"]
+        kinds = sorted({k[:-6] for k in c if k.endswith("_bytes")})
+        log(f"[tp2] ({CARD}) {MOE_T} batch {MOE_BATCH} {dtype} "
+            f"expert-parallel forward vs dense: max error of max|ref| (grid,"
+            f" cls, logits) {[f'{e:.2e}' for e in gaps]} (limit "
+            f"{MOE_RTOL[dtype]}); expert choices that differed from the "
+            f"dense forward's (replayed) {got['flips']} / {r1['ep']['flips']}"
+            f" (ranks 0 / 1); experts a rank {got['experts']}, "
+            f"{got['bytes'][0] / 1e6:.1f} of {got['bytes'][1] / 1e6:.1f} MB "
+            f"of expert weights; forward {got['s'] * 1e3:.1f} / "
+            f"{r1['ep']['s'] * 1e3:.1f} ms (ranks 0 / 1), dense "
+            f"{ref['s'] * 1e3:.1f} ms on one rank; a forward's collectives "
+            + ", ".join(f"{c[k]} {k} {c[k + '_bytes'] / 1e6:.2f} MB"
+                        for k in kinds))
     return full[0].get("tensor_mocoatt", {}).get("launches", {})
 
 
@@ -3946,6 +4177,7 @@ def _run(name_power, t0) -> int:
     packed_counts = phase_packed()
     phase_persistence()
     cross_counts = phase_cross_arch()
+    moe_counts = phase_moe()
     teacher_best, teacher_counts = phase_teacher()
     cmp_counts = phase_comparison(teacher_best)
     cmp2_counts = phase_comparison_ranks(teacher_best)
@@ -3953,8 +4185,8 @@ def _run(name_power, t0) -> int:
     zoo_counts = phase_zoo(results)
     # a kernel's launches: those of the first main path that runs it
     for later in (accum_counts, dp_counts, att_counts, fused_counts,
-                  packed_counts, cross_counts, teacher_counts, cmp_counts,
-                  cmp2_counts, zoo_counts, mp_counts, tp_counts):
+                  packed_counts, cross_counts, moe_counts, teacher_counts,
+                  cmp_counts, cmp2_counts, zoo_counts, mp_counts, tp_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax",

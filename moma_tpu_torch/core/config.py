@@ -215,9 +215,7 @@ class Config:
 def check_slice(cfg: Config, supervised: bool = False) -> None:
     """Raise NotImplementedError for any choice outside the ported slice;
     `supervised`: a teacher run's config (no teacher, no distiller)."""
-    from moma_tpu_torch.models import NOT_PORTED
-
-    m, r, method = cfg.moma, cfg.run, cfg.distill.distill
+    m, method = cfg.moma, cfg.distill.distill
     bad = []
     if not supervised:
         if method not in ("moma",) + DISTILLERS:
@@ -232,9 +230,6 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
             bad.append("distillation without a teacher")
         if m.teacher_quant != "none":
             bad.append("--teacher_quant (Queue 1 item [6])")
-    for mc in (cfg.model_s, cfg.model_t):
-        if mc is not None and mc.name in NOT_PORTED:
-            bad.append(f"model {mc.name} ({NOT_PORTED[mc.name]})")
     if bad:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): "
@@ -248,9 +243,9 @@ def check_model_axis(cfg: Config, cross_arch: bool, teacher=None,
     With the teacher module (`teacher`, on a grid of `n_data` data rows)
     also the checks of the teacher's route at --model_parallel > 1: the
     pipeline (models/vit_pp.check_pp_teacher, on the accumulation
-    microbatch), the tensor-parallel ViT (models/vit_tp.check_tp_teacher)
-    or a teacher kept whole on every model rank.  Not ported, by name:
-    --teacher_parallel expert (the MoE ViTs' expert axis)."""
+    microbatch), the tensor-parallel ViT (models/vit_tp.check_tp_teacher),
+    the expert-parallel MoE ViT (models/vit_moe.check_ep_teacher) or a
+    teacher kept whole on every model rank."""
     r = cfg.run
     if r.pp_microbatch and r.teacher_parallel != "pipeline":
         raise ValueError(
@@ -286,22 +281,23 @@ def check_model_axis(cfg: Config, cross_arch: bool, teacher=None,
                          f"model_parallel={mp}")
     if not cross_arch:
         return
+    quant = cfg.moma.teacher_quant
     if r.teacher_parallel == "expert":
         if r.sequence_parallel:
             raise ValueError(
                 "--sequence_parallel applies to the TENSOR-parallel"
                 " teacher; --teacher_parallel expert shards the MoE"
                 " expert axis instead")
-        raise NotImplementedError(
-            "not ported to moma_tpu_torch yet (see ROADMAP.md): "
-            "--teacher_parallel expert (the MoE ViT teachers' expert axis, "
-            "Queue 1 item [5b-teachers] (a, d))")
+        if teacher is not None:
+            from moma_tpu_torch.models.vit_moe import check_ep_teacher
+
+            check_ep_teacher(teacher, mp, quant)
+        return
     if teacher is None:
         return
     from moma_tpu_torch.models.vit_pp import check_pp_teacher, is_pp_model
     from moma_tpu_torch.models.vit_tp import check_tp_teacher, is_tp_model
 
-    quant = cfg.moma.teacher_quant
     if r.teacher_parallel == "pipeline":
         if r.sequence_parallel:
             raise ValueError(

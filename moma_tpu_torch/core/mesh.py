@@ -36,7 +36,8 @@ the reference's DDP trainers, there is one process per GPU under
     writes and their barrier.
   * Every collective adds its bytes to `comm_counts()` under its own name
     (the model axis's as `model_all_gather`, `model_all_reduce`,
-    `model_reduce_scatter`, `model_broadcast`, `ppermute`).  gloo takes
+    `model_reduce_scatter`, `model_broadcast`, `ppermute`; the MoE
+    routing counts' as `moe_all_gather`).  gloo takes
     CUDA tensors in all of them but the ring hop's send / recv (checked
     with PyTorch 2.11 on an H100).
   * `spawn_ranks` runs a function on N local processes (the `spawn`
@@ -156,7 +157,8 @@ class _Replicated:
 
     world, rank, group = 1, 0, None
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, kind: str = "all_gather"
+               ) -> torch.Tensor:
         return x
 
     def gather_grad(self, x: torch.Tensor) -> torch.Tensor:
@@ -225,10 +227,12 @@ class _DataAxis:
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """all_gather + cat over the ranks (rank order), no gradient."""
+    def gather(self, x: torch.Tensor, kind: str = "all_gather"
+               ) -> torch.Tensor:
+        """all_gather + cat over the ranks (rank order), no gradient,
+        counted under `kind`."""
         with torch.no_grad():
-            return _all_gather(x.detach(), self.world, self.group)
+            return _all_gather(x.detach(), self.world, self.group, 0, kind)
 
     def gather_grad(self, x: torch.Tensor) -> torch.Tensor:
         """all_gather + cat whose gradient flows back to every rank's

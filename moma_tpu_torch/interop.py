@@ -11,8 +11,10 @@ A ViT (models/vit.py) has parameters outside those streams (cls_token,
 pos_embed), which the converter refuses on purpose; it crosses through
 the explicit name map `vit_name_map` instead, with the transposes of a
 Dense kernel ((in, out) <-> (out, in)) and of the patch conv (HWIO <->
-OIHW).  Every tensor on both sides must be mapped: a port tensor left at
-its own value, or a JAX leaf left unread, raises.
+OIHW).  A MoE ViT (models/vit_moe.py) crosses through the same map, its
+MoE blocks' MLP replaced by `moe/{router, w1, b1, w2, b2}`, whose layouts
+the two packages share.  Every tensor on both sides must be mapped: a port
+tensor left at its own value, or a JAX leaf left unread, raises.
 
   load_jax_variables(module, variables)  JAX -> port
       `variables` as numpy arrays, insertion-ordered as `init` returns them
@@ -46,29 +48,32 @@ import torch
 
 from moma_tpu_torch.models.torch_import import (convert_state_dict,
                                                 export_state_dict)
-from moma_tpu_torch.models.vit import VisionTransformer
+from moma_tpu_torch.models.vit import ViTBase
 
 
-def vit_name_map(depth: int):
+def vit_name_map(depth: int, moe_blocks=()):
     """[(port state-dict key, JAX variables path, layout)] of a ViT of
-    `depth` blocks; layout 'conv' (HWIO <-> OIHW), 'dense' ((in, out) <->
-    (out, in)) or None."""
+    `depth` blocks, the blocks of `moe_blocks` MoE blocks; layout 'conv'
+    (HWIO <-> OIHW), 'dense' ((in, out) <-> (out, in)) or None."""
     m = [("patch_embed.weight", ("patch_embed", "kernel"), "conv"),
          ("patch_embed.bias", ("patch_embed", "bias"), None),
          ("cls_token", ("cls_token",), None),
          ("pos_embed", ("pos_embed",), None)]
     for i in range(depth):
         b, j = f"blocks.{i}", f"Block_{i}"
+        mlp = () if i in moe_blocks else (("fc1", ("Dense_0",), "dense"),
+                                          ("fc2", ("Dense_1",), "dense"))
         for ours, theirs, layout in (
                 ("norm1", ("LayerNorm_0",), None),
                 ("attn.qkv", ("MHSA_0", "Dense_0"), "dense"),
                 ("attn.proj", ("MHSA_0", "Dense_1"), "dense"),
-                ("norm2", ("LayerNorm_1",), None),
-                ("fc1", ("Dense_0",), "dense"),
-                ("fc2", ("Dense_1",), "dense")):
+                ("norm2", ("LayerNorm_1",), None)) + mlp:
             w = "scale" if layout is None else "kernel"
             m += [(f"{b}.{ours}.weight", (j, *theirs, w), layout),
                   (f"{b}.{ours}.bias", (j, *theirs, "bias"), None)]
+        if i in moe_blocks:
+            m += [(f"{b}.moe.{n}", (j, "moe", n), None)
+                  for n in ("router", "w1", "b1", "w2", "b2")]
     m += [("norm.weight", ("norm", "scale"), None),
           ("norm.bias", ("norm", "bias"), None),
           ("classifier.weight", ("classifier", "kernel"), "dense"),
@@ -102,7 +107,8 @@ def _to_jax(a: np.ndarray, layout) -> np.ndarray:
 def _vit_pairs(module, variables):
     """(port key, JAX path, layout) of the ViT name map, checked to cover
     every tensor of the module and every leaf of `variables`."""
-    names = vit_name_map(len(module.blocks))
+    moe = [i for i, b in enumerate(module.blocks) if hasattr(b, "moe")]
+    names = vit_name_map(len(module.blocks), moe)
     own = set(module.state_dict())
     mapped = {k for k, _, _ in names}
     leaves = {p for p, _ in _leaves(_without_empty(dict(variables)))}
@@ -161,7 +167,7 @@ def load_jax_variables(module, variables: Dict[str, Any]) -> None:
         module.ptr = int(np.asarray(variables.get("ptr", 0)))
         return
     own = module.state_dict()
-    if isinstance(module, VisionTransformer):
+    if isinstance(module, ViTBase):
         sd = {}
         for key, path, layout in _vit_pairs(module, variables):
             v = _to_port(_get(variables, path), layout)
@@ -185,7 +191,7 @@ def jax_variables(module: torch.nn.Module,
 
     if isinstance(module, RFFHead):
         return {"constants": _numpy_state(module)}
-    if not isinstance(module, VisionTransformer):
+    if not isinstance(module, ViTBase):
         return convert_state_dict(_numpy_state(module), template)
     state = _numpy_state(module)
     out = {}

@@ -1,7 +1,6 @@
 """Backbone registry: every name of moma_tpu/models/__init__.py (:13-91),
-aliases included, but the two Mixture-of-Experts ViTs (ROADMAP Queue 1
-item [5b-teachers]: the expert-parallel teacher).  `create_model(name, ...)` is the one construction entry point;
-imports are lazy."""
+aliases included.  `create_model(name, ...)` is the one construction
+entry point; imports are lazy."""
 
 from __future__ import annotations
 
@@ -61,13 +60,12 @@ _VITS = {name: name for name in (
     "deit_tiny_patch16_384")}
 _VITS.update({"vit_timm_base_patch16_224": "vit_base_patch16_224",
               "vit_timm_tiny_patch16_224": "vit_tiny_patch16_224"})
-# registered in moma_tpu, not ported: name -> ROADMAP label
-NOT_PORTED = {"vit_tiny_moe_patch16_224": "Queue 1 item [5b-teachers]",
-              "vit_small_moe_patch16_224": "Queue 1 item [5b-teachers]"}
+# the Mixture-of-Experts ViTs (models/vit_moe.py)
+_MOES = ("vit_tiny_moe_patch16_224", "vit_small_moe_patch16_224")
 
 
 def available_models():
-    return sorted([*_REGISTRY, *_EFFNETS, *_VITS])
+    return sorted([*_REGISTRY, *_EFFNETS, *_VITS, *_MOES])
 
 
 def create_model(name: str, num_classes: int,
@@ -75,9 +73,10 @@ def create_model(name: str, num_classes: int,
                  generator: Optional[torch.Generator] = None,
                  image_size: Optional[int] = None, **kw):
     """Build a registered backbone (moma_tpu/models/__init__.py
-    counterpart).  A ViT needs `image_size`: its position embedding is
-    sized from it.  Other keywords go to the model's constructor, as in
-    moma_tpu (an EfficientNet's `stem_s2d`, `block_remat`)."""
+    counterpart).  A ViT (MoE ViTs too) needs `image_size`: its position
+    embedding is sized from it.  Other keywords go to the model's
+    constructor, as in moma_tpu (an EfficientNet's `stem_s2d`,
+    `block_remat`)."""
     if name in _REGISTRY:
         module, attr = _REGISTRY[name]
         factory = getattr(importlib.import_module(module), attr)
@@ -88,16 +87,15 @@ def create_model(name: str, num_classes: int,
 
         return EfficientNet(_EFFNETS[name], num_classes=num_classes,
                             dtype=dtype, generator=generator, **kw)
-    if name in _VITS:
+    if name in _VITS or name in _MOES:
         if image_size is None:
             raise ValueError(f"{name} needs image_size: its position "
                              "embedding is sized from it")
-        from moma_tpu_torch.models.vit import vit_factory
-
-        return vit_factory(_VITS[name], num_classes, image_size, dtype=dtype,
-                           generator=generator, **kw)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to moma_tpu_torch yet (ROADMAP "
-            f"{NOT_PORTED[name]})")
+        if name in _MOES:
+            from moma_tpu_torch.models.vit_moe import moe_factory as factory
+        else:
+            from moma_tpu_torch.models.vit import vit_factory as factory
+            name = _VITS[name]
+        return factory(name, num_classes, image_size, dtype=dtype,
+                       generator=generator, **kw)
     raise KeyError(f"unknown model '{name}'; known: {available_models()}")

@@ -178,9 +178,9 @@ def load_pretrained(module: torch.nn.Module, path: Optional[str],
             if isinstance(obj.get(key), dict):
                 _load_port_state(module, obj[key], strict)
                 return module
-    from moma_tpu_torch.models.vit import VisionTransformer
+    from moma_tpu_torch.models.vit import ViTBase
 
-    if isinstance(module, VisionTransformer):
+    if isinstance(module, ViTBase):
         raise ValueError(
             f"{path}: a torch state dict cannot be aligned to a ViT (the "
             "stream converter has no slot for cls_token / pos_embed, in the "

@@ -123,19 +123,19 @@ class Block(nn.Module):
         return x + self.fc2(h)
 
 
-class VisionTransformer(nn.Module):
-    """forward(NHWC images of image_size^2) -> ((grid NHWC, cls_out f32),
-    logits)."""
+class ViTBase(nn.Module):
+    """What the ViT families share (this file's VisionTransformer and
+    models/vit_moe.MoEVisionTransformer, which are not each other's
+    subclasses): the patch embedding, the cls token and position
+    embedding, the final norm, the classifier, and the forward around
+    `run_blocks`."""
 
-    def __init__(self, patch_size: int = 16, dim: int = 768, depth: int = 12,
-                 num_heads: int = 12, num_classes: int = 1000,
-                 image_size: int = 224, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
+    def _embeddings(self, patch_size: int, dim: int, num_heads: int,
+                    image_size: int, dtype: Optional[torch.dtype],
+                    g: torch.Generator) -> None:
         if image_size % patch_size:
             raise ValueError(f"image size {image_size} is not a multiple of "
                              f"the patch size {patch_size}")
-        g = default_generator(generator)
         self.patch_size = patch_size
         self.num_heads = num_heads
         self.grid = image_size // patch_size
@@ -147,9 +147,9 @@ class VisionTransformer(nn.Module):
         with torch.no_grad():
             for p in (self.cls_token, self.pos_embed):
                 nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=g)
-        self.blocks = nn.ModuleList(
-            Block(dim, num_heads, dtype=dtype, generator=g)
-            for _ in range(depth))
+
+    def _head(self, dim: int, num_classes: int, dtype: Optional[torch.dtype],
+              g: torch.Generator) -> None:
         self.norm = LayerNorm(dim, dtype)
         self.classifier = TorchLinear(dim, num_classes, generator=g)
         self.feat_dim = dim
@@ -173,11 +173,28 @@ class VisionTransformer(nn.Module):
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """The transformer blocks over the tokens (B, 1 + patches, dim);
-        the model-parallel teachers (models/vit_tp.py, vit_pp.py) run
-        their shares of them here."""
+        the model-parallel teachers (models/vit_tp.py, vit_pp.py,
+        vit_moe.EPMoEVisionTransformer) run their shares of them here."""
         for blk in self.blocks:
             x = blk(x)
         return x
+
+
+class VisionTransformer(ViTBase):
+    """forward(NHWC images of image_size^2) -> ((grid NHWC, cls_out f32),
+    logits)."""
+
+    def __init__(self, patch_size: int = 16, dim: int = 768, depth: int = 12,
+                 num_heads: int = 12, num_classes: int = 1000,
+                 image_size: int = 224, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = default_generator(generator)
+        self._embeddings(patch_size, dim, num_heads, image_size, dtype, g)
+        self.blocks = nn.ModuleList(
+            Block(dim, num_heads, dtype=dtype, generator=g)
+            for _ in range(depth))
+        self._head(dim, num_classes, dtype, g)
 
 
 # name -> (dim, depth, heads); patch 16.  The 384 variants are the same

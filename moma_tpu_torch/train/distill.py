@@ -18,7 +18,9 @@ head map, pooled), NHWC maps.
 In a process group of several ranks (core/mesh.py) the step is JAX's
 jitted step over the global batch: each rank augments its rows from its
 own stream, the student's and the aux modules' BatchNorms take sync
-statistics, and the gradients and metrics are averaged over the ranks.
+statistics, a MoE backbone routes the global batch
+(models/vit_moe.routing_scope), and the gradients and metrics are
+averaged over the ranks.
 The losses that couple rows across the batch (similarity's Gram, rkd's
 distances and angles, pkt's similarities, correlation's consecutive
 rows, semckd's batch-similarity attention) run their one-process
@@ -46,6 +48,7 @@ from moma_tpu_torch.losses import aux as A
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.losses.crd import CRDMemory, crd_loss
 from moma_tpu_torch.models import remat as rm
+from moma_tpu_torch.models.vit_moe import routing_scope
 from moma_tpu_torch.ops.fused_bn import sync_stats
 from moma_tpu_torch.train.state import DistillState, sgd_step
 from moma_tpu_torch.train.steps import (accuracy, average_grads, eval_sums,
@@ -290,7 +293,7 @@ def make_distill_train_step(distiller: Distiller,
         state.optimizer.zero_grad(set_to_none=True)
         # the frozen eval-mode teacher normalizes by its running
         # statistics: only the student's and the aux modules' BNs sync
-        with sync_stats(ax):
+        with sync_stats(ax), routing_scope(ax):
             metrics = [microbatch(state, {k: v[rows]
                                           for k, v in batch.items()}, ax)
                        for rows in microbatches(batch["image"].shape[0],

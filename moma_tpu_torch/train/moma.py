@@ -124,6 +124,7 @@ from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
 from moma_tpu_torch.models import remat as rm
 from moma_tpu_torch.models.pretrained import load_pretrained
+from moma_tpu_torch.models.vit_moe import routing_scope
 from moma_tpu_torch.moma.cmo import CMOHeads
 from moma_tpu_torch.moma.queue import (QueueState, contrast_ce,
                                        queue_update, random_memory,
@@ -277,8 +278,10 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     with sync-BN statistics (fused_bn.sync_stats, :1129-1135).  'global' is
     JAX's global-batch step: sync-BN statistics, and the batch-token
     attention over the global rows, whose inputs are gathered with their
-    gradient; each rank keeps its rows of the logits.  In one process the
-    three are the same step.
+    gradient; each rank keeps its rows of the logits; a MoE backbone
+    routes the global batch, rank by rank (models/vit_moe.routing_scope),
+    where 'local' and 'sync' route each rank's rows alone.  In one process
+    the three are the same step.
 
     `cfg.run.grad_accum = M > 1` is JAX's accumulated step
     (train/moma.py:721-1107): microbatch i is virtual rank i of the 'local'
@@ -293,7 +296,9 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     as in JAX) each rank holds its B/(M*W) rows of every microbatch
     (mesh.rank_rows): microbatch i spans every rank, its BN statistics
     synced over them and its batch-token attention over its gathered
-    rows, so the step is the one-process step (JAX's runs its microbatches
+    rows, and a MoE backbone routes its rows together (rank by rank within
+    the microbatch, the order of _microbatch_major), so the step is the
+    one-process step (JAX's runs its microbatches
     over the whole mesh: M virtual ranks, whatever W is).
 
     `cfg.run.model_parallel = MP > 1` splits the bank over the model ranks
@@ -480,14 +485,15 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 f"{model_axis().size} rank(s)")
         ax = data_axis()
         if M > 1:
-            with sync_stats(ax):
+            with sync_stats(ax), routing_scope(ax):
                 return accum_step(state, batch, generator, ax)
         if ax.world > 1 and use_fused:
             raise ValueError(
                 "--fused_teacher on runs the teacher forwards on one "
                 "process (its kernels take per-process BN statistics); "
                 "drop it for world_size > 1")
-        with sync_stats(ax if bn_mode in ("sync", "global") else None):
+        with sync_stats(ax if bn_mode in ("sync", "global") else None), \
+                routing_scope(ax if bn_mode == "global" else None):
             return rank_step(state, batch, generator, ax)
 
     def rank_step(state, batch, generator, ax):
@@ -799,20 +805,31 @@ def build_state(cfg: Config, device: torch.device, steps_per_epoch: int,
 
 def parallel_teacher(cfg: Config, teacher: nn.Module) -> nn.Module:
     """The cross-arch KL-teacher on the model axis (train/moma.py:1329-
-    1417): at --model_parallel MP > 1 a ViT teacher becomes this rank's
-    share of the pipeline (--teacher_parallel pipeline,
+    1417): at --model_parallel MP > 1 a MoE ViT teacher becomes this
+    rank's E/MP experts (--teacher_parallel expert,
+    models/vit_moe.EPMoEVisionTransformer), a ViT teacher this rank's share
+    of the pipeline (--teacher_parallel pipeline,
     models/vit_pp.PPVisionTransformer) or of the tensor-parallel teacher
     (models/vit_tp.TPVisionTransformer, with --sequence_parallel its
-    residual stream split over tokens); any other teacher stays whole on
-    every model rank.  check_model_axis has checked the route."""
+    residual stream split over tokens); any other teacher (a MoE ViT
+    under the default --teacher_parallel tensor too) stays whole on every
+    model rank.  check_model_axis has checked the route."""
+    from moma_tpu_torch.models.vit_moe import EPMoEVisionTransformer
     from moma_tpu_torch.models.vit_pp import PPVisionTransformer
     from moma_tpu_torch.models.vit_tp import TPVisionTransformer, is_tp_model
 
     r = cfg.run
     mp = r.model_parallel
-    if mp <= 1 or not is_tp_model(teacher):
+    if mp <= 1:
         return teacher
-    if r.teacher_parallel == "pipeline":
+    if r.teacher_parallel == "expert":
+        placed = EPMoEVisionTransformer(teacher, model_axis())
+        note = (f"[moma] MoE ViT teacher expert-parallel over "
+                f"'model'={mp}: {teacher.num_experts} experts -> "
+                f"{teacher.num_experts // mp}/chip")
+    elif not is_tp_model(teacher):
+        return teacher
+    elif r.teacher_parallel == "pipeline":
         n_micro = r.pp_microbatch or mp
         placed = PPVisionTransformer(teacher, model_axis(), n_micro,
                                      data_axis().world)
@@ -838,16 +855,17 @@ def parallel_teacher(cfg: Config, teacher: nn.Module) -> nn.Module:
 
 
 def teacher_state_dict(teacher: nn.Module) -> dict:
-    """The teacher's whole state dict: a tensor- or pipeline-parallel
-    teacher's gathered from the model ranks (every model rank calls it)."""
+    """The teacher's whole state dict: a tensor-, pipeline- or
+    expert-parallel teacher's gathered from the model ranks (every model
+    rank calls it)."""
     return getattr(teacher, "dense_state_dict", teacher.state_dict)()
 
 
 def full_state(state: MomaState) -> dict:
     """The checkpointable state: both backbones with their BN buffers (a
-    tensor- or pipeline-parallel teacher gathered whole, so a run resumes
-    at any --model_parallel and --teacher_parallel), in cross-arch runs the
-    EMA copy with its own (train/moma.py:1468-1481), the heads, every
+    tensor-, pipeline- or expert-parallel teacher gathered whole, so a run
+    resumes at any --model_parallel and --teacher_parallel), in cross-arch
+    runs the EMA copy with its own (train/moma.py:1468-1481), the heads, every
     queue bank whole (a split bank gathered over the model ranks, as JAX's
     file holds the global array) and its pointer, the optimizer's buffers
     and the step.  Every rank calls it."""

@@ -19,10 +19,11 @@ and the running statistics chain from one microbatch to the next (the
 in-place running update does that by itself), as in JAX.
 
 In a process group of several ranks (core/mesh.py) each rank runs its
-rows of the global batch with sync-BN statistics, and the gradients and
-metrics are averaged over the ranks: JAX's global-batch step on N devices
-(`--bn global`).  Each rank draws its augmentation from its own stream
-(mesh.rank_generator).  Under `grad_accum` the Loader hands each rank its
+rows of the global batch with sync-BN statistics, a MoE backbone routing
+the global batch (models/vit_moe.routing_scope; the eval step too), and
+the gradients and metrics are averaged over the ranks: JAX's global-batch
+step on N devices (`--bn global`).  Each rank draws its augmentation from
+its own stream (mesh.rank_generator).  Under `grad_accum` the Loader hands each rank its
 share of every microbatch (mesh.rank_rows), so microbatch i, its
 statistics synced over the ranks, is the global batch's i-th contiguous
 chunk, as in JAX and in one process.
@@ -39,6 +40,7 @@ from torch import nn
 from moma_tpu_torch.core.mesh import data_axis, rank_generator
 from moma_tpu_torch.losses.functional import cross_entropy
 from moma_tpu_torch.models import remat as rm
+from moma_tpu_torch.models.vit_moe import routing_scope
 from moma_tpu_torch.ops.fused_bn import sync_stats
 from moma_tpu_torch.train.state import TrainState, sgd_step
 
@@ -125,7 +127,7 @@ def make_vanilla_train_step(augment_fn: Optional[Callable] = None,
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         metrics = []
-        with sync_stats(ax):
+        with sync_stats(ax), routing_scope(ax):
             for rows in microbatches(images.shape[0], grad_accum):
                 _, logits = (rm.checkpoint(model, images[rows]) if remat
                              else model(images[rows]))
@@ -150,7 +152,8 @@ def make_eval_step(n_cls: int, normalize_fn: Optional[Callable] = None):
         images, labels, mask = batch["image"], batch["label"], batch["mask"]
         if normalize_fn is not None:
             images = normalize_fn(images)
-        _, logits = model(images)
+        with routing_scope(data_axis()):
+            _, logits = model(images)
         return eval_sums(logits, labels, mask, n_cls)
 
     return step

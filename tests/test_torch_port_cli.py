@@ -85,7 +85,9 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
 
 
 # --grad_accum with --model_parallel is ported ([5b-accum]): the third and
-# sixth cases pair the model axis with choices still refused by name
+# sixth cases pair the model axis with choices still refused by name.  The
+# MoE ViTs are ported ([5b-teachers] (a, d)): the cases that name one parse
+# as the JAX package parses them
 @pytest.mark.parametrize("extra", [
     ["--distill", "kd_zoo"], ["--attn", "selff"],
     ["--model_parallel", "2", "--teacher_quant", "int8"],
@@ -96,8 +98,16 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
 ])
 def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag
-    with pytest.raises(NotImplementedError):
-        parse_student_args(argv + extra)
+    if not any("_moe_" in a for a in extra):
+        with pytest.raises(NotImplementedError):
+            parse_student_args(argv + extra)
+        return
+    got = parse_student_args(argv + extra)
+    want = j_parse_student_args(
+        [a for a in argv if a not in ("--device", "cpu")] + extra)
+    for part in ("model_s", "model_t", "run"):
+        assert _fields(getattr(got, part)) == _fields(getattr(want, part)), \
+            part
 
 
 @pytest.mark.parametrize("extra", [

@@ -1265,3 +1265,63 @@ def test_teacher_parallel_forwards_on_two_ranks(dev):
                 assert comm["model_all_reduce"] == 4, comm
             elif route == "sp":
                 assert comm["model_reduce_scatter"] == 4, comm
+
+
+def test_moe_vit_cuda_matches_cpu(dev, monkeypatch):
+    """The small MoE ViT of moma_tpu_torch/models/vit_moe.py (patch 8, dim
+    32, depth 2, 2 heads, 4 experts, top-2 at capacity factor 0.5, so
+    tokens drop) forward and backward on the card against its CPU run,
+    float32 with TF32 off.  The card replays the CPU's expert choices
+    (MoEMLP.choose, patched here): a choice within rounding of a tie may
+    flip on another device, and under capacity pressure one flip moves
+    every later token's slot.  Outputs and every parameter's gradient
+    (the router's through the gates) within 1e-4 of their largest
+    magnitude; the card's own choices equal the CPU's wherever the CPU's
+    k-th and (k+1)-th probabilities are 1e-5 apart."""
+    import torch.nn.functional as F
+
+    from moma_tpu_torch.models.vit_moe import MoEMLP, MoEVisionTransformer
+
+    model = MoEVisionTransformer(8, 32, 2, 2, 6, num_experts=4, top_k=2,
+                                 capacity_factor=0.5, image_size=32,
+                                 generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(8, 32, 32, 3, generator=g)
+    labels = torch.randint(0, 6, (8,), generator=g)
+    choose, cpu, card = MoEMLP.choose, [], []
+
+    def run(m, x, labels):
+        (grid, cls), logits = m(x)
+        loss = F.cross_entropy(logits, labels) + grid.square().mean()
+        loss.backward()
+        return {"grid": grid.detach(), "cls": cls.detach(),
+                "logits": logits.detach(),
+                **{n: p.grad for n, p in m.named_parameters()}}
+
+    def record(self, probs):
+        vals, idx = choose(self, probs)
+        top = probs.detach().sort(-1, descending=True)[0]
+        cpu.append((idx, top[:, 1] - top[:, 2]))
+        return vals, idx
+
+    def replay(self, probs):
+        idx = cpu[len(card)][0].to(probs.device)
+        card.append(choose(self, probs)[1].cpu())
+        return probs.gather(-1, idx), idx
+
+    monkeypatch.setattr(MoEMLP, "choose", record)
+    want = run(model, x, labels)
+    monkeypatch.setattr(MoEMLP, "choose", replay)
+    model.zero_grad(set_to_none=True)
+    got = run(model.to(dev), x.to(dev), labels.to(dev))
+    assert len(card) == len(cpu) == 1
+    for own, (idx, gap) in zip(card, cpu):
+        clear = gap > 1e-5
+        assert clear.float().mean() > 0.9
+        assert torch.equal(own[clear], idx[clear])
+    assert list(got) == list(want)
+    for name, w in want.items():
+        w = w.float()
+        gap = float((got[name].float().cpu() - w).abs().max()) / float(
+            w.abs().max())
+        assert gap <= 1e-4, (name, gap)

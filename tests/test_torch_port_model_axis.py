@@ -714,12 +714,16 @@ MP1_CASES = [
     (["--model_parallel", "2", "--bn", "local"], True, ValueError,
      "bn='local'/'sync' with --model_parallel does not compose"),
     (["--model_parallel", "2", "--teacher_parallel", "expert"], True,
-     NotImplementedError, r"\[5b-teachers\]"),
+     ValueError, r"expert-parallel teacher requires a MoE ViT \(vit_\*_moe\*"
+     r"\), got ResNetCifar"),
 ] + [(extra, cross, ValueError, match) for extra, cross, match in MP1_CASES])
 def test_model_axis_refusals(extra, cross, exc, match):
+    """A cross-arch case checks the route of a resnet8 teacher (build_state
+    passes the teacher; only the expert route reaches a check of it)."""
     cfg = _cfg(*extra)
+    teacher = create_model("resnet8", 4) if cross else None
     with pytest.raises(exc, match=match):
-        port_config.check_model_axis(cfg, cross)
+        port_config.check_model_axis(cfg, cross, teacher)
 
 
 def test_model_axis_refusals_at_mp1_carry_the_jax_messages(tmp_path):

@@ -61,6 +61,7 @@ from moma_tpu_torch.models import create_model
 from moma_tpu_torch.models.efficientnet import EfficientNet
 from moma_tpu_torch.models.pretrained import load_pretrained
 from moma_tpu_torch.models.vit import VisionTransformer
+from moma_tpu_torch.models.vit_moe import MoEVisionTransformer
 from moma_tpu_torch.moma import cmo
 from moma_tpu_torch.moma.queue import QueueState
 from moma_tpu_torch.train import teacher as teacher_train
@@ -300,11 +301,18 @@ def test_cli_trains_a_vit_teacher(small_sets, tmp_path):
 @pytest.mark.parametrize("extra,exc", [
     (["--bn", "local"], ValueError), (["--model_parallel", "2"], ValueError),
     (["--grad_accum", "3"], ValueError),
-    (["--model", "vit_small_moe_patch16_224"], NotImplementedError),
+    (["--model", "vit_tiny_moe_patch16_224"], None),
 ])
-def test_teacher_refusals(extra, exc, tmp_path):
+def test_teacher_refusals(extra, exc, tmp_path, small_sets):
     """The JAX package's refusals; --grad_accum 3 splits no batch of 4
-    (its ValueError)."""
+    (its ValueError).  The MoE ViTs are ported ([5b-teachers] (a)): the
+    case that named one now trains it (exc None), its gradients through
+    the router's gates."""
+    if exc is None:
+        state, result = _run(tmp_path, 1, *extra)
+        assert isinstance(state.model, MoEVisionTransformer)
+        assert state.step == 2 and np.isfinite(result["train"]["loss"])
+        return
     with pytest.raises(exc):
         _run(tmp_path, 1, *extra)
 

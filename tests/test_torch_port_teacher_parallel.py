@@ -1,8 +1,10 @@
 """The model axis of a cross-arch run: the port's tensor-parallel (TP),
 sequence-parallel (SP) and pipeline (PP) ViT teachers
-(moma_tpu_torch/models/vit_tp.py, vit_pp.py) against moma_tpu's
-make_tp_vit_apply / make_pp_vit_apply, and the cross-arch MoMA step with
-each, against JAX's step on tests/conftest.py's virtual CPU devices.
+(moma_tpu_torch/models/vit_tp.py, vit_pp.py) and the expert-parallel
+(EP) MoE ViT teacher (models/vit_moe.py) against moma_tpu's
+make_tp_vit_apply / make_pp_vit_apply / moe_place + clone(ep_mesh), and
+the cross-arch MoMA step with each, against JAX's step on
+tests/conftest.py's virtual CPU devices.
 
 One spawn of 4 port ranks (moma_tpu_torch.core.mesh.spawn_ranks,
 tests/torch_teacher_parallel_workers.py) runs every case, started in a
@@ -36,7 +38,20 @@ reference before it waits for the ranks:
   (iv)  run_moma with the TP teacher at --model_parallel 2, checkpointed
         after epoch 1, resumes at --model_parallel 1 and gives the
         straight 2-rank run's losses; the checkpoint holds the teacher
-        whole.
+        whole;
+  (vi)  the MoE ViT (JAX's test shapes: patch 8, dim 32, depth 2, 2 heads,
+        4 experts; top-2 and capacity factor 0.5, so tokens drop) at
+        --model_parallel 4 and 2: each rank's EP forward against JAX's
+        moe_place + clone(ep_mesh) forward on a (1 x MP) mesh (rtol 2e-5,
+        atol 2e-5, tests/test_vit_moe.py:117-136) and bit for bit against
+        the one-rank forward; E/MP experts a rank; one model_all_reduce a
+        MoE block; the gathered dense state dict equals the weights.  On
+        the (2 x 2) grid, each data rank's half of the batch routed over
+        both data ranks (--bn global, also at 2 accumulation microbatches
+        and with the experts split) equals JAX's forward of the whole
+        batch (of each microbatch), with one moe_all_gather a MoE block a
+        forward, and routed per rank (--bn local) JAX's forward of the
+        half; the step (iii) with the EP teacher on (1 x 2).
 
 Plus (v) each new refusal's message against JAX's.
 """
@@ -59,6 +74,9 @@ from moma_tpu.core.mesh import create_mesh as j_create_mesh
 from moma_tpu.core.mesh import data_sharding, replicated_sharding
 from moma_tpu.models import create_model as j_create_model
 from moma_tpu.models.vit import VisionTransformer as JViT
+from moma_tpu.models.vit_moe import MoEVisionTransformer as JMoEViT
+from moma_tpu.models.vit_moe import check_ep_teacher as j_check_ep
+from moma_tpu.models.vit_moe import moe_place
 from moma_tpu.models.vit_pp import check_pp_teacher as j_check_pp
 from moma_tpu.models.vit_pp import make_pp_vit_apply, pp_place
 from moma_tpu.models.vit_tp import check_tp_teacher as j_check_tp
@@ -74,6 +92,8 @@ from moma_tpu_torch.core.mesh import spawn_ranks
 from moma_tpu_torch.interop import jax_variables, load_jax_variables
 from moma_tpu_torch.models import create_model
 from moma_tpu_torch.models.vit import VisionTransformer
+from moma_tpu_torch.models.vit_moe import (MoEVisionTransformer,
+                                           check_ep_teacher)
 from moma_tpu_torch.models.vit_pp import check_pp_teacher
 from moma_tpu_torch.models.vit_tp import check_tp_teacher, tp_slices
 from moma_tpu_torch.moma.cmo import CMOHeads
@@ -83,8 +103,8 @@ from torch_model_axis_workers import _cut_sets
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from torch_port_helpers import (ReluInputs, assert_close_scaled, group_floor,
                                 heads_init, make_init_ordered, ordered_numpy,
-                                quick_compiled, quick_jit, run_once,
-                                run_once_in_thread, walk_pairs)
+                                quick_compiled, quick_jit, route_margin,
+                                run_once, run_once_in_thread, walk_pairs)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -106,6 +126,10 @@ VITS = {"tp": dict(patch_size=8, dim=32, depth=2, num_heads=4),
         "pp": dict(patch_size=8, dim=32, depth=4, num_heads=4)}
 FORWARD_CASES = [("tp", 0), ("sp", 0), ("pp", 1), ("pp", 2), ("pp", 4)]
 FWD_RTOL, FWD_ATOL = 2e-5, 2e-6
+# tests/test_vit_moe.py's small MoE ViT, top-2 at capacity factor 0.5
+MOE = dict(patch_size=8, dim=32, depth=2, num_heads=2, num_experts=4,
+           top_k=2, capacity_factor=0.5)
+EP_RTOL, EP_ATOL = 2e-5, 2e-5
 STEP_RTOL, GRAD_RTOL = 1e-3, 5e-3
 RESUME_ARGV = ["--device", "cpu", "--dataset", "prostate_hv", "--model_s",
                "resnet8", "--model_t", "vit_small_patch16_224", "--distill",
@@ -125,6 +149,9 @@ def init():
         jvit = JViT(num_classes=N_CLS, **dims)
         vits[kind] = (jvit, make_init_ordered(jvit, (2, HW, HW, 3))(
             jax.random.PRNGKey(1)))
+    jmoe = JMoEViT(num_classes=N_CLS, **MOE)
+    moe = (jmoe, make_init_ordered(jmoe, (2, HW, HW, 3))(
+        jax.random.PRNGKey(3)))
     jh = JHeads(head="mlp", attn="self", feat_dim=FEAT, s_dim=S_DIM,
                 t_dim=VITS["pp"]["dim"], include_ema=True)
     p, bs = heads_init(jh, 2)
@@ -134,7 +161,7 @@ def init():
     memory = rs.randn(K, FEAT).astype(np.float32)
     memory /= np.linalg.norm(memory, axis=1, keepdims=True)
     x = np.random.RandomState(1).rand(B, HW, HW, 3).astype(np.float32)
-    return {"model": model, "vs": vs, "vits": vits,
+    return {"model": model, "vs": vs, "vits": vits, "moe": moe,
             "heads": (jh, ordered_numpy({"params": p, "batch_stats": bs})),
             "images": images, "labels": labels, "memory": memory, "x": x}
 
@@ -150,7 +177,20 @@ def _port_vit(init, kind):
     return vit
 
 
+def _port_moe(init):
+    moe = MoEVisionTransformer(**MOE, num_classes=N_CLS, image_size=HW)
+    load_jax_variables(moe, init["moe"][1])
+    return moe
+
+
 def _inputs(init):
+    # every token the MoE routes (the forwards' images, the step's) is
+    # 1e-4 from a tie in its router probabilities
+    moe = _port_moe(init)
+    for x in (init["x"], init["images"]):
+        with torch.no_grad():
+            _, gap = route_margin(moe, lambda: moe(_t(x)))
+        assert gap > 1e-4, gap
     st = create_model("resnet8", N_CLS)
     load_jax_variables(st, init["vs"])
     ph = CMOHeads("mlp", "self", FEAT, s_dim=S_DIM, t_dim=VITS["pp"]["dim"],
@@ -178,6 +218,7 @@ def _inputs(init):
             "vits": VITS,
             "vit_weights": {k: _port_vit(init, k).state_dict()
                             for k in VITS},
+            "moe": MOE, "moe_weights": moe.state_dict(),
             "images": _t(init["images"]), "labels": _t(init["labels"]),
             "memory": _t(init["memory"]), "perm": _t(PERM),
             "x": _t(init["x"]), "forward_cases": FORWARD_CASES,
@@ -342,7 +383,11 @@ def _jax_cross_step(init, route, data_rows, n_micro=None):
     jvit, vt = init["vits"]["pp"]
     jh, hv = init["heads"]
     mesh = j_create_mesh(jax.devices()[:2 * data_rows], model_parallel=2)
-    if route == "pp":
+    if route == "ep":
+        jmoe, vm = init["moe"]
+        t_params = moe_place(vm["params"], mesh)
+        apply = jmoe.clone(ep_mesh=mesh).apply
+    elif route == "pp":
         t_params = pp_place(vt["params"], jvit, mesh)
         apply = make_pp_vit_apply(jvit, mesh, n_micro=n_micro)
     else:
@@ -402,7 +447,8 @@ def _updates(after, before):
 
 
 # case -> (grid's data rows, ranks of the world that ran it)
-STEP_CASES = {"tp": (1, (0, 1)), "sp": (2, (0, 1, 2, 3)), "pp": (1, (2, 3))}
+STEP_CASES = {"tp": (1, (0, 1)), "sp": (2, (0, 1, 2, 3)), "pp": (1, (2, 3)),
+              "ep": (1, (2, 3))}
 
 
 @pytest.mark.parametrize("route", list(STEP_CASES))
@@ -446,7 +492,10 @@ def test_cross_arch_step_matches_jax(init, ranks, route):
                         np.asarray(j1.queue.memory["memory"]), STEP_RTOL,
                         "queue")
     # the fixed teacher, gathered whole: untouched
-    for k, v in inp["cross"]["teacher"].items():
+    teacher = (inp["moe_weights"] if route == "ep"
+               else inp["cross"]["teacher"])
+    assert list(got["teacher"]) == list(teacher)
+    for k, v in teacher.items():
         assert torch.equal(got["teacher"][k], v), k
     # every rank's replica bit for bit
     for r, other in zip(who[1:], res[1:]):
@@ -496,6 +545,94 @@ def test_tp_checkpoint_resumes_at_mp1(ranks, monkeypatch):
                                [v for _, v in straight], rtol=1e-5)
 
 
+# ------------------------------------------- (vi) the expert axis, MoE
+
+# JAX's whole MoE forward, compiled once a batch size
+_MOE_WHOLE = {}
+
+
+def _moe_jax(init, x, mp=1):
+    """JAX's MoE forward of x: on a (1 x mp) mesh with its experts placed
+    by moe_place (mp > 1), else whole in one program."""
+    jmoe, v = init["moe"]
+    if mp == 1:
+        if len(x) not in _MOE_WHOLE:
+            _MOE_WHOLE[len(x)] = quick_jit(
+                lambda v, x: jmoe.apply(v, x, train=False))
+        out = _MOE_WHOLE[len(x)](v, x)
+    else:
+        mesh = j_create_mesh(jax.devices()[:mp], model_parallel=mp)
+        ep = jmoe.clone(ep_mesh=mesh)
+        out = quick_jit(lambda p, x: ep.apply({"params": p}, x,
+                                              train=False))(
+            moe_place(v["params"], mesh),
+            jax.device_put(x, data_sharding(mesh)))
+    (grid, cls), logits = out
+    return {"grid": np.asarray(grid), "cls": np.asarray(cls),
+            "logits": np.asarray(logits)}
+
+
+def _moe_close(got, want, what):
+    for k in ("grid", "cls", "logits"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=EP_RTOL,
+                                   atol=EP_ATOL, err_msg=f"{what} {k}")
+
+
+def test_expert_parallel_matches_jax(init, ranks):
+    """(vi): the EP forwards at --model_parallel 4 and 2, and the routing
+    scope over 2 data ranks."""
+    x = init["x"]
+    n_moe, E = MOE["depth"] // 2, MOE["num_experts"]
+    C, F = MOE["dim"], 4 * MOE["dim"]
+    whole = n_moe * E * (2 * C * F + F + C) * 4
+    want = {mp: _moe_jax(init, x, mp) for mp in (4, 2)}
+    inp, out = ranks()
+    for mp in (4, 2):
+        for r in range(mp):
+            res = out[r]["forward"][(mp, "ep", 0)]
+            _moe_close(res, want[mp], f"mp {mp} rank {r}")
+            for k in ("grid", "cls", "logits"):
+                assert torch.equal(res[k], res["one_rank"][k]), (mp, r, k)
+            assert res["experts"] == [E // mp] * n_moe
+            assert res["expert_bytes"] == (whole // mp, whole)
+            assert res["comm"] == {
+                "model_all_reduce": n_moe,
+                "model_all_reduce_bytes": n_moe * B * 17 * C * 4}, res["comm"]
+            assert list(res["back"]) == list(inp["moe_weights"])
+            for k, v in inp["moe_weights"].items():
+                assert torch.equal(res["back"][k], v), k
+    # the (2 x 2) grid: rank g is data rank g // 2 of 2, 4 rows each
+    whole_batch = _moe_jax(init, x)
+    halves = [_moe_jax(init, x[i:i + 4]) for i in (0, 4)]
+    # the scope decides which tokens drop: the halves routed alone differ
+    for d in (0, 1):
+        assert not np.allclose(halves[d]["grid"],
+                               whole_batch["grid"][4 * d:4 * d + 4],
+                               rtol=EP_RTOL, atol=EP_ATOL)
+    for g in range(4):
+        d = g // 2
+        res = out[g]["moe_scope"]
+        rows = slice(4 * d, 4 * d + 4)
+        for case in ("global", "global_ep"):
+            _moe_close(res[case], {k: v[rows] for k, v in
+                                   whole_batch.items()}, f"{case} rank {g}")
+        # microbatch i is global rows [4i, 4i + 4), data rank d's 2 of them
+        micro = [{k: v[2 * d:2 * d + 2] for k, v in h.items()}
+                 for h in halves]
+        _moe_close(res["global_accum2"],
+                   {k: np.concatenate([m[k] for m in micro])
+                    for k in micro[0]}, f"global_accum2 rank {g}")
+        _moe_close(res["local"], halves[d], f"local rank {g}")
+        counts = {c: {k: v for k, v in res[c]["comm"].items()
+                      if not k.endswith("_bytes")} for c in res}
+        assert counts == {
+            "global": {"moe_all_gather": n_moe},
+            "global_accum2": {"moe_all_gather": 2 * n_moe},
+            "global_ep": {"moe_all_gather": n_moe,
+                          "model_all_reduce": n_moe},
+            "local": {}}, counts
+
+
 # ------------------------------------------------------- (v) refusals
 
 def _cfg(*extra):
@@ -524,6 +661,20 @@ def _jax_tp(model, quant="none"):
         model, j_create_mesh(jax.devices()[:2], model_parallel=2), quant)
 
 
+def _jax_ep(model, quant="none"):
+    return lambda: j_check_ep(
+        model, j_create_mesh(jax.devices()[:2], model_parallel=2), quant)
+
+
+def _moe(num_experts=4):
+    return MoEVisionTransformer(**{**MOE, "num_experts": num_experts},
+                                num_classes=N_CLS, image_size=HW)
+
+
+def _jmoe(num_experts=4):
+    return JMoEViT(**{**MOE, "num_experts": num_experts}, num_classes=N_CLS)
+
+
 REFUSALS = {
     "tp_heads": ([], lambda: _vit(heads=3, dim=36),
                  _jax_tp(_jvit(heads=3, dim=36))),
@@ -536,6 +687,10 @@ REFUSALS = {
     "pp_micro_below_1": (["--teacher_parallel", "pipeline",
                           "--pp_microbatch", "-1"], _vit,
                          _jax_pp(_jvit(), -1)),
+    "ep_not_moe": (["--teacher_parallel", "expert"], _vit,
+                   _jax_ep(_jvit())),
+    "ep_experts": (["--teacher_parallel", "expert"], lambda: _moe(3),
+                   _jax_ep(_jmoe(3))),
 }
 LITERAL = {
     "sp_pipeline": (["--teacher_parallel", "pipeline",
@@ -555,14 +710,20 @@ LITERAL = {
                    lambda: create_model("resnet32", N_CLS),
                    "--sequence_parallel requires a tensor-parallel ViT "
                    "teacher, got ResNetCifar"),
+    "pp_moe": (["--teacher_parallel", "pipeline"], _moe,
+               "--teacher_parallel pipeline requires a ViT family "
+               "teacher, got MoEVisionTransformer"),
+    "sp_moe": (["--sequence_parallel"], _moe,
+               "--sequence_parallel requires a tensor-parallel ViT "
+               "teacher, got MoEVisionTransformer"),
 }
 
 
 def test_refusals_carry_the_jax_messages():
     """check_model_axis with the teacher (as build_state calls it) raises
     JAX's ValueError for each case: the text of JAX's check_tp_teacher /
-    check_pp_teacher for the same teacher and mesh, or run_moma's own
-    (moma_tpu/train/moma.py:1346-1417)."""
+    check_pp_teacher / check_ep_teacher for the same teacher and mesh, or
+    run_moma's own (moma_tpu/train/moma.py:1346-1417)."""
     for name in list(REFUSALS) + list(LITERAL):
         if name in REFUSALS:
             extra, teacher, jax_raise = REFUSALS[name]
@@ -596,18 +757,30 @@ def test_check_functions_carry_the_jax_messages():
         with pytest.raises(ValueError) as got:
             port_fn()
         assert str(got.value) == str(want.value)
-    # the expert axis and the MoE names stay refused by name
-    with pytest.raises(NotImplementedError, match=r"\[5b-teachers\] \(a, d\)"):
-        port_config.check_model_axis(_cfg("--teacher_parallel", "expert"),
-                                     True, _vit(), 1)
-    with pytest.raises(NotImplementedError, match=r"\[5b-teachers\]"):
-        _cfg("--model_t", "vit_tiny_moe_patch16_224")
+    # check_ep_teacher's --teacher_quant message (check_slice refuses
+    # --teacher_quant by name before check_model_axis sees it)
+    with pytest.raises(ValueError) as want:
+        _jax_ep(_jmoe(), "int8")()
+    with pytest.raises(ValueError) as got:
+        check_ep_teacher(_moe(), 2, "int8")
+    assert str(got.value) == str(want.value)
+    assert _cfg("--model_t", "vit_tiny_moe_patch16_224").model_t.name == (
+        "vit_tiny_moe_patch16_224")
     with pytest.raises(NotImplementedError, match=r"\[6\]"):
         _cfg("--teacher_quant", "int8")
-    # the routes JAX takes are accepted: TP (+SP), PP, a whole teacher
+    # the routes JAX takes are accepted: TP (+SP), PP, EP, a whole teacher
+    # (a MoE ViT under --teacher_parallel tensor too)
     for extra, teacher in ((["--sequence_parallel"], _vit),
                            (["--teacher_parallel", "pipeline"], _vit),
+                           (["--teacher_parallel", "expert"], _moe),
                            ([], lambda: create_model("resnet32", N_CLS)),
+                           ([], _moe),
                            (["--grad_accum", "2", "--batch_size", "8"],
                             _vit)):
         port_config.check_model_axis(_cfg(*extra), True, teacher(), 1)
+    # a MoE teacher at --model_parallel 2 stays whole on every model rank
+    # under --teacher_parallel tensor (JAX: is_tp_model is False for it)
+    from moma_tpu_torch.train.moma import parallel_teacher
+
+    moe = _moe()
+    assert parallel_teacher(_cfg(), moe) is moe

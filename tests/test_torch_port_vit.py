@@ -34,6 +34,7 @@ from moma_tpu_torch.interop import (jax_variables, load_jax_variables,
 from moma_tpu_torch.models import available_models, create_model
 from moma_tpu_torch.models.torch_import import export_state_dict
 from moma_tpu_torch.models.vit import VisionTransformer
+from moma_tpu_torch.models.vit_moe import MoEVisionTransformer
 from moma_tpu_torch.models.vit_npz import load_vit_npz, resize_pos_embed
 
 from test_vit import _fake_augreg_npz
@@ -99,9 +100,19 @@ def test_vit_weights_cross_both_ways(small_vit):
 
 
 def test_registry_holds_the_vit_family():
-    names = [n for n in available_models() if n.startswith(("vit", "deit"))]
+    names = [n for n in available_models() if n.startswith(("vit", "deit"))
+             and "_moe_" not in n]
     assert len(names) == 12 and "vit_small_patch16_224" in names
-    assert not any("moe" in n for n in available_models())
+    # the two MoE ViTs: registered, and not of the ViT class, which the
+    # tensor- and pipeline-parallel routes take (as in JAX)
+    moe = [n for n in available_models() if "_moe_" in n]
+    assert moe == ["vit_small_moe_patch16_224", "vit_tiny_moe_patch16_224"]
+    for n in moe:
+        with torch.device("meta"):
+            mm = create_model(n, N_CLS, image_size=32)
+        assert isinstance(mm, MoEVisionTransformer)
+        assert not isinstance(mm, VisionTransformer)
+        assert [len(m.w1) for m in mm.moe_layers()] == [8] * 6
     m = create_model("vit_timm_tiny_patch16_224", N_CLS, image_size=48)
     assert m.pos_embed.shape == (1, 10, 192) and len(m.blocks) == 12
     with pytest.raises(ValueError, match="image_size"):

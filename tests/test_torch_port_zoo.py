@@ -1,9 +1,10 @@
 """The backbone zoo: moma_tpu_torch.models against moma_tpu.models on the
 CPU.
 
-- The registry: the port's `available_models()` is moma_tpu's without the
-  two Mixture-of-Experts ViTs, which stay refused (ROADMAP Queue 1 item
-  [5b-teachers]).
+- The registry: the port's `available_models()` is moma_tpu's, the two
+  Mixture-of-Experts ViTs included (their shapes are checked in the
+  registry's test, with the map of moma_tpu_torch.interop.vit_name_map,
+  so that the collected count stays put).
 - Every registered name (and the CIFAR ResNet's Bottleneck variant): the
   port module, built on the meta device, has the parameter and
   BN-statistic shapes and count of `jax.eval_shape(model.init, ...)`, and
@@ -70,13 +71,15 @@ FAMILIES = [("resnet8", 32), ("wrn_16_2", 32), ("resnet8x4", 32),
 
 
 def test_registry_is_jax_without_the_moe_vits():
-    want = sorted(set(JMODELS.available_models()) - MOE)
-    assert TMODELS.available_models() == want
-    assert MOE <= set(JMODELS.available_models())
-    for name in MOE:
-        with pytest.raises(NotImplementedError,
-                           match=r"Queue 1 item \[5b-teachers\]"):
+    """The registry equals JAX's: the MoE ViTs are ported ([5b-teachers]
+    (a)); like the ViTs they need `image_size`, and their parameter shapes
+    are JAX's."""
+    assert TMODELS.available_models() == sorted(JMODELS.available_models())
+    assert MOE <= set(TMODELS.available_models())
+    for name in sorted(MOE):
+        with pytest.raises(ValueError, match="needs image_size"):
             TMODELS.create_model(name, N_CLS)
+        _check_shapes(name)
     with pytest.raises(KeyError):
         TMODELS.create_model("resnet9", N_CLS)
 
@@ -96,6 +99,10 @@ def _shapes_case(name):
 @pytest.mark.parametrize(
     "name", sorted(set(JMODELS.available_models()) - MOE) + ["bottleneck"])
 def test_parameter_shapes_match_jax(name):
+    _check_shapes(name)
+
+
+def _check_shapes(name):
     jm, tm, size = _shapes_case(name)
     template = jax_template(jm, (1, size, size, 3))
     if name.startswith(("vit", "deit")):

@@ -288,6 +288,34 @@ class ReluInputs(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def route_margin(model: torch.nn.Module, run):
+    """(run(), the smallest gap over every token that an MoE layer
+    (moma_tpu_torch.models.vit_moe.MoEMLP) of `model` routes while `run`
+    runs between its k-th and (k+1)-th router probability).  A token
+    within rounding of a tie could route differently in the two packages,
+    or on the card: parity tests assert a margin, as ReluInputs does for
+    ReLU inputs."""
+    from moma_tpu_torch.models.vit_moe import MoEMLP
+
+    gaps = []
+
+    def hook(moe, args):
+        x = args[0].reshape(-1, args[0].shape[-1]).float()
+        p = torch.softmax(x @ moe.router.float(), -1).sort(
+            -1, descending=True)[0]
+        if p.shape[-1] > moe.top_k:
+            gaps.append(float((p[:, moe.top_k - 1] - p[:, moe.top_k]).min()))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, MoEMLP)]
+    try:
+        out = run()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, min(gaps, default=float("inf"))
+
+
 def tree_template(fn, *args):
     """Zeros shaped like fn(*args)'s output (nested dicts, or a tuple of
     them), insertion-ordered, from an abstract trace.  The leaves are

@@ -5,13 +5,14 @@ module imports torch and moma_tpu_torch only: a spawned rank re-imports
 it, and JAX would cost every rank seconds.
 
 `teacher_parallel_cases` runs every case of the test file in one spawn of
-4 ranks: the tensor-parallel (TP), sequence-parallel (SP) and pipeline (PP)
-ViT forwards on a (1 x 4) grid, then on the (2 x 2) grid the same at
---model_parallel 2 and the cross-arch MoMA step with a TP+SP teacher; then,
-regrouped into two 2-rank worlds on (1 x 2) grids, the step with a TP
-teacher and a run_moma --resume pair (ranks 0 and 1) beside the step with
-a PP teacher (ranks 2 and 3).  Every result comes back with its tensors on
-the CPU, keyed by the case.
+4 ranks: the tensor-parallel (TP), sequence-parallel (SP), pipeline (PP)
+ViT and expert-parallel (EP) MoE ViT forwards on a (1 x 4) grid, then on
+the (2 x 2) grid the same at --model_parallel 2, the MoE forward routed
+over the 2 data ranks (`moe_scope_cases`) and the cross-arch MoMA step
+with a TP+SP teacher; then, regrouped into two 2-rank worlds on (1 x 2)
+grids, the step with a TP teacher and a run_moma --resume pair (ranks 0
+and 1) beside the steps with a PP and an EP teacher (ranks 2 and 3).
+Every result comes back with its tensors on the CPU, keyed by the case.
 """
 
 from __future__ import annotations
@@ -72,6 +73,75 @@ def forward_case(inp: dict, route: str, n_micro: int = 0, device="cpu",
             "back": {k: v.cpu() for k, v in back.items()}}
 
 
+def _dense_moe(inp: dict, device="cpu", dtype=None):
+    from moma_tpu_torch.models.vit_moe import MoEVisionTransformer
+
+    moe = MoEVisionTransformer(**inp["moe"], num_classes=inp["n_cls"],
+                               image_size=inp["HW"], dtype=dtype)
+    moe.load_state_dict(inp["moe_weights"])
+    return moe.to(device)
+
+
+def _outputs(model, x) -> dict:
+    (grid, cls), logits = model(x)
+    return {"grid": grid.float().cpu(), "cls": cls.cpu(),
+            "logits": logits.cpu()}
+
+
+def moe_forward_case(inp: dict, device="cpu", dtype=None) -> dict:
+    """The dense MoE ViT's forward on the images in this process, then
+    this model rank's expert-parallel share's (EPMoEVisionTransformer):
+    both outputs, the share's collectives, the experts and expert bytes
+    it holds of each MoE block, and its gathered dense state dict."""
+    from moma_tpu_torch.core.mesh import (comm_counts, model_axis,
+                                          reset_comm_counts)
+    from moma_tpu_torch.models.vit_moe import EPMoEVisionTransformer
+
+    dense = _dense_moe(inp, device, dtype)
+    x = inp["x"].to(device)
+    with torch.no_grad():
+        one = _outputs(dense, x)
+        model = EPMoEVisionTransformer(dense, model_axis())
+        reset_comm_counts()
+        out = _outputs(model, x)
+        comm = comm_counts()
+        back = model.dense_state_dict()
+    return {**out, "one_rank": one, "comm": comm,
+            "experts": [m.w1.shape[0] for m in model.moe_layers()],
+            "expert_bytes": model.expert_bytes(),
+            "back": {k: v.cpu() for k, v in back.items()}}
+
+
+def moe_scope_cases(inp: dict) -> dict:
+    """The MoE forward with the batch split over the data ranks (each
+    rank's rows by mesh.rank_rows): routed together
+    (routing_scope(data_axis()), --bn global), at 1 and 2 accumulation
+    microbatches, and with the model ranks' experts split too; and routed
+    per rank (--bn local | sync).  Each case: this rank's outputs, in
+    microbatch order, and the forwards' collectives."""
+    from moma_tpu_torch.core.mesh import (comm_counts, data_axis, model_axis,
+                                          rank_rows, reset_comm_counts)
+    from moma_tpu_torch.models.vit_moe import (EPMoEVisionTransformer,
+                                               routing_scope)
+
+    ax = data_axis()
+    out = {}
+    for case, M, scoped, ep in (("global", 1, True, False),
+                                ("global_accum2", 2, True, False),
+                                ("global_ep", 1, True, True),
+                                ("local", 1, False, False)):
+        model = _dense_moe(inp)
+        if ep:
+            model = EPMoEVisionTransformer(model, model_axis())
+        rows = rank_rows(inp["x"], ax.rank, ax.world, M)
+        reset_comm_counts()
+        with torch.no_grad(), routing_scope(ax if scoped else None):
+            res = [_outputs(model, r) for r in rows.chunk(M)]
+        out[case] = {k: torch.cat([r[k] for r in res]) for k in res[0]}
+        out[case]["comm"] = comm_counts()
+    return out
+
+
 def card_forwards(rank: int, world: int, inp: dict) -> dict:
     """tests/test_torch_port_cuda.py's card case: forward_case for every
     route of inp['forward_cases'] on the card, float32 with TF32 off, on
@@ -96,8 +166,12 @@ def cross_step(inp: dict, route: str, n_micro: int = 0):
 
     mx, ax = model_axis(), data_axis()
     state, cfg = DW.cross_state(inp)
+    if route == "ep":
+        state.teacher = _dense_moe(inp).requires_grad_(False)
+        cfg.model_t.name = "vit_tiny_moe_patch16_224"
     cfg.run.model_parallel = mx.size
-    cfg.run.teacher_parallel = "pipeline" if route == "pp" else "tensor"
+    cfg.run.teacher_parallel = {"pp": "pipeline", "ep": "expert"}.get(
+        route, "tensor")
     cfg.run.sequence_parallel = route == "sp"
     cfg.run.pp_microbatch = n_micro
     state.teacher = parallel_teacher(cfg, state.teacher)
@@ -152,6 +226,8 @@ def teacher_parallel_cases(rank: int, world: int, path: str) -> dict:
         for route, n_micro in inp["forward_cases"]:
             out["forward"][(mp, route, n_micro)] = forward_case(
                 inp, route, n_micro)
+        out["forward"][(mp, "ep", 0)] = moe_forward_case(inp)
+    out["moe_scope"] = moe_scope_cases(inp)
     # the (2 x 2) grid
     out["grid"] = (data_axis().rank, data_axis().world, model_axis().index,
                    model_axis().size)
@@ -163,4 +239,5 @@ def teacher_parallel_cases(rank: int, world: int, path: str) -> dict:
         out["resume"] = run_moma_tp(inp["resume_argv"], inp["root"])
     else:
         out["cross"]["pp"] = cross_step(inp, "pp")
+        out["cross"]["ep"] = cross_step(inp, "ep")
     return out
