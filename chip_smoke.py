@@ -322,21 +322,43 @@ def phase_device():
     return smi[0]
 
 
+BUILDS = {}   # kernel module name -> the future of its library's build
+
+
 def phase_build():
+    """Start building every kernel library, one nvcc for each source, all at
+    once; the phases that need a library wait for it (`built`), so the
+    early kernel phases run while the slower sources still compile."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from moma_tpu_torch.ops import (_build, flash_attention, fused_bn,
-                                    fused_effnet, randaugment)
+    from moma_tpu_torch.ops import (flash_attention, fused_bn, fused_effnet,
+                                    int8_conv, randaugment)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:   # one nvcc per source
-        for fut in [pool.submit(m._lib) for m in
-                    (flash_attention, fused_bn, fused_effnet, randaugment)]:
-            fut.result()
-    log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc seconds per library: {_build.build_seconds()})")
+    pool = ThreadPoolExecutor(max_workers=5)
+    for m in (randaugment, fused_effnet, flash_attention, int8_conv,
+              fused_bn):
+        BUILDS[m.__name__.rsplit(".", 1)[-1]] = pool.submit(
+            lambda m=m: (m._lib(), time.perf_counter() - t0)[1])
+    pool.shutdown(wait=False)
+
+
+def built(*names):
+    """Wait for the builds of the kernel modules `names` (phase_build)."""
+    for name in names:
+        BUILDS[name].result()
+
+
+def phase_build_report():
+    """Every library built: the build times, ptxas' report of each kernel,
+    and the tensor-core instruction checks."""
+    from moma_tpu_torch.ops import _build, flash_attention
+
+    ready = {name: round(fut.result(), 1) for name, fut in BUILDS.items()}
+    log(f"[build] kernels ready after (s) {ready} (nvcc seconds per "
+        f"library: {_build.build_seconds()})")
     for name in ("bn_sums", "randaugment", "flash_attention",
-                 "fused_effnet"):
+                 "fused_effnet", "int8_conv"):
         for kernel, line in _build.ptxas_report(name).items():
             log(f"[build] {name}: {kernel}: {line}")
     # the flash kernels' shared memory per block and, where the toolkit has
@@ -367,6 +389,14 @@ def phase_build():
     for kernel in ("k1_kernel", "k2_kernel", "k4_kernel"):
         if hmma and not any(k.startswith(kernel) for k in hmma):
             raise AssertionError(f"no {kernel} instance in fused_effnet")
+    # every instance of the int8 gemm runs its products on the tensor cores
+    imma = _build.sass_counts("int8_conv", "IMMA")
+    for inst, n in sorted(imma.items()):
+        log(f"[build] int8_conv: {inst}: IMMA instructions {n}")
+        if inst.startswith("conv_gemm_kernel") and not n:
+            raise AssertionError(f"{inst} has no IMMA instruction")
+    if imma and not any(k.startswith("conv_gemm_kernel") for k in imma):
+        raise AssertionError("no conv_gemm_kernel instance in int8_conv")
 
 
 def phase_bn_kernels(results, dev="cuda", shapes=BN_SHAPES):
@@ -1128,11 +1158,264 @@ def phase_fe_forward(dev="cuda", f32_sizes=((4, 64), (2, 512)),
         f"{module_eval_ms:.2f} ms")
 
 
+# int8 kernels (csrc/int8_conv.cu) at the main path's shapes: effiB0 at
+# 512^2, batch 64, the bf16 teacher under --teacher_quant int8 (label,
+# (N, C, H, W) input, its dtype, Cout, kernel, stride, groups, bias, the
+# layer's output dtype); the timed case of each kernel is the first of its
+# list.  The dense case is a ViT-S/16 qkv layer at 224^2 (batch 64, 197
+# tokens) of the int8 serving artifacts, a 1x1 convolution of its rows
+INT8_GEMM = [
+    ("expand 1x1 16->96 @256^2", (64, 16, 256, 256), "bfloat16", 96, 1, 1,
+     1, False, "bfloat16"),
+    ("stem 3x3 s2 3->32 @512^2", (64, 3, 512, 512), "float32", 32, 3, 2, 1,
+     False, "bfloat16"),
+    ("project 1x1 96->24 @128^2", (64, 96, 128, 128), "bfloat16", 24, 1, 1,
+     1, False, "bfloat16"),
+    ("project 1x1 1152->192 @16^2", (64, 1152, 16, 16), "bfloat16", 192, 1,
+     1, 1, False, "bfloat16"),
+    ("head 1x1 320->1280 @16^2", (64, 320, 16, 16), "bfloat16", 1280, 1, 1,
+     1, False, "bfloat16"),
+    ("SE reduce 96->4", (64, 96, 1, 1), "bfloat16", 4, 1, 1, 1, True,
+     "bfloat16"),
+    ("SE expand 4->96", (64, 4, 1, 1), "bfloat16", 96, 1, 1, 1, True,
+     "bfloat16"),
+    ("ViT-S dense 384->1152", (64 * 197, 384, 1, 1), "bfloat16", 1152, 1, 1,
+     1, True, "bfloat16"),
+    # ragged edges: M and Og no multiple of 64, 4-byte (Cg 4) and 1-byte
+    # (Cg 2) loads, groups, explicit padding, f32 output
+    ("grouped 1x1 12->24 g3", (3, 12, 7, 7), "float32", 24, 1, 1, 3, True,
+     "float32"),
+    ("grouped 3x3 6->9 g3 pad 1", (2, 6, 9, 9), "bfloat16", 9, 3, 1, 3,
+     False, "float32"),
+]
+INT8_DW = [
+    ("dw 3x3 s2 96 @256^2", (64, 96, 256, 256), "bfloat16", 96, 3, 2, 96,
+     False, "bfloat16"),
+    ("dw 3x3 s1 32 @256^2", (64, 32, 256, 256), "bfloat16", 32, 3, 1, 32,
+     False, "bfloat16"),
+    ("dw 5x5 s2 144 @128^2", (64, 144, 128, 128), "bfloat16", 144, 5, 2, 144,
+     False, "bfloat16"),
+    ("dw 5x5 s1 1152 @16^2", (64, 1152, 16, 16), "bfloat16", 1152, 5, 1,
+     1152, False, "bfloat16"),
+    # the one-element-a-thread route: multiplier 2, and 6 channels
+    ("dw 3x3 x2 3->6", (2, 3, 9, 9), "float32", 6, 3, 1, 3, True, "float32"),
+    ("dw 3x3 6 ch", (3, 6, 8, 8), "bfloat16", 6, 3, 2, 6, False, "float32"),
+]
+INT8_QUANT = [
+    ("(64,96,256,256) bf16", (64, 96, 256, 256), "bfloat16"),
+    ("(64,3,512,512) f32", (64, 3, 512, 512), "float32"),
+    ("(64,96,1,1) bf16", (64, 96, 1, 1), "bfloat16"),
+    ("(12608,384) bf16", (64 * 197, 384), "bfloat16"),
+    ("(3,5,7,9) bf16", (3, 5, 7, 9), "bfloat16"),
+    ("(3,5,7,9) f32", (3, 5, 7, 9), "float32"),
+]
+INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core rate of one H100 SXM
+INT8_PLAIN_ITERS = 3
+
+
+def _int8_conv_case(case, dev, gen):
+    """(inputs, the kernel call, the plain call, bytes, ops) of one conv
+    case; the layer's padding is TF SAME unless it is the explicit one."""
+    import torch
+
+    from moma_tpu_torch.core.quantize import _kernel_int8
+    from moma_tpu_torch.models.common import tf_same_pads
+    from moma_tpu_torch.ops import int8_conv as IC
+
+    label, shape, dt, cout, k, s, groups, bias, odt = case
+    N, C, H, W = shape
+    x = torch.randn(shape, generator=gen, device=dev).to(
+        getattr(torch, dt)).contiguous(memory_format=torch.channels_last)
+    w = torch.randn((cout, C // groups, k, k), generator=gen, device=dev)
+    b = torch.randn((cout,), generator=gen, device=dev) if bias else None
+    q_w, s_w = _kernel_int8(w)
+    q_x, s_x = IC.int8_quantize(x, None)
+    pads = ([1] * 4 if "pad 1" in label else
+            [*tf_same_pads(H, k, s), *tf_same_pads(W, k, s)])
+    args = (q_x, q_w, s_x, s_w, b, [s, s], pads, [1, 1], groups,
+            getattr(torch, odt))
+    out = IC.int8_conv2d(*args)
+    nbytes = (q_x.numel() + q_w.numel() + 4 * (cout * (2 + bias))
+              + out.numel() * out.element_size())
+    ops = 2 * out.numel() * (C // groups) * k * k
+    return (lambda: IC.int8_conv2d(*args), lambda: IC.conv_plain(*args),
+            nbytes, ops, q_x, q_w)
+
+
+def phase_int8_kernels(results, dev="cuda"):
+    """Each int8 kernel against its plain version at the main path's shapes
+    (and ragged ones): the quantize's int8 values and scale, each
+    convolution's output, all held to 0 error; times (kernel, plain),
+    bounds and, for the 1x1 shapes, torch._int_mm's time (the int8 x int8
+    -> int32 product alone, without the epilogue; used nowhere in the
+    package)."""
+    import torch
+
+    from moma_tpu_torch.ops import int8_conv as IC
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {"int8_quantize": 0.0, "int8_conv_gemm": 0.0, "int8_conv_dw": 0.0}
+    timed = {}
+    for label, shape, dt in INT8_QUANT:
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(
+            getattr(torch, dt))
+        if x.ndim == 4:
+            x = x.contiguous(memory_format=torch.channels_last)
+        for static in (False, True):
+            scale = (torch.full((), 0.0123, device=dev) if static else None)
+            (qk, sk), (qp, sp) = (IC.int8_quantize(x, scale),
+                                  IC.quantize_plain(x, scale))
+            sync(dev)
+            err = max(float((qk.int() - qp.int()).abs().max()),
+                      float((sk - sp).abs()))
+            if qk.stride() != qp.stride():
+                raise AssertionError(f"int8_quantize {label}: strides "
+                                     f"{qk.stride()} vs {qp.stride()}")
+            worst["int8_quantize"] = max(worst["int8_quantize"], err)
+            if err != 0:
+                raise AssertionError(f"int8_quantize {label} static={static}:"
+                                     f" max error {err}")
+            ms = cuda_time_ms(lambda: IC.int8_quantize(x, scale))
+            plain_ms = cuda_time_ms(lambda: IC.quantize_plain(x, scale),
+                                    iters=INT8_PLAIN_ITERS)
+            nbytes = x.numel() * (x.element_size() + 1)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[int8] int8_quantize {label} "
+                f"{'static' if static else 'dynamic'}: max err {err}, kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                f"(bytes), {bound / ms:.1%} of it")
+            if "int8_quantize" not in timed:
+                timed["int8_quantize"] = (ms, plain_ms, bound, "bytes", None)
+        del x
+    for name, cases in (("int8_conv_gemm", INT8_GEMM),
+                        ("int8_conv_dw", INT8_DW)):
+        for case in cases:
+            kern, plain, nbytes, ops, q_x, q_w = _int8_conv_case(case, dev,
+                                                                 gen)
+            got, want = kern(), plain()
+            sync(dev)
+            err = float((got.float() - want.float()).abs().max())
+            if got.stride() != want.stride():
+                raise AssertionError(f"{name} {case[0]}: strides "
+                                     f"{got.stride()} vs {want.stride()}")
+            worst[name] = max(worst[name], err)
+            if err != 0:
+                raise AssertionError(f"{name} {case[0]}: max error {err}")
+            ms = cuda_time_ms(kern)
+            plain_ms = cuda_time_ms(plain, iters=INT8_PLAIN_ITERS)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT8_OPS_PER_S * 1e3
+            bound, by = max((t_bytes, "bytes"), (t_ops, "operations"))
+            lib = None
+            if case[4] == 1 and case[6] == 1 and name == "int8_conv_gemm":
+                # the same int8 product as one library call (no epilogue)
+                a = q_x.permute(0, 2, 3, 1).reshape(-1, q_x.shape[1])
+                bm = q_w.reshape(q_w.shape[0], -1).t()
+                try:
+                    lib = cuda_time_ms(lambda: torch._int_mm(a, bm))
+                except RuntimeError as e:
+                    log(f"[int8] torch._int_mm refuses {case[0]}: "
+                        f"{str(e).splitlines()[0]}")
+            log(f"[int8] {name} {case[0]}: max err {err}, kernel {ms:.4f} ms,"
+                f" plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; bytes "
+                f"{t_bytes:.4f}, ops {t_ops:.4f}), {bound / ms:.1%} of it"
+                + (f", torch._int_mm {lib:.4f} ms" if lib is not None else ""))
+            if name not in timed:
+                timed[name] = (ms, plain_ms, bound, by, lib)
+            del kern, plain, got, want, q_x, q_w
+    torch.cuda.empty_cache()
+    replaces = {
+        "int8_quantize": "moma_tpu/core/quantize.py:213 (XLA's quantize "
+                         "and :283 its dynamic scale; no Pallas kernel)",
+        "int8_conv_gemm": "moma_tpu/core/quantize.py:216 (XLA's int8 "
+                          "convolution, :241 its dense; no Pallas kernel)",
+        "int8_conv_dw": "moma_tpu/core/quantize.py:216 (XLA's int8 "
+                        "convolution, depthwise; no Pallas kernel)",
+    }
+    for name, (ms, plain_ms, bound, by, lib) in timed.items():
+        results[name] = {
+            "source": "moma_tpu_torch/csrc/int8_conv.cu",
+            "replaces": replaces[name], "max_abs_err": worst[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib}
+    log(f"[int8] max errors {worst} (all must be 0)")
+
+
+# an int8 activation whose input lies this close to a half-step edge (in
+# quantization steps) may round to either side on two devices
+TIE_TOL = 1e-3
+
+
+class QuantTies:
+    """Context: every activation quantization (int8_quantize) and weight
+    quantization (_kernel_int8) of core/quantize records its int8 values
+    (`qs` None) or, replaying them in call order, takes the recorded value
+    wherever its input lies within TIE_TOL of a half-step edge; a value
+    that differs anywhere else fails.  One value a float32 rounding off an
+    edge that rounds the other way moves a train-mode BatchNorm's
+    statistics, and those of every later layer, far beyond any tolerance
+    of float rounding (as _relu_sides does for ReLUs); the EMA teacher's
+    weights of the key forward carry the student's update, whose rounding
+    differs between the devices."""
+
+    def __init__(self, qs=None):
+        self.replay = qs is not None
+        self.qs = qs if self.replay else []
+        self.calls = self.flips = 0
+
+    def __enter__(self):
+        from moma_tpu_torch.core import quantize
+
+        self._orig = (quantize.int8_quantize, quantize._kernel_int8)
+        quantize.int8_quantize, quantize._kernel_int8 = (self._act,
+                                                         self._weight)
+        return self
+
+    def __exit__(self, *exc):
+        from moma_tpu_torch.core import quantize
+
+        quantize.int8_quantize, quantize._kernel_int8 = self._orig
+
+    def _act(self, x, scale):
+        q, s = self._orig[0](x, scale)
+        return self._tie(q, x.float() / s), s
+
+    def _weight(self, w):
+        q, s = self._orig[1](w)
+        r = w.detach().float() / s.view(-1, *([1] * (w.ndim - 1)))
+        return self._tie(q, r), s
+
+    def _tie(self, q, r):
+        import torch
+
+        if not self.replay:
+            self.qs.append(q.cpu())
+            return q
+        want = self.qs[self.calls].to(q.device)
+        self.calls += 1
+        edge = ((r - r.floor()) - 0.5).abs()
+        near = edge <= TIE_TOL
+        off = q != want
+        if bool((off & ~near).any()):
+            raise AssertionError(
+                f"quantization {self.calls}: {int((off & ~near).sum())} of "
+                f"{int(off.sum())} values off the recorded ones away from a "
+                f"half-step edge (up to {float(edge[off].max()):.3g} steps "
+                f"from one; by up to "
+                f"{int((q.int() - want.int()).abs().max())})")
+        self.flips += int(off.sum())
+        return torch.where(near, want, q)
+
+
 def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
     """One MoMA step (augmentation included) at 64^2, batch 4, f32: the
     CPU run uses every kernel's plain version, the CUDA run the kernels;
     same weights, images and draws.  TF32 off, so the gap is f32
-    summation order only."""
+    summation order only.  Under --teacher_quant the card's int8
+    activations at half-step edges take the CPU's side (QuantTies)."""
+    import contextlib
+
     import numpy as np
     import torch
 
@@ -1153,15 +1436,24 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
     batch = {"image": rs.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
              "label": rs.randint(0, 4, (4,)).astype(np.int32)}
     out = {}
+    ties = None
     for dev in ("cpu", "cuda"):
         device = torch.device(dev)
         state = build_state(cfg, device, steps_per_epoch=4, seed=0)
         step = make_moma_train_step(cfg, augment_fns(cfg)[0],
                                     kl_train_bn_override=True,
                                     cross_arch=state.ema is not None)
-        state, m = step(state, to_device(batch, device),
-                        torch.Generator().manual_seed(5))
+        mode = (QuantTies(ties.qs if ties else None)
+                if "--teacher_quant" in extra
+                else contextlib.nullcontext())
+        with mode:
+            state, m = step(state, to_device(batch, device),
+                            torch.Generator().manual_seed(5))
+        ties = mode if "--teacher_quant" in extra else None
         out[dev] = (m, state)
+    if ties is not None and ties.calls != len(ties.qs):
+        raise AssertionError(f"step parity: {ties.calls} quantizations on "
+                             f"the card, {len(ties.qs)} on the CPU")
     torch.backends.cudnn.allow_tf32 = True
     (mc, sc), (mg, sg) = out["cpu"], out["cuda"]
     for k in ("loss", "loss_cls", "loss_div", "loss_kd"):
@@ -1193,16 +1485,21 @@ def phase_step_parity(mem="MoCo", attn="self", nce_k="64", extra=()):
         f"{float(mc['loss']):.6f} vs {float(mg['loss']):.6f}; loss_kd "
         f"{float(mc['loss_kd']):.6f} vs {float(mg['loss_kd']):.6f}; student "
         f"{'and EMA copy ' if sc.ema is not None else ''}params max rel "
-        f"diff {worst:.2e}; queue max diff {qerr:.2e}")
+        f"diff {worst:.2e}; queue max diff {qerr:.2e}"
+        + (f"; {len(ties.qs)} int8 quantizations on the CPU's side, "
+           f"{ties.flips} values at half-step edges" if ties else ""))
 
 
 def expected_launches(state, n, flash_per_step=0, fused=False, ra=2,
-                      accum=1):
+                      accum=1, int8=False):
     """The kernel launches of an epoch of n steps of the 'exact' schedule
     on the state's model (and the number of its student's BatchNorms);
     `ra` RandAugment layers a step (0 on the CIFAR augment).  `accum`: the
     --grad_accum microbatches, each its own augment and its own student,
-    KL and key forwards."""
+    KL and key forwards.  `int8`: --teacher_quant int8, every convolution
+    of the teacher forwards (both a step; cross-arch the KL forward) one
+    int8_quantize and one int8_conv_gemm or, depthwise, int8_conv_dw;
+    without it no int8 kernel runs."""
     n_bn = sum(1 for m in state.student.modules()
                if type(m).__name__ == "FusedBatchNorm")
     # first batch: eval-BN KL forward ('exact'), so student + key forwards;
@@ -1225,6 +1522,13 @@ def expected_launches(state, n, flash_per_step=0, fused=False, ra=2,
                      "k1_expand_stats": n_exp * (2 * n - 1),
                      "k2_depthwise": len(blocks) * 2 * n,
                      "k4_project": len(blocks) * 2 * n})
+    convs = [m for m in state.teacher.modules()
+             if type(m).__name__ == "Conv2d"] if int8 else []
+    n_dw = sum(1 for m in convs if m.weight.shape[1] == 1)
+    fwd = accum * n * (1 if state.ema is not None else 2)
+    want.update({"int8_quantize": fwd * len(convs),
+                 "int8_conv_gemm": fwd * (len(convs) - n_dw),
+                 "int8_conv_dw": fwd * n_dw})
     return want, n_bn
 
 
@@ -1235,13 +1539,14 @@ MAIN_RUNS = {}
 
 
 def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
-                    fused=False, steps=4, remat=False, accum=1):
+                    fused=False, steps=4, remat=False, accum=1, int8=False):
     """Drive the CLI with `args`; `flash_per_step` launches of each
     flash-attention kernel are expected per step (0 on the MoCo path, whose
     attentions see 64 tokens and stay dense); `fused`: both teacher forwards
     run the fused EfficientNet forward; `remat`: the student's train-mode
     BatchNorms run once more a step, in the backward's replay; `accum`:
-    args hold --grad_accum `accum`."""
+    args hold --grad_accum `accum`; `int8`: args hold --teacher_quant
+    int8."""
     import torch
 
     from moma_tpu_torch.cli import train_student
@@ -1270,7 +1575,7 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
     if state.queue.ptr != (64 * n) % 16384:
         raise AssertionError(f"queue_ptr {state.queue.ptr} != {64 * n}")
     want, n_bn = expected_launches(state, n, flash_per_step, fused,
-                                   accum=accum)
+                                   accum=accum, int8=int8)
     if remat:
         want["channel_sums"] += n_bn * n
     log(f"[{label}] launch counts {counts} (expected {want}, {n_bn} BNs)")
@@ -1289,6 +1594,179 @@ def phase_main_path(args=MAIN_ARGS, label="main", flash_per_step=0,
                         "peak": peak, "counts": counts,
                         "losses": _step_losses(result["run_dir"])[-n:]}
     return counts
+
+# scripts/run_moma.sh's main path with the int8 teacher
+TQ_ARGS = MAIN_ARGS + ["--teacher_quant", "int8", "--trial", "teacher_quant"]
+# the step parity of --teacher_quant int8 on resnet8 too, beside effiB0's
+TQ_PARITY = ("--teacher_quant", "int8", "--model_s", "resnet8", "--model_t",
+             "resnet8")
+
+
+def phase_teacher_quant(batch=64, image=512, dev="cuda"):
+    """The main path with --teacher_quant int8 (TQ_ARGS, 4 steps): launch
+    counts (each teacher conv one int8_quantize and one int8_conv_gemm or
+    int8_conv_dw, two teacher forwards a step), steady step and peak beside
+    the plain MoCo run's; then one teacher forward (train mode, bf16) with
+    and without the int8 convolutions, device time."""
+    import torch
+
+    from moma_tpu_torch.core.quantize import quantized_apply_dynamic
+    from moma_tpu_torch.train.moma import module_forward
+
+    counts = phase_main_path(TQ_ARGS, "teacher_quant", int8=True)
+    r, m = MAIN_RUNS["teacher_quant"], MAIN_RUNS["main"]
+    n = len(r["losses"])
+    log(f"[teacher_quant] steady step {r['steady'] * 1e3:.1f} ms "
+        f"({batch / r['steady']:.1f} img/s) against MoCo's "
+        f"{m['steady'] * 1e3:.1f} ms; peak {r['peak'] / 2 ** 30:.2f} GiB "
+        f"against {m['peak'] / 2 ** 30:.2f}; launches a step: "
+        + ", ".join(f"{k} {counts.get(k, 0) // n}" for k in (
+            "int8_quantize", "int8_conv_gemm", "int8_conv_dw",
+            "channel_sums")))
+    teacher = r["state"].teacher
+    x = torch.randn((batch, image, image, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    quant = quantized_apply_dynamic(module_forward)
+    bufs = [b.clone() for b in teacher.buffers()]
+
+    def fwd(fn):
+        def run():
+            with torch.no_grad():
+                fn(teacher, x, True)
+        return run
+    fp_ms = cuda_time_ms(fwd(module_forward), iters=5)
+    q_ms = cuda_time_ms(fwd(quant), iters=5)
+    with torch.no_grad():
+        for b, old in zip(teacher.buffers(), bufs):
+            b.copy_(old)
+    log(f"[teacher_quant] one teacher forward (train mode, bf16, batch "
+        f"{batch}, {image}^2): int8 convolutions {q_ms:.2f} ms, module "
+        f"convolutions {fp_ms:.2f} ms")
+    del r["state"], teacher, x
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the serving artifacts of effiB0 at 512^2 (prostate_hv's 4 classes, bf16)
+SERVE_MODES = (("bf16", ["--bf16"]),
+               ("int8_bf16", ["--int8", "--calib_n", "2", "--bf16"]),
+               ("int8_dynamic_bf16", ["--int8_dynamic", "--bf16"]),
+               ("int8_weights_bf16", ["--int8_weights", "--bf16"]))
+SERVE_BATCHES = 50   # cli.serve's timed run: 50 batches of --bs
+
+
+def _serving_run(root, image, dev):
+    """A run directory whose best_acc.pt holds effiB0 (seed 0, 4 classes)
+    with BatchNorm statistics of one train-mode batch of noise images
+    (momentum 0 for that batch): at a fresh init's statistics the eval
+    forward's features vanish and the logits are the classifier's bias,
+    which would hide every quantization error."""
+    import numpy as np
+    import torch
+
+    from moma_tpu_torch.data import augment as aug
+    from moma_tpu_torch.models import create_model
+    from moma_tpu_torch.ops.fused_bn import FusedBatchNorm
+
+    model = create_model("effiB0", 4,
+                         generator=torch.Generator().manual_seed(0)).to(
+        dev, memory_format=torch.channels_last)
+    for m in model.modules():
+        if isinstance(m, FusedBatchNorm):
+            m.momentum = 0.0
+    x = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (16, image, image, 3), np.uint8)).to(dev)
+    with torch.no_grad():
+        model.train()(aug.normalize(x, aug.IMAGENET_MEAN, aug.IMAGENET_STD))
+    os.makedirs(os.path.join(root, "ckpt"), exist_ok=True)
+    torch.save({"teacher": model.state_dict()},
+               os.path.join(root, "ckpt", "best_acc.pt"))
+    return root
+
+
+def phase_serving(image=512, bs=64, dev="cuda"):
+    """effiB0@512^2 (_serving_run's weights) exported by cli.export_model on
+    the card in each of SERVE_MODES, then: file size, export time, load time
+    (ExportedClassifier, with its first batch of 8), its logits on those 8
+    against the live module it was exported from (export_model.served_model:
+    the same kernels; --verify's bounds) and against the live bf16 module
+    (relative L2: the quantization's error), and cli.serve's loop on the
+    loaded artifact over SERVE_BATCHES batches of synthetic images at
+    --bs 64 after one untimed batch (img/s; host work: the images' copy,
+    the softmax and the CSV), with the int8 kernels' launches a batch (81
+    quantize, 65 gemm, 16 depthwise for the activation-quantized
+    artifacts, none else)."""
+    import numpy as np
+    import torch
+
+    from moma_tpu_torch.cli import export_model, serve
+    from moma_tpu_torch.core.export import ExportedClassifier
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    run = _serving_run(os.path.join(SAVE_ROOT, "serve_run"), image, dev)
+    base = ["--model", "effiB0", "--n_cls", "4", "--dataset", "prostate_hv",
+            "--image_size", str(image), "--device", dev, "--run", run]
+    x = np.random.RandomState(5).randint(0, 256, (8, image, image, 3),
+                                         np.uint8)
+    ref = None
+    for label, flags in SERVE_MODES:
+        argv = base + flags + ["--out", os.path.join(SAVE_ROOT,
+                                                     f"serve_{label}")]
+        t0 = time.perf_counter()
+        path = export_model.main(argv)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clf = ExportedClassifier(path)
+        got = clf(x).float()
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        _, served, norm, _ = export_model.served_model(
+            export_model.build_parser().parse_args(argv), torch.device(dev))
+        with torch.no_grad():
+            live = served(norm(torch.from_numpy(x).to(dev)))[1].float()
+        if ref is None:
+            ref = live   # the bf16 module (SERVE_MODES[0])
+        got, live_np, ref_np = (t.cpu().numpy() for t in (got, live, ref))
+        rel_live = float(np.linalg.norm(got - live_np)
+                         / np.linalg.norm(live_np))
+        rel_bf16 = float(np.linalg.norm(got - ref_np) / np.linalg.norm(ref_np))
+        quantized = label != "bf16"
+        if not (rel_live < 0.05 if quantized else
+                np.allclose(got, live_np, rtol=1e-4, atol=1e-4)):
+            raise AssertionError(f"serving {label}: the artifact is "
+                                 f"{rel_live:.3e} (rel L2) off its live module")
+        out_csv = os.path.join(SAVE_ROOT, f"serve_{label}.csv")
+        serve.run(clf, serve.build_parser().parse_args([   # warm-up
+            "--artifact", path, "--synthetic", str(bs), "--bs", str(bs),
+            "--out", out_csv]))
+        batches = SERVE_BATCHES
+        reset_launch_counts()
+        res = serve.run(clf, serve.build_parser().parse_args([
+            "--artifact", path, "--synthetic", str(batches * bs), "--bs",
+            str(bs), "--out", out_csv]))
+        counts = launch_counts()
+        act = label in ("int8_bf16", "int8_dynamic_bf16")
+        want = {"int8_quantize": 81 * batches if act else 0,
+                "int8_conv_gemm": 65 * batches if act else 0,
+                "int8_conv_dw": 16 * batches if act else 0}
+        for k, v in want.items():
+            if counts.get(k, 0) != v:
+                raise AssertionError(f"serving {label}: {k} launched "
+                                     f"{counts.get(k, 0)} times, not {v}")
+        if res["n"] != batches * bs or not np.isfinite(got).all():
+            raise AssertionError(f"serving {label}: {res}")
+        log(f"[serving] ({CARD}) effiB0@{image}^2 {label}: "
+            f"{os.path.getsize(path) / 1e6:.1f} MB, export {export_s:.1f} s, "
+            f"load + first batch of 8 {load_s:.2f} s; logits rel L2 "
+            f"{rel_live:.3e} from its live module, {rel_bf16:.3e} from the "
+            f"live bf16 module; cli.serve --bs {bs}, {batches} batches: "
+            f"{res['img_per_s']:.1f} img/s; launches {counts}")
+        del clf, served
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[serving] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
 
 # phase_packed: a seeded JPEG tree in imagefolder layout (train/<class>/,
 # val/<class>/), every source 600^2 so the pack's resize runs
@@ -3823,6 +4301,8 @@ def _rank_big_vit(rank, world, dev="cuda"):
     model rank, float32 (TF32 off) and bf16: the outputs (rank 0 also the
     dense forward's), the forward's time, the block bytes this rank holds
     and the forward's collectives."""
+    import copy
+
     import torch
 
     from moma_tpu_torch.core.mesh import (comm_counts, create_mesh,
@@ -3844,12 +4324,15 @@ def _rank_big_vit(rank, world, dev="cuda"):
              - 2).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
+            base = create_model(
+                BIG_VIT, 1000, dtype if dtype != torch.float32 else None,
+                generator=torch.Generator().manual_seed(0),
+                image_size=BIG_IMAGE).eval()
 
             def dense():
-                return create_model(
-                    BIG_VIT, 1000, dtype if dtype != torch.float32 else None,
-                    generator=torch.Generator().manual_seed(0),
-                    image_size=BIG_IMAGE).to(dev).eval()
+                """The seeded dense model on the device: a copy of `base`,
+                built once on the host (a route takes its blocks apart)."""
+                return copy.deepcopy(base).to(dev)
 
             def timed(model, together=True):
                 """The outputs, time and collectives of one forward (the
@@ -3885,6 +4368,7 @@ def _rank_big_vit(rank, world, dev="cuda"):
                     else None, "s": ms, "bytes": model.block_bytes(),
                     "comm": comm, "peak": _peak(dev)}
                 del model
+            del base
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
@@ -4142,25 +4626,47 @@ def main() -> int:
         shutil.rmtree(top, ignore_errors=True)
 
 
+def _timed(phase, *args, **kwargs):
+    """phase(*args, **kwargs), its wall time logged."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args, **kwargs)
+    finally:
+        label = " ".join(a for a in args if isinstance(a, str))
+        log(f"[time] {phase.__name__} {label}: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def _run(name_power, t0) -> int:
     import torch
 
-    phase_build()
+    _timed(phase_build)
     results = {}
-    phase_bn_kernels(results)
-    phase_bn_forward()
-    phase_bn_forward(image=224)
-    phase_ra_kernel(results)
-    phase_ra_kernel({}, shape=RA_SHAPE_224)
-    phase_augment_launches()
-    phase_flash_kernels(results)
-    phase_fe_kernels(results)
-    phase_fe_forward()
-    phase_step_parity()
-    phase_step_parity("MoCoAtt", "all", "2048")
-    phase_step_parity(extra=("--fused_teacher", "on"))
-    phase_step_parity(extra=("--model_t", "vit_small_patch16_224"))
-    counts = phase_main_path()
+    built("fused_bn")
+    _timed(phase_bn_kernels, results)
+    _timed(phase_bn_forward)
+    _timed(phase_bn_forward, image=224)
+    built("int8_conv")
+    _timed(phase_int8_kernels, results)
+    built("flash_attention")
+    _timed(phase_flash_kernels, results)
+    built("fused_effnet")
+    _timed(phase_fe_kernels, results)
+    _timed(phase_fe_forward)
+    built("randaugment")
+    _timed(phase_ra_kernel, results)
+    _timed(phase_ra_kernel, {}, shape=RA_SHAPE_224)
+    _timed(phase_augment_launches)
+    _timed(phase_build_report)
+    _timed(phase_step_parity)
+    _timed(phase_step_parity, "MoCoAtt", "all", "2048")
+    _timed(phase_step_parity, extra=("--fused_teacher", "on"))
+    _timed(phase_step_parity, extra=("--model_t", "vit_small_patch16_224"))
+    _timed(phase_step_parity, extra=("--teacher_quant", "int8"))
+    _timed(phase_step_parity, extra=TQ_PARITY)
+    counts = _timed(phase_main_path)
+    tq_counts = _timed(phase_teacher_quant)
+    _timed(phase_serving)
     main = MAIN_RUNS["main"]
     # what phase_nccl_one_rank's MoCo run is held to (phase_packed frees
     # the main run's state)
@@ -4168,23 +4674,25 @@ def _run(name_power, t0) -> int:
         "losses": main["losses"], "steady": main["steady"],
         "queue_ptr": main["state"].queue.ptr,
         "launches": expected_launches(main["state"], len(main["losses"]))[0]}
-    accum_counts = phase_grad_accum()
-    dp_counts = phase_two_ranks()
-    mp_counts, tp_row = phase_model_axis()
-    tp_counts = phase_teacher_parallel(tp_row)
-    att_counts = phase_main_path(MOCOATT_ARGS, "mocoatt", flash_per_step=1)
-    fused_counts = phase_main_path(FUSED_ARGS, "fused_teacher", fused=True)
-    packed_counts = phase_packed()
-    phase_persistence()
-    cross_counts = phase_cross_arch()
-    moe_counts = phase_moe()
-    teacher_best, teacher_counts = phase_teacher()
-    cmp_counts = phase_comparison(teacher_best)
-    cmp2_counts = phase_comparison_ranks(teacher_best)
-    phase_nccl_one_rank()
-    zoo_counts = phase_zoo(results)
+    accum_counts = _timed(phase_grad_accum)
+    dp_counts = _timed(phase_two_ranks)
+    mp_counts, tp_row = _timed(phase_model_axis)
+    tp_counts = _timed(phase_teacher_parallel, tp_row)
+    att_counts = _timed(phase_main_path, MOCOATT_ARGS, "mocoatt",
+                        flash_per_step=1)
+    fused_counts = _timed(phase_main_path, FUSED_ARGS, "fused_teacher",
+                          fused=True)
+    packed_counts = _timed(phase_packed)
+    _timed(phase_persistence)
+    cross_counts = _timed(phase_cross_arch)
+    moe_counts = _timed(phase_moe)
+    teacher_best, teacher_counts = _timed(phase_teacher)
+    cmp_counts = _timed(phase_comparison, teacher_best)
+    cmp2_counts = _timed(phase_comparison_ranks, teacher_best)
+    _timed(phase_nccl_one_rank)
+    zoo_counts = _timed(phase_zoo, results)
     # a kernel's launches: those of the first main path that runs it
-    for later in (accum_counts, dp_counts, att_counts, fused_counts,
+    for later in (tq_counts, accum_counts, dp_counts, att_counts, fused_counts,
                   packed_counts, cross_counts, moe_counts, teacher_counts,
                   cmp_counts, cmp2_counts, zoo_counts, mp_counts, tp_counts):
         counts.update({k: v for k, v in later.items() if not counts.get(k)})

@@ -228,8 +228,6 @@ def check_slice(cfg: Config, supervised: bool = False) -> None:
             bad.append(f"--attn {m.attn} (known: {ATTN_MODES})")
         if cfg.model_t is None:
             bad.append("distillation without a teacher")
-        if m.teacher_quant != "none":
-            bad.append("--teacher_quant (Queue 1 item [6])")
     if bad:
         raise NotImplementedError(
             "not ported to moma_tpu_torch yet (see ROADMAP.md): "

@@ -29,10 +29,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "moma_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# per-source extra flags: the RandAugment kernel must round exactly like
-# its plain version, so a*b+c is never contracted into one FMA there
+# per-source extra flags: the RandAugment and int8 kernels must round
+# exactly like their plain versions, so a*b+c is never contracted into one
+# FMA there
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "randaugment": ("-fmad=false",),
+    "int8_conv": ("-fmad=false",),
 }
 
 _BUILD_SECONDS: Dict[str, float] = {}

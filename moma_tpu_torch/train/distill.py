@@ -8,7 +8,8 @@ semckd, srrl, simkd, ab, fsp, ft), `make_classifier_apply` (:261),
 `make_simkd_eval_step` (:275) and `make_distill_train_step` (:325).
 
 Loss contract: total = cls*CE + div*KL(T) + beta*loss_kd.  The teacher
-runs frozen in eval mode without gradients; the student and the aux
+runs frozen in eval mode without gradients (under `--teacher_quant int8`
+its convolutions in int8, core/quantize.py); the student and the aux
 modules run in train mode, their BN running statistics updated in place
 (every train-mode BatchNorm, the aux modules' too, reduces through the
 channel-sum kernels); the CRD banks are updated in place after scoring.
@@ -44,6 +45,7 @@ from torch import nn
 
 from moma_tpu_torch.core.config import DISTILLERS, Config
 from moma_tpu_torch.core.mesh import data_axis
+from moma_tpu_torch.core.quantize import teacher_apply_for
 from moma_tpu_torch.losses import aux as A
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.losses.crd import CRDMemory, crd_loss
@@ -260,6 +262,10 @@ def make_distill_train_step(distiller: Distiller,
     cfg = distiller.cfg
     c, dv, b = cfg.distill.cls, cfg.distill.div, cfg.distill.beta
     kd_T = cfg.distill.kd_T
+    # --teacher_quant int8: the fixed teacher's forward with dynamic-int8
+    # convolutions (student.py:33-41, :170-174)
+    teacher_forward = teacher_apply_for(lambda model, x: model(x),
+                                        cfg.moma.teacher_quant)
 
     def microbatch(state: DistillState, mb: dict, ax):
         """The microbatch's backward (gradients added to .grad) and its
@@ -267,7 +273,7 @@ def make_distill_train_step(distiller: Distiller,
         images, labels = mb["image"], mb["label"].long()
         with torch.no_grad():
             state.teacher.eval()
-            feat_t, logit_t = state.teacher(images)
+            feat_t, logit_t = teacher_forward(state.teacher, images)
         state.student.train()
         state.aux.train()
         feat_s, logit_s = (rm.checkpoint(state.student, images) if remat

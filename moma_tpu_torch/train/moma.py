@@ -41,7 +41,11 @@ fused forward of ops/fused_effnet.py and its three kernels in place of the
 module forward: the same function by another route
 (train/moma.py:206-212, :321-339, :428-445), in the teacher's compute dtype.
 With `--fast_teacher` the KL logits are the key forward's (unshuffled), so
-a step runs one teacher forward (train/moma.py:192-197, :475-480).
+a step runs one teacher forward (train/moma.py:192-197, :475-480).  With
+`--teacher_quant int8` every convolution of the teacher forwards (steps 1
+and 3; cross-arch, the KL forward only) runs in int8 at its input's own
+scale through the int8 kernels (core/quantize.py, ops/int8_conv.py), as
+JAX's `_teacher_apply` (:137-146); `--fused_teacher on` with it raises.
 
 Cross-arch (`cross_arch=True`, train/moma.py:294-700; `build_state`
 detects it as run_moma does, :1209-1218, when the two backbones'
@@ -108,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import os
 import warnings
 from typing import Callable, List, Optional
@@ -119,6 +124,7 @@ from moma_tpu_torch.core.checkpoint import CheckpointManager, StatsWriter
 from moma_tpu_torch.core.config import Config, check_model_axis, check_slice
 from moma_tpu_torch.core.mesh import (create_mesh, data_axis, is_main,
                                       model_axis, rank_generator, world_axis)
+from moma_tpu_torch.core.quantize import teacher_apply_for
 from moma_tpu_torch.core.schedules import lr_schedule
 from moma_tpu_torch.losses import functional as F
 from moma_tpu_torch.models import create_model
@@ -326,15 +332,24 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
     bn_mode = cfg.run.bn
     M = int(cfg.run.grad_accum)
     use_fused = cfg.moma.fused_teacher == "on" and not cross_arch
+    # --teacher_quant int8: the teacher forwards that JAX routes through
+    # state.teacher_apply_fn (_teacher_apply, train/moma.py:137-146) run
+    # with dynamic-int8 convolutions, both in the same-arch step (KL and
+    # key forwards), the KL forward in the cross-arch one (its keys come
+    # from the EMA copy, state.apply_fn there); JAX's refusals first
+    quantized = functools.partial(
+        teacher_apply_for, teacher_quant=cfg.moma.teacher_quant,
+        fused_conflict=cfg.moma.fused_teacher == "on")
+    kl_forward = quantized(module_forward)
     if cross_arch:
         # the KL teacher is not the momentum encoder: no forward to share,
         # and the fused forward's EfficientNet teacher path is off
         # (build_state says so)
         fast_teacher = False
-        teacher_forward = module_forward
+        key_forward = module_forward
     else:
         fast_teacher = cfg.moma.fast_teacher
-        teacher_forward = make_teacher_forward(cfg)
+        kl_forward = key_forward = quantized(make_teacher_forward(cfg))
     kl_bn_mode = cfg.moma.kl_teacher_bn
     if kl_bn_mode not in ("train", "eval", "exact"):
         raise ValueError(f"unknown kl_teacher_bn {kl_bn_mode!r}")
@@ -512,7 +527,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
         # logits stand in); cross-arch: the fixed teacher in eval mode
         if not fast_teacher:
             with torch.no_grad():
-                pooled_t, logit_t = teacher_forward(
+                pooled_t, logit_t = kl_forward(
                     teacher, images, kl_train_bn and not cross_arch)
 
         # 2. EMA from the pre-step student
@@ -533,8 +548,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 key_images = all_images[ax.local_slice(perm, B)]
             else:
                 key_images = images
-            pooled_key, logit_key = teacher_forward(momentum, key_images,
-                                                    True)
+            pooled_key, logit_key = key_forward(momentum, key_images, True)
             key_head.eval()  # the momentum head runs in eval mode
             k_emb = key_head(pooled_key)
             if shuffle_bn:
@@ -619,7 +633,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                       else raw[r])
                 if kl_writes:
                     _restore(m_bufs, pre)
-                p_t, l_t = teacher_forward(teacher, im, kl_writes)
+                p_t, l_t = kl_forward(teacher, im, kl_writes)
                 if kl_writes:
                     after_kl.append(_snapshot(m_bufs))
                 images.append(im)
@@ -646,7 +660,7 @@ def make_moma_train_step(cfg: Config, augment_fn: Optional[Callable],
                 _restore(m_bufs, after_kl[i] if after_kl else pre)
                 key_images = (all_images[perm[own[i]]] if shuffle_bn
                               else images[i])
-                pooled_key, _ = teacher_forward(momentum, key_images, True)
+                pooled_key, _ = key_forward(momentum, key_images, True)
                 key_head.eval()  # the momentum head runs in eval mode
                 keys.append(key_head(pooled_key))
                 after_key.append(_snapshot(m_bufs))

@@ -84,10 +84,9 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
         "scalars.jsonl", "stat.json"]
 
 
-# --grad_accum with --model_parallel is ported ([5b-accum]): the third and
-# sixth cases pair the model axis with choices still refused by name.  The
-# MoE ViTs are ported ([5b-teachers] (a, d)): the cases that name one parse
-# as the JAX package parses them
+# --grad_accum with --model_parallel is ported ([5b-accum]), and so are the
+# MoE ViTs ([5b-teachers] (a, d)) and --teacher_quant ([6]): the cases that
+# name one parse as the JAX package parses them; the first two stay refused
 @pytest.mark.parametrize("extra", [
     ["--distill", "kd_zoo"], ["--attn", "selff"],
     ["--model_parallel", "2", "--teacher_quant", "int8"],
@@ -98,14 +97,14 @@ def test_cli_writes_nothing_outside_save_dir(small_sets, tmp_path,
 ])
 def test_choices_outside_the_slice_raise(extra):
     argv = [a for a in ARGS if a != "--synthetic"]  # a CLI-only flag
-    if not any("_moe_" in a for a in extra):
+    if not any("_moe_" in a or a == "--teacher_quant" for a in extra):
         with pytest.raises(NotImplementedError):
             parse_student_args(argv + extra)
         return
     got = parse_student_args(argv + extra)
     want = j_parse_student_args(
         [a for a in argv if a not in ("--device", "cpu")] + extra)
-    for part in ("model_s", "model_t", "run"):
+    for part in ("model_s", "model_t", "run", "moma"):
         assert _fields(getattr(got, part)) == _fields(getattr(want, part)), \
             part
 
@@ -116,19 +115,13 @@ def test_choices_outside_the_slice_raise(extra):
 ])
 def test_fused_teacher_keeps_the_reference_refusals(extra):
     """--fused_teacher on is a one-device path: with gradient accumulation,
-    per-device BN or the int8 teacher the JAX package raises too.  The
-    int8 teacher is not ported (the parser refuses it); the others are
-    refused where JAX refuses them, when the step is built, with JAX's
-    messages."""
+    per-device BN or the int8 teacher the JAX package raises too, and so
+    does the port, when the step is built, with JAX's messages."""
     from moma_tpu_torch.train.moma import make_moma_train_step
 
     argv = [a for a in ARGS if a != "--synthetic"]
     assert parse_student_args(
         argv + ["--fused_teacher", "on"]).moma.fused_teacher == "on"
-    if "--teacher_quant" in extra:
-        with pytest.raises(NotImplementedError):
-            parse_student_args(argv + ["--fused_teacher", "on"] + extra)
-        return
     cfg = parse_student_args(argv + ["--fused_teacher", "on"] + extra)
     with pytest.raises(ValueError,
                        match="fused_teacher|nest two rank semantics"):

@@ -1325,3 +1325,78 @@ def test_moe_vit_cuda_matches_cpu(dev, monkeypatch):
         gap = float((got[name].float().cpu() - w).abs().max()) / float(
             w.abs().max())
         assert gap <= 1e-4, (name, gap)
+
+
+# the int8 kernels (csrc/int8_conv.cu): ragged and small shapes through
+# every load width (16-, 4- and 1-byte patch loads; the depthwise kernel's
+# 4-channel and one-element routes), groups, padding kinds, strides,
+# biases and both output dtypes, each held to 0 error against the plain
+# version; chip_smoke.py holds the main path's shapes
+_INT8_CONVS = [
+    # (N, Cin, H, W), Cout, k, stride, groups, pads (t, b, l, r), bias
+    ((3, 32, 9, 7), 40, 1, 1, 1, (0, 0, 0, 0), False),
+    ((2, 3, 17, 16), 8, 3, 2, 1, (0, 1, 0, 1), False),
+    ((2, 16, 8, 8), 16, 3, 1, 1, (1, 1, 1, 1), True),
+    ((2, 12, 6, 6), 24, 1, 1, 3, (0, 0, 0, 0), True),
+    ((2, 6, 9, 9), 9, 3, 1, 3, (1, 1, 1, 1), False),
+    ((5, 70, 1, 1), 130, 1, 1, 1, (0, 0, 0, 0), True),
+    ((2, 24, 9, 9), 24, 5, 2, 24, (1, 2, 1, 2), False),
+    ((2, 96, 16, 16), 96, 3, 1, 96, (1, 1, 1, 1), True),
+    ((2, 3, 9, 9), 6, 3, 1, 3, (1, 1, 1, 1), True),
+    ((3, 6, 8, 8), 6, 3, 2, 6, (0, 1, 0, 1), False),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_INT8_CONVS)))
+def test_int8_kernels_match_plain(dev, case):
+    from moma_tpu_torch.core.quantize import _kernel_int8
+    from moma_tpu_torch.ops import int8_conv as IC
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    shape, cout, k, s, groups, pads, bias = _INT8_CONVS[case]
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(case)
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        w = torch.randn((cout, shape[1] // groups, k, k), generator=g,
+                        device=dev)
+        b = (torch.randn((cout,), generator=g, device=dev) if bias
+             else None)
+        q_w, s_w = _kernel_int8(w)
+        reset_launch_counts()
+        for scale in (None, torch.full((), 0.021, device=dev)):
+            q, s_x = IC.int8_quantize(x, scale)
+            qp, sp = IC.quantize_plain(x, scale)
+            assert torch.equal(q, qp) and torch.equal(s_x, sp), case
+            args = (q, q_w, s_x, s_w, b, [s, s], list(pads), [1, 1],
+                    groups, dtype)
+            got, want = IC.int8_conv2d(*args), IC.conv_plain(*args)
+            assert got.stride() == want.stride(), case
+            assert torch.equal(got, want), (case, dtype)
+        kind = ("int8_conv_dw" if shape[1] == groups
+                else "int8_conv_gemm")
+        assert launch_counts() == {"int8_quantize": 2, kind: 2}, case
+
+
+def test_int8_artifact_exports_and_serves_on_the_card(dev, tmp_path):
+    """An --int8 artifact of effiB0 exported on the card, reloaded and run:
+    the kernels launch inside the reloaded program, and its logits equal
+    the live quantized model's."""
+    import numpy as np
+
+    from moma_tpu_torch.cli.export_model import main as export
+    from moma_tpu_torch.core.export import ExportedClassifier
+    from moma_tpu_torch.runtime import launch_counts, reset_launch_counts
+
+    path = export(["--model", "effiB0", "--n_cls", "4", "--image_size", "64",
+                   "--dataset", "prostate_hv", "--int8", "--calib_n", "1",
+                   "--out", str(tmp_path / "e"), "--verify"])
+    clf = ExportedClassifier(path)
+    assert clf.device.type == "cuda" and clf.meta["device"] == "cuda:0"
+    reset_launch_counts()
+    x = np.random.RandomState(0).randint(0, 256, (5, 64, 64, 3), np.uint8)
+    logits = clf(x)
+    torch.cuda.synchronize()
+    assert logits.shape == (5, 4) and bool(torch.isfinite(logits).all())
+    assert launch_counts() == {"int8_quantize": 81, "int8_conv_gemm": 65,
+                               "int8_conv_dw": 16}

@@ -34,8 +34,7 @@ tests (and by the xdist workers, torch_port_helpers.run_once):
   (v)   the 2-rank --bn global --grad_accum 2 step against JAX's
         accumulated step on 2 devices and the port's one-process step.
 
-Plus (vi) the JAX package's ValueErrors and the refusals by name
-(--teacher_parallel expert, [5b-teachers]; --teacher_quant, [6]), and
+Plus (vi) the JAX package's ValueErrors and the grid size, and
 (vii) [5b-accum]: --grad_accum 2 over the split bank, MoCo on the
 (2 x 2) grid and MoCoSSTT and MoCoAtt 'all' (the ring) on a (1 x 2) one,
 against JAX's accumulated step with the bank sharded over 'model' on the
@@ -752,12 +751,12 @@ def test_model_axis_refusals_at_mp1_carry_the_jax_messages(tmp_path):
 def test_refusals_by_name_and_the_grid_size():
     from moma_tpu_torch.core.mesh import create_mesh
 
-    # [5b-accum] is ported: --grad_accum with --model_parallel parses;
-    # --teacher_quant stays refused by name
+    # [5b-accum] and [6] are ported: --grad_accum and --teacher_quant with
+    # --model_parallel parse
     cfg = _cfg("--model_parallel", "2", "--grad_accum", "2")
     assert (cfg.run.model_parallel, cfg.run.grad_accum) == (2, 2)
-    with pytest.raises(NotImplementedError, match=r"\[6\]"):
-        _cfg("--model_parallel", "2", "--teacher_quant", "int8")
+    cfg = _cfg("--model_parallel", "2", "--teacher_quant", "int8")
+    assert (cfg.run.model_parallel, cfg.moma.teacher_quant) == (2, "int8")
     assert _cfg("--model_parallel", "2").run.model_parallel == 2
     with pytest.raises(ValueError) as port_err:
         create_mesh(2)

@@ -106,13 +106,14 @@ def test_imports_and_one_step_with_jax_blocked():
 def test_no_library_kernel_or_fallback_in_the_port():
     for path in PKG.rglob("*.py"):
         src = path.read_text()
-        for banned in ("scaled_dot_product_attention", "torch.compile"):
+        for banned in ("scaled_dot_product_attention", "torch.compile",
+                       "_int_mm", "torch.ao"):
             assert banned not in src, f"{banned} in {path}"
     for path in (PKG / "ops").glob("*.py"):
         assert "try:" not in path.read_text(), f"try: in {path}"
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
         "bn_sums.cu", "flash_attention.cu", "fused_effnet.cu",
-        "randaugment.cu"]
+        "int8_conv.cu", "randaugment.cu"]
 
 
 def test_no_source_of_the_port_imports_the_jax_package():

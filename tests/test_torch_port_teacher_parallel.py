@@ -739,7 +739,7 @@ def test_refusals_carry_the_jax_messages():
 
 def test_check_functions_carry_the_jax_messages():
     """check_tp_teacher / check_pp_teacher called directly: a non-ViT and
-    --teacher_quant, which check_slice refuses by name before them."""
+    --teacher_quant; then --teacher_quant through check_model_axis."""
     mesh = j_create_mesh(jax.devices()[:2], model_parallel=2)
     resnet, j_resnet = (create_model("resnet8", N_CLS),
                         j_create_model("resnet8", num_classes=N_CLS))
@@ -757,17 +757,20 @@ def test_check_functions_carry_the_jax_messages():
         with pytest.raises(ValueError) as got:
             port_fn()
         assert str(got.value) == str(want.value)
-    # check_ep_teacher's --teacher_quant message (check_slice refuses
-    # --teacher_quant by name before check_model_axis sees it)
+    # check_ep_teacher's --teacher_quant message, called directly and
+    # through check_model_axis (as JAX's run_moma reaches it)
     with pytest.raises(ValueError) as want:
         _jax_ep(_jmoe(), "int8")()
     with pytest.raises(ValueError) as got:
         check_ep_teacher(_moe(), 2, "int8")
     assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as got:
+        port_config.check_model_axis(
+            _cfg("--teacher_quant", "int8", "--teacher_parallel", "expert"),
+            True, _moe(), 1)
+    assert str(got.value) == str(want.value)
     assert _cfg("--model_t", "vit_tiny_moe_patch16_224").model_t.name == (
         "vit_tiny_moe_patch16_224")
-    with pytest.raises(NotImplementedError, match=r"\[6\]"):
-        _cfg("--teacher_quant", "int8")
     # the routes JAX takes are accepted: TP (+SP), PP, EP, a whole teacher
     # (a MoE ViT under --teacher_parallel tensor too)
     for extra, teacher in ((["--sequence_parallel"], _vit),
